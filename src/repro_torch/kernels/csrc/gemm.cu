@@ -1,0 +1,216 @@
+// Tiled GEMM for Hopper (sm_90a): C[z] = A[z] @ B[z], fp32 accumulation.
+//
+// Replaces the reference's Pallas TPU kernel `gemm_kernel` / `pallas_gemm`
+// (src/repro/kernels/gemm.py).  There the sequential k grid axis carried an
+// fp32 VMEM accumulator from one grid step to the next and operands were
+// zero-padded to 128-tiles.  Here blocks run in parallel in no order, so the
+// k loop lives inside the block: each block stages (BM x BK) and (BK x BN)
+// operand tiles in shared memory, accumulates in fp32 registers and writes
+// each output element exactly once, in the output type.  Ragged edges are
+// masked in the tile loads and the store; no operand is padded or copied.
+//
+// Arithmetic: operands are widened to fp32 on load and every product is a
+// true fp32 FMA on the CUDA cores (no TF32, no tensor cores), so an f32 GEMM
+// matches the fp32 reference to ~1e-6 relative and bf16 inputs accumulate in
+// fp32.  The result is rounded once (round-to-nearest-even for bf16).
+//
+// What bounds it on an H100: at the serving shapes (m = batch = 8, k = 4096
+// or 11008, n up to 64000) a GEMM does 2*m FLOPs per weight element it
+// reads, far below the card's ~295 FLOP/byte ridge, so the bound is the
+// bytes of B over 3.35 TB/s.  The skinny kernel below is shaped for that:
+// one block covers all (up to 8) rows and 32 columns, eight warps split the
+// k range so each block keeps eight independent rows of B in flight, and
+// the eight partial sums are reduced through shared memory before the one
+// store.  For m > 16 the generic 64x64 register-tiled kernel is used.
+// Both take a batch index (blockIdx.z) with batch strides, so a batched
+// GEMM is a wrapper over the same kernels.
+//
+// Plain C interface, built by nvcc into a shared library and called through
+// ctypes (see ../_build.py).  The launch never synchronises; it returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+struct GemmArgs {
+  int M, N, K;
+  long long sa_b, sa_m, sa_k;   // A strides (elements): batch, row, k
+  long long sb_b, sb_k, sb_n;   // B strides: batch, k, column
+  long long sc_b, sc_m;         // C strides: batch, row (column stride 1)
+};
+
+// ---- generic register-tiled kernel (m > 16) --------------------------------
+constexpr int TB_M = 64, TB_N = 64, TB_K = 16, TT_M = 4, TT_N = 4;
+constexpr int TB_THREADS = (TB_M / TT_M) * (TB_N / TT_N);   // 256
+
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(TB_THREADS)
+gemm_tiled(const TI* __restrict__ A, const TI* __restrict__ B,
+           TO* __restrict__ C, GemmArgs g) {
+  // As is stored k-major with one pad column so the transposing store of a
+  // row-major A tile is free of bank conflicts.
+  __shared__ float As[TB_K][TB_M + 1];
+  __shared__ float Bs[TB_K][TB_N];
+  const long long z = blockIdx.z;
+  A += z * g.sa_b;
+  B += z * g.sb_b;
+  C += z * g.sc_b;
+  const int m0 = blockIdx.y * TB_M, n0 = blockIdx.x * TB_N;
+  const int tid = threadIdx.x;
+  constexpr int COLS = TB_N / TT_N;   // threads along n
+  constexpr int ROWS = TB_M / TT_M;   // threads along m
+  const int tr = tid / COLS, tc = tid % COLS;
+
+  float acc[TT_M][TT_N];
+#pragma unroll
+  for (int i = 0; i < TT_M; ++i)
+#pragma unroll
+    for (int j = 0; j < TT_N; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < g.K; k0 += TB_K) {
+    for (int i = tid; i < TB_M * TB_K; i += TB_THREADS) {
+      const int r = i / TB_K, kk = i % TB_K;
+      const int gm = m0 + r, gk = k0 + kk;
+      As[kk][r] = (gm < g.M && gk < g.K) ? to_f32(A[gm * g.sa_m + gk * g.sa_k]) : 0.f;
+    }
+    for (int i = tid; i < TB_K * TB_N; i += TB_THREADS) {
+      const int kk = i / TB_N, c = i % TB_N;
+      const int gk = k0 + kk, gn = n0 + c;
+      Bs[kk][c] = (gk < g.K && gn < g.N) ? to_f32(B[gk * g.sb_k + gn * g.sb_n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TB_K; ++kk) {
+      float a[TT_M], b[TT_N];
+#pragma unroll
+      for (int i = 0; i < TT_M; ++i) a[i] = As[kk][tr + i * ROWS];
+#pragma unroll
+      for (int j = 0; j < TT_N; ++j) b[j] = Bs[kk][tc + j * COLS];
+#pragma unroll
+      for (int i = 0; i < TT_M; ++i)
+#pragma unroll
+        for (int j = 0; j < TT_N; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TT_M; ++i) {
+    const int gm = m0 + tr + i * ROWS;
+    if (gm >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < TT_N; ++j) {
+      const int gn = n0 + tc + j * COLS;
+      if (gn < g.N) C[gm * g.sc_m + gn] = from_f32<TO>(acc[i][j]);
+    }
+  }
+}
+
+// ---- skinny kernel (m <= 16): memory-bound on B ----------------------------
+constexpr int SK_M = 8;        // rows per block (grid.y covers the rest)
+constexpr int SK_N = 32;       // columns per block: one per lane
+constexpr int SK_WARPS = 8;    // warps split k
+constexpr int SK_K = 64;       // k rows of B per shared A tile
+constexpr int SK_THREADS = SK_WARPS * 32;
+
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(SK_THREADS)
+gemm_skinny(const TI* __restrict__ A, const TI* __restrict__ B,
+            TO* __restrict__ C, GemmArgs g) {
+  __shared__ float As[SK_M][SK_K];
+  __shared__ float red[SK_WARPS][SK_M][SK_N];
+  const long long z = blockIdx.z;
+  A += z * g.sa_b;
+  B += z * g.sb_b;
+  C += z * g.sc_b;
+  const int m0 = blockIdx.y * SK_M, n0 = blockIdx.x * SK_N;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gn = n0 + lane;
+  const bool col_ok = gn < g.N;
+
+  float acc[SK_M];
+#pragma unroll
+  for (int r = 0; r < SK_M; ++r) acc[r] = 0.f;
+
+  for (int k0 = 0; k0 < g.K; k0 += SK_K) {
+    for (int i = threadIdx.x; i < SK_M * SK_K; i += SK_THREADS) {
+      const int r = i / SK_K, kk = i % SK_K;
+      const int gm = m0 + r, gk = k0 + kk;
+      As[r][kk] = (gm < g.M && gk < g.K) ? to_f32(A[gm * g.sa_m + gk * g.sa_k]) : 0.f;
+    }
+    __syncthreads();
+    // Warp w takes k rows w, w+8, ...: each iteration is one coalesced row
+    // segment of B (32 columns), eight independent loads per warp per tile.
+    float b[SK_K / SK_WARPS];
+#pragma unroll
+    for (int t = 0; t < SK_K / SK_WARPS; ++t) {
+      const int gk = k0 + w + t * SK_WARPS;
+      b[t] = (col_ok && gk < g.K) ? to_f32(B[gk * g.sb_k + gn * g.sb_n]) : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < SK_K / SK_WARPS; ++t) {
+      const int kk = w + t * SK_WARPS;
+#pragma unroll
+      for (int r = 0; r < SK_M; ++r) acc[r] = fmaf(As[r][kk], b[t], acc[r]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < SK_M; ++r) red[w][r][lane] = acc[r];
+  __syncthreads();
+  // One thread per (row, column) of the block's tile sums the eight k-split
+  // partials and writes the element once.
+  const int r = threadIdx.x / SK_N, c = threadIdx.x % SK_N;
+  float s = 0.f;
+#pragma unroll
+  for (int ww = 0; ww < SK_WARPS; ++ww) s += red[ww][r][c];
+  const int gm = m0 + r, gc = n0 + c;
+  if (gm < g.M && gc < g.N) C[gm * g.sc_m + gc] = from_f32<TO>(s);
+}
+
+template <typename TI, typename TO>
+void launch(const void* a, const void* b, void* c, const GemmArgs& g, int batch,
+            cudaStream_t stream) {
+  const TI* A = static_cast<const TI*>(a);
+  const TI* B = static_cast<const TI*>(b);
+  TO* C = static_cast<TO*>(c);
+  if (g.M <= 16) {
+    dim3 grid((g.N + SK_N - 1) / SK_N, (g.M + SK_M - 1) / SK_M, batch);
+    gemm_skinny<TI, TO><<<grid, SK_THREADS, 0, stream>>>(A, B, C, g);
+  } else {
+    dim3 grid((g.N + TB_N - 1) / TB_N, (g.M + TB_M - 1) / TB_M, batch);
+    gemm_tiled<TI, TO><<<grid, TB_THREADS, 0, stream>>>(A, B, C, g);
+  }
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int
+// (cudaErrorInvalidValue for an unsupported dtype pair).
+extern "C" int repro_gemm(const void* a, const void* b, void* c,
+                          int M, int N, int K, int batch,
+                          long long sa_b, long long sa_m, long long sa_k,
+                          long long sb_b, long long sb_k, long long sb_n,
+                          long long sc_b, long long sc_m,
+                          int in_dtype, int out_dtype, void* stream) {
+  GemmArgs g{M, N, K, sa_b, sa_m, sa_k, sb_b, sb_k, sb_n, sc_b, sc_m};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || batch <= 0) return 0;
+  if (in_dtype == 0 && out_dtype == 0) launch<float, float>(a, b, c, g, batch, s);
+  else if (in_dtype == 0 && out_dtype == 1) launch<float, __nv_bfloat16>(a, b, c, g, batch, s);
+  else if (in_dtype == 1 && out_dtype == 0) launch<__nv_bfloat16, float>(a, b, c, g, batch, s);
+  else if (in_dtype == 1 && out_dtype == 1) launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, g, batch, s);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,33 @@
+"""Lowering table: op name -> hand-written kernel entry point.
+
+The device half of the declarative registry (``repro_torch.core.dispatch``):
+an :class:`~repro_torch.core.dispatch.OffloadOp` descriptor's ``kernel``
+adapter fetches its kernel here by name, so the op table and the kernel
+table stay in one-to-one view.  It has one row for each name whose kernel
+exists in the port; the reference's other rows (``gemm_batched``,
+``moe_gemm``, ``attention``, ``ssd_chunk_diag``, ``ssd_scan``,
+``moe_expert_ffn``) arrive with their kernels (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.gemm import gemm
+
+__all__ = ["KERNEL_LOWERINGS", "kernel_lowering"]
+
+KERNEL_LOWERINGS = {
+    "gemm": gemm,
+    "matmul": gemm,                  # leading dims collapse to GEMM m
+    "qkv_project": gemm,             # concatenated-weight projection GEMM
+    "decode_attention": flash_decode,
+}
+
+
+def kernel_lowering(name: str):
+    try:
+        return KERNEL_LOWERINGS[name]
+    except KeyError:
+        raise KeyError(
+            f"no kernel lowering for op {name!r}; have {sorted(KERNEL_LOWERINGS)}"
+        ) from None

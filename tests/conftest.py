@@ -211,3 +211,11 @@ except ImportError:
     _hyp.strategies = _st
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips without one",
+    )

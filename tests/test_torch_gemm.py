@@ -1,0 +1,140 @@
+"""The port's GEMM against the reference's Pallas GEMM (interpret mode).
+
+On the CPU the kernel wrapper takes its plain version; the kernel itself
+(``csrc/gemm.cu``) is tested on the card by ``test_torch_kernels_gpu.py``.
+Tolerances are ``tests/test_kernels.py``'s: f32 2e-5, bf16 2e-2, applied
+after dividing both sides by max |reference|.  The two packages sum the k
+products in different orders (torch's CPU matmul blocks k unlike XLA's
+dot), so an f32 element near 0 in a row of magnitude ~40 differs by more
+than 2e-5 of itself while staying within 2e-5 of the output's scale.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import blas as jblas
+from repro.core.accounting import offload_trace as jtrace
+from repro.core.hero import offload_policy as jpolicy
+from repro.kernels import ops as jops
+from repro_torch.core import blas as tblas
+from repro_torch.core.accounting import offload_trace as ttrace
+from repro_torch.core.hero import offload_policy as tpolicy
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.gemm import gemm
+
+SHAPES = [(128, 128, 128), (256, 128, 384), (200, 130, 96), (8, 8, 8),
+          (1, 256, 64)]
+DTYPES = ["float32", "bfloat16"]
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(rng, shape, dtype):
+    x = rng.normal(size=shape).astype(np.float32)
+    return jnp.asarray(x, getattr(jnp, dtype)), \
+        torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def _close(got, want, dtype):
+    """assert_allclose with the reference's tolerances, scaled by the
+    output's magnitude."""
+    scale = float(np.abs(want).max()) or 1.0
+    np.testing.assert_allclose(got / scale, want / scale, **_tol(dtype))
+
+
+@pytest.mark.parametrize("m,n,k", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemm_matches_reference_kernel(m, n, k, dtype):
+    rng = np.random.default_rng(7)
+    ja, ta = _pair(rng, (m, k), dtype)
+    jb, tb = _pair(rng, (k, n), dtype)
+    want = np.asarray(jops.gemm(ja, jb, interpret=True), np.float32)
+    got = tops.kernel_lowering("gemm")(ta, tb)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (m, n)
+    _close(_np(got), want, dtype)
+
+
+def test_gemm_fp32_accumulation_bf16_inputs():
+    """bf16 inputs accumulate in fp32, with the reference test's bar."""
+    k = 4096
+    a = torch.full((8, k), 0.01, dtype=torch.bfloat16)
+    b = torch.full((k, 8), 0.01, dtype=torch.bfloat16)
+    got = gemm(a, b, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert abs(got[0, 0].item() - k * 1e-4) / (k * 1e-4) < 0.02
+
+
+@pytest.mark.parametrize("transpose_a,transpose_b",
+                         [(False, True), (True, False), (True, True)])
+def test_blas_gemm_transposes_match_reference(transpose_a, transpose_b):
+    rng = np.random.default_rng(3)
+    sa = (48, 40) if transpose_a else (40, 48)
+    sb = (24, 48) if transpose_b else (48, 24)
+    ja, ta = _pair(rng, sa, "float32")
+    jb, tb = _pair(rng, sb, "float32")
+    kw = dict(transpose_a=transpose_a, transpose_b=transpose_b)
+    with jpolicy(mode="device", use_pallas=True, interpret=True):
+        want = np.asarray(jblas.gemm(ja, jb, **kw))
+    with tpolicy(mode="device", use_kernels=True):
+        got = tblas.gemm(ta, tb, **kw)
+    _close(_np(got), want, "float32")
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 8, 8), (7, 64, 64)])
+def test_kernel_backend_recorded_where_reference_records_pallas(m, n, k):
+    """``min(m, n, k) >= 8`` gates the kernel in both packages: (8, 8, 8) is
+    eligible, (7, 64, 64) is not and runs the plain device lowering."""
+    rng = np.random.default_rng(11)
+    ja, ta = _pair(rng, (m, k), "float32")
+    jb, tb = _pair(rng, (k, n), "float32")
+    with jpolicy(mode="device", use_pallas=True, interpret=True), \
+            jtrace() as jt:
+        want = np.asarray(jblas.gemm(ja, jb))
+    with tpolicy(mode="device", use_kernels=True), ttrace() as tt:
+        got = tblas.gemm(ta, tb)
+    jb_ = [r.backend for r in jt.records]
+    tb_ = [r.backend for r in tt.records]
+    assert jb_ == (["device-pallas"] if m >= 8 else ["device"])
+    assert tb_ == [{"device-pallas": "device-kernel"}.get(b, b) for b in jb_]
+    _close(_np(got), want, "float32")
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_host_k_split_reorders_plain_sums_only(parts):
+    """``host_k_split`` changes only the order of the plain lowering's fp32
+    sums: the result stays within the f32 bar of the reference kernel and
+    of the unsplit sum, the kernel route ignores it, and it resets."""
+    rng = np.random.default_rng(5)
+    ja, ta = _pair(rng, (8, 1000), "float32")
+    jb, tb = _pair(rng, (1000, 24), "float32")
+    want = np.asarray(jops.gemm(ja, jb, interpret=True), np.float32)
+    with tpolicy(mode="device"):
+        whole = tblas.gemm(ta, tb)
+        with tblas.host_k_split(parts):
+            split = tblas.gemm(ta, tb)
+            via_kernel = tops.kernel_lowering("gemm")(ta, tb)
+        again = tblas.gemm(ta, tb)
+    _close(_np(split), want, "float32")
+    _close(_np(split), _np(whole), "float32")
+    assert torch.equal(again, whole)
+    assert torch.equal(via_kernel, gemm(ta, tb))
+    with pytest.raises(ValueError, match="parts >= 1"):
+        with tblas.host_k_split(0):
+            pass
+
+
+def test_wrapper_raises_off_cpu_without_kernel():
+    """The plain version is taken only for CPU tensors: any other device
+    either launches the kernel or raises — never falls back."""
+    a = torch.empty(8, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        gemm(a, a)
