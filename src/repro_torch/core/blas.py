@@ -25,9 +25,8 @@ Kernel path  : the hand-written CUDA kernels of :mod:`repro_torch.kernels`
 
 The descriptors carry no tensor-parallel ``plan`` yet (the reference's
 shard_map forms): the distributed layer is ported last.  Ops of the
-reference not yet here (``gemm_batched``, ``linear``, ``expert_matmul``,
-``moe_expert_ffn``, ``ssd_scan``, ``attention``, ``syrk``,
-``gemv``/``dot``/``axpy``/``scal``/``nrm2``) are listed in ROADMAP.md.
+reference not yet here (``expert_matmul``, ``moe_expert_ffn``,
+``ssd_scan``) are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -45,10 +44,19 @@ from repro_torch.core.hero import DeviceHandle, engine  # noqa: F401 (re-export 
 __all__ = [
     "gemm",
     "matmul",
+    "gemm_batched",
+    "linear",
     "mlp_block",
     "qkv_project",
+    "attention",
     "attention_math",
     "decode_attention",
+    "syrk",
+    "gemv",
+    "dot",
+    "axpy",
+    "scal",
+    "nrm2",
     "reduce_sum",
     "reduce_mean",
     "relu",
@@ -57,10 +65,10 @@ __all__ = [
 ]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# Host attention: direct masked einsum up to this kv length (the reference's
-# chunked online-softmax form beyond it belongs to full-sequence attention,
-# which arrives with the flash-attention kernel).
+# Host attention: direct masked einsum up to this kv length, chunked
+# online-softmax loop beyond it (keeps memory linear in Skv).
 _DIRECT_ATTN_MAX_KV = 8192
+_CHUNKED_ATTN_BLOCK = 1024
 _NEG_INF = -1e30
 
 
@@ -102,14 +110,18 @@ def host_k_split(parts: int):
 
 
 def _accum_mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    """(..., k) @ (k, n) with fp32 accumulation and one rounding."""
+    """``torch.matmul(a, b)`` ((..., k) @ (k, n), (Z, m, k) @ (Z, k, n) or
+    (m, k) @ (k,)) with fp32 accumulation and one rounding."""
     if _HOST_K_PARTS == 1:
         return torch.matmul(a.float(), b.float()).to(out_dtype)
-    k = b.shape[0]
+    k_axis = b.ndim - 2 if b.ndim > 1 else 0
+    k = b.shape[k_axis]
     cuts = [k * i // _HOST_K_PARTS for i in range(_HOST_K_PARTS + 1)]
-    acc = torch.matmul(a[..., :cuts[1]].float(), b[:cuts[1]].float())
-    for lo, hi in zip(cuts[1:-1], cuts[2:]):
-        acc = acc + torch.matmul(a[..., lo:hi].float(), b[lo:hi].float())
+    acc = None
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        part = torch.matmul(a[..., lo:hi].float(),
+                            b.narrow(k_axis, lo, hi - lo).float())
+        acc = part if acc is None else acc + part
     return acc.to(out_dtype)
 
 
@@ -367,6 +379,133 @@ register(OffloadOp(
 ))
 
 
+def _gemm_batched_dims(a, b):
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"gemm_batched: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    bsz, m, k = a.shape
+    _, kb, n = b.shape
+    if k != kb:
+        raise ValueError(
+            f"gemm_batched contraction mismatch: {tuple(a.shape)} @ "
+            f"{tuple(b.shape)}")
+    return bsz, m, n, k
+
+
+def _gemm_batched_cost(a, b, *, out_dtype=None):
+    bsz, m, n, k = _gemm_batched_dims(a, b)
+    return cm.gemm_cost(m, n, k, a.element_size(), batch=bsz,
+                        op="gemm_batched")
+
+
+def _gemm_batched_eligible(a, b, *, out_dtype=None):
+    _, m, n, k = _gemm_batched_dims(a, b)
+    return _kernel_gemm_eligible(m, n, k, a.dtype)
+
+
+def _gemm_batched_host(a, b, *, out_dtype=None):
+    return _accum_mm(a, b, _result_dtype(a, b, out_dtype))
+
+
+def _gemm_batched_kernel(a, b, *, out_dtype=None):
+    return _kops().kernel_lowering("gemm_batched")(
+        a, b, out_dtype=_result_dtype(a, b, out_dtype))
+
+
+register(OffloadOp(
+    name="gemm_batched",
+    cost=_gemm_batched_cost,
+    host=_gemm_batched_host,
+    kernel=_gemm_batched_kernel,
+    eligible=_gemm_batched_eligible,
+))
+
+
+# ---------------------------------------------------------------------------
+# syrk — host-only, as in the paper's build.
+# ---------------------------------------------------------------------------
+
+def _syrk_cost(a, *, out_dtype=None):
+    if a.ndim != 2:
+        raise ValueError(f"syrk takes a 2-D operand, got {tuple(a.shape)}")
+    n, k = a.shape
+    return cm.syrk_cost(n, k, a.element_size())
+
+
+def _syrk_host(a, *, out_dtype=None):
+    return _accum_mm(a, a.T, out_dtype or a.dtype)
+
+
+register(OffloadOp(
+    name="syrk",
+    cost=_syrk_cost,
+    host=_syrk_host,
+    host_only=True,
+    note="host-only (syrk.c compiled for host, per paper)",
+))
+
+
+# ---------------------------------------------------------------------------
+# attention — full-sequence attention (training / prefill).  The masked
+# math is the host lowering, the flash-attention kernel the device kernel
+# lowering.
+# ---------------------------------------------------------------------------
+
+def _static_window(window) -> bool:
+    """A window the kernel can take: None or a Python int.  A tensor window
+    (the reference's traced per-layer scalar) takes the host path."""
+    return window is None or (isinstance(window, int)
+                              and not isinstance(window, bool))
+
+
+def _attention_cost(q, k, v, *, causal=True, window=None, sm_scale=None,
+                    kv_mask=None):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"attention: bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    static_window = window if _static_window(window) else None
+    return cm.attention_cost(
+        b, sq, skv, hq, d, q.element_size(),
+        window=static_window if static_window and static_window < skv else None,
+    )
+
+
+def _attention_eligible(q, k, v, *, causal=True, window=None, sm_scale=None,
+                        kv_mask=None):
+    return (
+        _static_window(window)
+        and kv_mask is None
+        and q.shape[-1] >= 8
+        and q.dtype in _KERNEL_DTYPES
+    )
+
+
+def _attention_host(q, k, v, *, causal=True, window=None, sm_scale=None,
+                    kv_mask=None):
+    return attention_math(q, k, v, causal=causal, window=window,
+                          sm_scale=sm_scale, kv_mask=kv_mask)
+
+
+def _attention_kernel(q, k, v, *, causal=True, window=None, sm_scale=None,
+                      kv_mask=None):
+    skv = k.shape[2]
+    eff_window = None if (window is None or window >= skv) else window
+    return _kops().kernel_lowering("attention")(
+        q, k, v, causal=causal, window=eff_window, sm_scale=sm_scale)
+
+
+register(OffloadOp(
+    name="attention",
+    cost=_attention_cost,
+    host=_attention_host,
+    kernel=_attention_kernel,
+    eligible=_attention_eligible,
+))
+
+
 # ---------------------------------------------------------------------------
 # decode_attention — one-token attention against a (possibly rolling) KV
 # cache with a [lo, hi) valid-slot range.  The masked math is the host
@@ -421,6 +560,72 @@ register(OffloadOp(
     kernel=_decode_attn_kernel,
     eligible=_decode_attn_eligible,
 ))
+
+
+# ---------------------------------------------------------------------------
+# Level-2 / Level-1 descriptors (host lowering only; still scored + routed,
+# so traces show whether the decision model would offload them)
+# ---------------------------------------------------------------------------
+
+def _gemv_cost(a, x, *, out_dtype=None):
+    if a.ndim != 2 or x.ndim != 1 or a.shape[1] != x.shape[0]:
+        raise ValueError(
+            f"gemv: bad shapes {tuple(a.shape)} @ {tuple(x.shape)}")
+    m, n = a.shape
+    return cm.gemv_cost(m, n, a.element_size())
+
+
+def _gemv_host(a, x, *, out_dtype=None):
+    return _accum_mm(a, x, _result_dtype(a, x, out_dtype))
+
+
+register(OffloadOp(name="gemv", cost=_gemv_cost, host=_gemv_host))
+
+
+def _dot_cost(x, y):
+    if x.shape != y.shape or x.ndim != 1:
+        raise ValueError(f"dot: bad shapes {tuple(x.shape)}, {tuple(y.shape)}")
+    return cm.vector_cost("dot", x.shape[0], x.element_size())
+
+
+def _dot_host(x, y):
+    return torch.sum(x.float() * y.float()).to(x.dtype)
+
+
+register(OffloadOp(name="dot", cost=_dot_cost, host=_dot_host))
+
+
+def _axpy_cost(alpha, x, y):
+    return cm.vector_cost("axpy", x.numel(), x.element_size())
+
+
+def _axpy_host(alpha, x, y):
+    return alpha * x + y
+
+
+register(OffloadOp(name="axpy", cost=_axpy_cost, host=_axpy_host))
+
+
+def _scal_cost(alpha, x):
+    return cm.vector_cost("scal", x.numel(), x.element_size(), 1.0)
+
+
+def _scal_host(alpha, x):
+    return alpha * x
+
+
+register(OffloadOp(name="scal", cost=_scal_cost, host=_scal_host))
+
+
+def _nrm2_cost(x):
+    return cm.vector_cost("nrm2", x.numel(), x.element_size())
+
+
+def _nrm2_host(x):
+    return torch.sqrt(torch.sum(torch.square(x.float()))).to(x.dtype)
+
+
+register(OffloadOp(name="nrm2", cost=_nrm2_cost, host=_nrm2_host))
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +729,32 @@ def matmul(
     return dispatch("matmul", x, w, out_dtype=out_dtype, handle=handle)
 
 
+def gemm_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    out_dtype=None,
+    handle: Optional[DeviceHandle] = None,
+) -> torch.Tensor:
+    """(B, m, k) @ (B, k, n) batched GEMM — the hnp scheduler's stacked
+    GEMMs; one launch of the batched GEMM kernel on the kernel path."""
+    return dispatch("gemm_batched", a, b, out_dtype=out_dtype, handle=handle)
+
+
+def linear(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    out_dtype=None,
+) -> torch.Tensor:
+    """y = x @ w (+ b) — convenience wrapper used by every model layer."""
+    y = matmul(x, w, out_dtype=out_dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
 def mlp_block(
     x: torch.Tensor,
     w_up: torch.Tensor,
@@ -586,6 +817,36 @@ def decode_attention(
     )
 
 
+def syrk(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """C = A @ A.T — host-only, as in the paper's build."""
+    return dispatch("syrk", a, out_dtype=out_dtype)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=None,
+    sm_scale: Optional[float] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    handle: Optional[DeviceHandle] = None,
+) -> torch.Tensor:
+    """Fused attention through the offload seam.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  ``window`` is None, a
+    Python int, or a 0-d tensor; the flash-attention kernel takes only the
+    first two (and no ``kv_mask``), so a tensor window takes the masked
+    host path, as the reference's traced windows do.  Queries align to the
+    end of kv when Sq < Skv.  ``handle`` pins the call to a device-resident
+    buffer (e.g. a KV cache)."""
+    return dispatch(
+        "attention", q, k, v, causal=causal, window=window,
+        sm_scale=sm_scale, kv_mask=kv_mask, handle=handle,
+    )
+
+
 def attention_math(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -596,39 +857,92 @@ def attention_math(
     sm_scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Raw masked-softmax attention math (no dispatch/accounting).
+    """Raw masked/online-softmax attention math (no dispatch/accounting).
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); fp32 softmax; queries align
     to the end of kv; ``kv_mask`` is (Skv,) or (B, Skv) slot validity.
-    Fully masked rows output 0.  The reference's chunked form for
-    Skv > 8192 with Sq > 1 arrives with full-sequence attention."""
+    Fully masked rows output 0.  Up to ``_DIRECT_ATTN_MAX_KV`` keys (or for
+    one query) the scores are one masked einsum; beyond, an online-softmax
+    loop over kv chunks keeps memory linear in Skv (the reference's
+    ``lax.scan`` form)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if skv > _DIRECT_ATTN_MAX_KV and sq > 1:
-        raise NotImplementedError(
-            "chunked host attention arrives with the flash-attention slice")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     group = hq // hkv
     qf = q.float()
     kf = (k.repeat_interleave(group, dim=1) if group > 1 else k).float()
     vf = (v.repeat_interleave(group, dim=1) if group > 1 else v).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+
+    def mask_for(q_pos, kv_pos):
+        m = torch.ones(torch.broadcast_shapes(q_pos.shape, kv_pos.shape),
+                       dtype=torch.bool, device=q.device)
+        if causal:
+            m &= kv_pos <= q_pos
+        if window is not None:
+            m &= (q_pos - kv_pos) < window
+        return m
+
     q_pos = (skv - sq) + torch.arange(sq, device=q.device)[:, None]
-    kv_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos <= q_pos
-    if window is not None:
-        mask &= (q_pos - kv_pos) < int(window)
-    s = torch.where(mask[None, None], s, _NEG_INF)
+    if skv <= _DIRECT_ATTN_MAX_KV or sq == 1:
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+        kv_pos = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask_for(q_pos, kv_pos)[None, None], s, _NEG_INF)
+        if kv_mask is not None:
+            km = kv_mask if kv_mask.ndim == 2 else kv_mask[None]
+            s = torch.where(km[:, None, None, :], s, _NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        # fully-masked rows contribute zeros (matches the kernel semantics)
+        p = torch.where(s.amax(dim=-1, keepdim=True) <= _NEG_INF * 0.5, 0.0, p)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        return out.to(q.dtype)
+
     if kv_mask is not None:
-        km = kv_mask if kv_mask.ndim == 2 else kv_mask[None]
-        s = torch.where(km[:, None, None, :], s, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    # fully-masked rows contribute zeros (matches the kernel semantics)
-    p = torch.where(s.amax(dim=-1, keepdim=True) <= _NEG_INF * 0.5, 0.0, p)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-    return out.to(q.dtype)
+        raise NotImplementedError("kv_mask only supported on the direct path")
+    bkv = min(_CHUNKED_ATTN_BLOCK, skv)
+    while skv % bkv:
+        bkv //= 2
+    m_run = torch.full((b, hq, sq, 1), _NEG_INF, device=q.device)
+    l_run = torch.zeros((b, hq, sq, 1), device=q.device)
+    acc = torch.zeros((b, hq, sq, d), device=q.device)
+    for j in range(skv // bkv):
+        sl = slice(j * bkv, (j + 1) * bkv)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, sl]) * scale
+        kv_pos = j * bkv + torch.arange(bkv, device=q.device)[None, :]
+        mask = mask_for(q_pos, kv_pos)[None, None]
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        pj = torch.where(mask, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m_run - m_new)
+        l_run = corr * l_run + pj.sum(dim=-1, keepdim=True)
+        acc = corr * acc + torch.einsum("bhqk,bhkd->bhqd", pj, vf[:, :, sl])
+        m_run = m_new
+    return (acc / torch.clamp(l_run, min=1e-30)).to(q.dtype)
+
+
+def gemv(
+    a: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    out_dtype=None,
+    handle: Optional[DeviceHandle] = None,
+) -> torch.Tensor:
+    return dispatch("gemv", a, x, out_dtype=out_dtype, handle=handle)
+
+
+def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return dispatch("dot", x, y)
+
+
+def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return dispatch("axpy", alpha, x, y)
+
+
+def scal(alpha, x: torch.Tensor) -> torch.Tensor:
+    return dispatch("scal", alpha, x)
+
+
+def nrm2(x: torch.Tensor) -> torch.Tensor:
+    return dispatch("nrm2", x)
 
 
 def reduce_sum(x: torch.Tensor, *, axis=None, keepdims: bool = False) -> torch.Tensor:

@@ -41,6 +41,7 @@ __all__ = [
     "DeviceHandle",
     "OffloadOp",
     "dispatch",
+    "dispatch_placed",
     "dtype_name",
     "get_op",
     "register",
@@ -79,6 +80,10 @@ class OffloadOp:
                  applicability); a non-None plan wins over the kernel and
                  is lowered by ``plan_lower(plan, *args, **kwargs)``.
     host_only  — never offloaded (recorded with the host backend).
+
+    Graph capture (:mod:`repro_torch.frontend.lazy`) runs ``host`` on meta
+    tensors to learn an op's output, so a host lowering reads shapes and
+    dtypes, never values.
     """
 
     name: str
@@ -172,10 +177,42 @@ def dispatch(
        :class:`~repro_torch.core.accounting.OffloadRecord` (always carrying
        the placement) and queues the modeled ticket;
     4. the winning lowering runs: plan > kernel > host.
-
-    ``validate=True`` (the reference's pre-dispatch graph checks) waits for
-    the port of ``analysis/`` and raises ``NotImplementedError``.
     """
+    out, _ = dispatch_placed(
+        name, *args, handle=handle, resident_fraction=resident_fraction,
+        validate=validate, **kwargs,
+    )
+    return out
+
+
+def dispatch_placed(
+    name: str,
+    *args,
+    handle: Optional[DeviceHandle] = None,
+    resident_fraction: Optional[float] = None,
+    validate: bool = False,
+    placement: Optional[Any] = None,
+    **kwargs,
+):
+    """Graph-aware dispatch entry: like :func:`dispatch`, but returns
+    ``(result, launch)`` where ``launch`` is the
+    :class:`~repro_torch.core.hero.LaunchResult` naming the backend and
+    device the call landed on.
+
+    The ``hnp`` graph scheduler lowers whole expression graphs through this
+    entry: it threads the exact per-node ``resident_fraction`` and reads the
+    placement back, so the produced intermediate is pinned where it lives
+    and its consumers are routed (or d2d-migrated) to the data.
+
+    ``placement`` (the reference's per-expert fan-out plan) arrives with
+    the MoE slice and raises ``NotImplementedError``; so does
+    ``validate=True`` (the reference's pre-dispatch graph checks), which
+    waits for the port of ``analysis/``.
+    """
+    if placement is not None:
+        raise NotImplementedError(
+            "dispatch_placed(placement=...) (per-expert fan-out) arrives "
+            "with the MoE slice")
     if validate:
         raise NotImplementedError(
             "dispatch(validate=True) needs repro_torch.analysis, which is "
@@ -258,4 +295,4 @@ def _dispatch_impl(
         tr.instant("lower", cat="dispatch", lane="host",
                    t=_spans.modeled_now(),
                    attrs={"op": name, "lowering": lowering})
-    return out
+    return out, launch

@@ -35,9 +35,10 @@ name only picks the lowering (plain torch or the hand-written kernel).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 from repro_torch.core import accounting
 from repro_torch.core.cost_model import (
@@ -45,6 +46,7 @@ from repro_torch.core.cost_model import (
     PipelinedBreakdown,
     RegionBreakdown,
     breakdown,
+    d2d_breakdown,
     d2d_cost,
     decide_offload,
     pipelined_breakdown,
@@ -119,6 +121,11 @@ class OffloadPolicy:
     # DMA chunk size override, bytes (None = the platform's natural
     # double-buffer tile, ``Platform.dma_chunk_bytes``).
     pipeline_chunk_bytes: Optional[float] = None
+    # Cross-wave prefetch: the graph scheduler may stage wave k+1's leaf
+    # operands while wave k computes (charged as ``prefetch_stage`` records
+    # riding the DMA stream; the consuming launch gets the residency
+    # credit, so no byte is charged twice).
+    prefetch_staging: bool = False
 
     def validate(self) -> None:
         if self.mode not in ("host", "device", "auto"):
@@ -629,6 +636,22 @@ class HeroCluster:
     def handles_on(self, device_id: int) -> List[DeviceHandle]:
         return [h for h in self._handles.values() if h.device_id == device_id]
 
+    def unstage_handle(self, handle: DeviceHandle) -> None:
+        """Drain a pinned buffer back to host DRAM, keeping the handle known.
+
+        The unstaged handle stays in the ledger (``valid`` becomes False);
+        a later re-stage pays the host->device copy to bring it back.  This
+        is the "don't pin" serving baseline and the state a handle enters
+        when its device is lost.
+        """
+        if self._handles.get(handle.name) is not handle:
+            raise KeyError(f"unknown handle {handle.name!r}")
+        old_dev = handle.device_id
+        if handle.valid and handle.device_id < len(self.devices):
+            self.devices[handle.device_id].evict(handle.name)
+        handle.device_id = HOST_DEVICE_ID
+        self._note_resident_bytes(old_dev)
+
     def release_handle(self, handle: DeviceHandle) -> None:
         old_dev = handle.device_id
         if handle.valid and handle.device_id < len(self.devices):
@@ -636,6 +659,117 @@ class HeroCluster:
         self._handles.pop(handle.name, None)
         handle.device_id = HOST_DEVICE_ID
         self._note_resident_bytes(old_dev)
+
+    def migrate_handle(
+        self, handle: DeviceHandle, device_id: int
+    ) -> RegionBreakdown:
+        """Move a pinned buffer to another device over the d2d link.
+
+        Charges the ``d2d_copy`` region on the *destination* lane (its DMA
+        engine receives the bytes) and records it on the active trace, so
+        migrations show up in per-device rollups and the overlap timeline.
+        No-op (zero breakdown) when the handle already lives there.
+        """
+        if self._handles.get(handle.name) is not handle:
+            raise KeyError(f"unknown handle {handle.name!r}")
+        if not handle.valid:
+            raise RuntimeError(
+                f"handle {handle.name!r} is unstaged; re-stage it first"
+            )
+        if device_id == handle.device_id:
+            return RegionBreakdown(0.0, 0.0, 0.0, 0.0)
+        dst = self.devices[device_id]
+        if not dst.alive:
+            raise RuntimeError(f"cannot migrate to failed device {device_id}")
+        bd = d2d_breakdown(handle.nbytes, self.platform)
+        self.devices[handle.device_id].evict(handle.name)
+        if not dst.booted:
+            dst.boot()
+        dst.mark_resident(handle.name)
+        cost = d2d_cost(handle.nbytes)
+        ticket = dst.issue(cost, bd, handle.name, kind="d2d")
+        tr = _spans.current_tracer()
+        if tr is not None:
+            # Arrow from the source lane to the receiving DMA window: the
+            # bytes leave where the handle lived and land on dst's stream.
+            tr.flow(f"d2d:{handle.name}", cat="stream",
+                    src_lane=f"dev{handle.device_id}/compute",
+                    src_t=ticket.issue_s,
+                    dst_lane=f"dev{device_id}/dma",
+                    dst_t=ticket.copy_done_s,
+                    attrs={"nbytes": handle.nbytes,
+                           "src": handle.device_id, "dst": device_id})
+        accounting.record(
+            accounting.OffloadRecord(
+                op=cost.op, shape_key=handle.name, dtype="",
+                backend="device", cost=cost, regions=bd,
+                zero_copy=self.policy.zero_copy,
+                note=f"handle migration {handle.device_id}->{device_id}",
+                device_id=device_id,
+            )
+        )
+        old_dev = handle.device_id
+        handle.device_id = device_id
+        self._note_resident_bytes(old_dev)
+        self._note_resident_bytes(device_id)
+        return bd
+
+    def prefetch_stage(
+        self, name: str, nbytes: float, device_id: Optional[int] = None
+    ) -> DeviceHandle:
+        """Stage a buffer onto a device *ahead of* the op that consumes it.
+
+        The cross-wave half of the DMA pipeline: the graph frontend calls it
+        for wave k+1's unresident operands while wave k's compute is still
+        in flight, so the copy rides the DMA stream under compute instead of
+        serializing in front of the consumer.  The copy is charged on the
+        chosen lane's DMA clock (no fork/join — nothing launches) and the
+        returned handle carries the residency credit the consumer's
+        ``resident_fraction`` math then picks up.
+        """
+        handle = self.pin_handle(name, nbytes, device_id=device_id)
+        dev = self.devices[handle.device_id]
+        cost = OpCost(
+            op="prefetch_stage",
+            flops=0.0,
+            staged_bytes=float(nbytes),
+            touched_bytes=float(nbytes),
+        )
+        bd = RegionBreakdown(
+            copy_s=self.platform.t_copy(nbytes,
+                                        zero_copy=self.policy.zero_copy),
+            fork_join_s=0.0,
+            compute_s=0.0,
+            host_s=0.0,
+        )
+        dev.issue(cost, bd, name, kind="prefetch")
+        accounting.record(
+            accounting.OffloadRecord(
+                op=cost.op, shape_key=name, dtype="",
+                backend="device", cost=cost, regions=bd,
+                zero_copy=self.policy.zero_copy,
+                note="cross-wave prefetch",
+                device_id=dev.device_id,
+            )
+        )
+        return handle
+
+    @contextlib.contextmanager
+    def handle_scope(self) -> Iterator[None]:
+        """Scope the lifetime of handles pinned inside to the block.
+
+        The graph frontend pins one handle per device-resident intermediate
+        so multi-op chains reuse placement; those buffers are dead once the
+        graph (or an ``hnp.offload_region``) finishes.  On exit, every handle
+        pinned inside the scope is released and its residency mark evicted —
+        handles pinned before the scope (weights, KV caches) survive.
+        """
+        before = set(self._handles)
+        try:
+            yield
+        finally:
+            for name in [n for n in self._handles if n not in before]:
+                self.release_handle(self._handles[name])
 
     # ---- placement --------------------------------------------------------
     def _pick(
@@ -856,6 +990,7 @@ class offload_policy:
         scheduler: Optional[str] = None,
         pipeline_staging: Optional[bool] = None,
         pipeline_chunk_bytes: Optional[float] = None,
+        prefetch_staging: Optional[bool] = None,
     ) -> None:
         self._overrides = {
             k: v
@@ -867,6 +1002,7 @@ class offload_policy:
                 use_kernels=use_kernels,
                 pipeline_staging=pipeline_staging,
                 pipeline_chunk_bytes=pipeline_chunk_bytes,
+                prefetch_staging=prefetch_staging,
             ).items()
             if v is not None
         }

@@ -13,7 +13,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["gemm_ref", "decode_attention_ref"]
+__all__ = ["gemm_ref", "gemm_batched_ref", "attention_ref",
+           "decode_attention_ref"]
 
 _NEG_INF = -1e30
 
@@ -23,6 +24,53 @@ def gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
     """C = A @ B over the last two dims, fp32 accumulation, one rounding."""
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def gemm_batched_ref(a: torch.Tensor, b: torch.Tensor, *,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C[z] = A[z] @ B[z] for (Z, m, k) @ (Z, k, n), fp32 accumulation, one
+    rounding (the reference's ``gemm_batched_ref``)."""
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"gemm_batched_ref: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    return torch.bmm(a.float(), b.float()).to(out_dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Masked softmax attention with GQA and an fp32 softmax — the
+    semantics of the flash-attention kernel.  q: (B, Hq, Sq, D); k, v:
+    (B, Hkv, Skv, D).  Queries are right-aligned (position Skv - Sq + row);
+    ``window`` keeps keys with ``q_pos - kv_pos < window``; GQA repeats
+    each kv head over its ``Hq // Hkv`` q heads; a row with no live key
+    outputs 0.  Returns ``q.dtype``."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    q_pos = (skv - sq) + torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= (q_pos - kv_pos) < window
+    s = torch.where(mask[None, None], s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1)[None, None, :, None], p,
+                    torch.zeros_like(p))
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
 def decode_attention_ref(

@@ -10,10 +10,13 @@ offload seam (``repro_torch.core.dispatch``), so an ``offload_policy`` with
 Runs on the card unless the caller passes ``device="cpu"``; asking for the
 card where there is none raises.  ``serve_cluster`` and the streaming
 engine (``--stream``) arrive with ``launch/costing.py`` and
-``launch/streaming.py``.  The CLI serves the arch's reduced config, as the
-reference's CLI does, with every eligible op on the kernels:
+``launch/streaming.py``.  ``forward_mode="graph"`` (``--forward-mode
+graph``) runs each decode step's dense FFN as an ``hnp`` graph with the
+residual fused into its launch, as the reference serves in graph mode.
+The CLI serves the arch's reduced config, as the reference's CLI does, with
+every eligible op on the kernels:
 
-    python -m repro_torch.launch.serve --arch yi-6b --batch 8
+    python -m repro_torch.launch.serve --arch yi-6b --batch 8 [--forward-mode graph]
 """
 
 from __future__ import annotations
@@ -114,13 +117,17 @@ def serve_batch(
     seed: int = 0,
     params=None,
     device="cuda",
+    forward_mode: Optional[str] = None,
 ) -> ServeResult:
     """Serve one batch of prompts; ``params`` (on ``device``) defaults to
-    random weights from a generator seeded with ``seed``."""
+    random weights from a generator seeded with ``seed``.  ``forward_mode``
+    ("eager" / "graph") overrides the config's."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
+    if forward_mode is not None:
+        cfg = dataclasses.replace(cfg, forward_mode=forward_mode)
     if not cfg.embed_inputs:
         raise ValueError("serving driver targets token-input archs")
     if cfg.is_encoder:
@@ -163,6 +170,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
+    ap.add_argument("--forward-mode", choices=("eager", "graph"),
+                    default="eager",
+                    help="graph: each decode step's dense FFN as an hnp graph")
     args = ap.parse_args(argv)
     rng = np.random.default_rng(args.seed)
     prompts = [list(rng.integers(1, 200, size=args.prompt_len))
@@ -173,6 +183,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         res = serve_batch(
             args.arch, prompts, max_new_tokens=args.max_new,
             temperature=args.temperature, seed=args.seed, device=args.device,
+            forward_mode=args.forward_mode,
         )
     print(f"prefill {res.prefill_s:.2f}s decode {res.decode_s:.2f}s "
           f"{res.tokens_per_s:.1f} tok/s")

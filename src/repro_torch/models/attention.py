@@ -6,8 +6,9 @@ Every contraction and the attention math itself dispatch through registered
 stamped on every record by the one dispatch path in
 ``repro_torch.core.dispatch``.
 
-Full-sequence ``attention_block`` (training / prefill) and M-RoPE arrive
-with the flash-attention slice.
+``attention_block`` (training / prefill) runs the whole sequence through
+the ``attention`` descriptor, whose kernel lowering is the flash-attention
+kernel.  M-RoPE arrives with the qwen2-vl config.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from repro_torch.core import blas
 from repro_torch.models import layers as L
 
-__all__ = ["init_attention", "split_qkv", "decode_attention_block"]
+__all__ = ["init_attention", "split_qkv", "attention_block",
+           "decode_attention_block"]
 
 
 def init_attention(gen: torch.Generator, cfg, dtype, *, device):
@@ -61,6 +63,27 @@ def _project_qkv(p, x, cfg, positions, rope_theta):
     q = L.rope(q, positions, rope_theta)
     k = L.rope(k, positions, rope_theta)
     return q, k, v
+
+
+def attention_block(
+    p,
+    x: torch.Tensor,
+    cfg,
+    *,
+    positions: torch.Tensor,
+    window=None,
+    rope_theta=None,
+) -> torch.Tensor:
+    """Full-sequence attention (training / prefill). x: (B, S, D);
+    positions: (B, S) int.  q/k/v reach the ``attention`` descriptor as
+    (B, H, S, hd) transposed views (the kernel reads them in place)."""
+    b, s, _ = x.shape
+    rope_theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    q, k, v = _project_qkv(p, x, cfg, positions, rope_theta)
+    out = blas.attention(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=cfg.causal, window=window)
+    out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return blas.matmul(out, p["wo"])
 
 
 def decode_attention_block(

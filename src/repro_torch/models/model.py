@@ -1,17 +1,17 @@
-"""Model facade: embeddings + stack + head, and one-token decode.
+"""Model facade: embeddings + stack + head, the full-sequence forward and
+one-token decode.
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods are functions of
 (params, inputs).  Parameters are plain dicts and lists of tensors with the
 reference's names, on the device the caller chose.
 
-``forward`` (training / prefill) and ``loss`` arrive with the
-flash-attention slice.
+``loss`` arrives with the training slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -67,6 +67,21 @@ class Model:
         if cfg.tie_embeddings and cfg.embed_inputs:
             return blas.matmul(x, params["embed"].T)
         return blas.matmul(x, params["head"])
+
+    # ---- forward ------------------------------------------------------------
+    def forward(self, params, tokens: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, S, V), aux_loss) — training / prefill.  tokens:
+        (B, S) int; positions default to 0..S-1 for every row."""
+        x = self._embed(params, tokens)
+        bsz, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=tokens.device).expand(bsz, s)
+        x, aux = T.apply_stack(params["stack"], x, self.cfg,
+                               positions=positions)
+        return self._head(params, x), aux
 
     # ---- decode --------------------------------------------------------------
     def init_decode_cache(self, batch_size: int, cache_len: int, *, device):

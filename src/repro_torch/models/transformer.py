@@ -10,7 +10,9 @@ The loop is eager, so each layer writes its own trace records with
 ``count = 1``; the reference traces its scan body once and writes one
 record per op with ``count = num_layers``.  Count-weighted totals agree.
 
-MoE, SSM and hybrid stacks, and ``forward_mode="graph"``, raise
+``cfg.forward_mode = "graph"`` captures each block of the forward as an
+``hnp`` graph (``models/forward.py``), and in decode the dense FFN with the
+residual fused into its launch.  MoE, SSM and hybrid stacks raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 
@@ -27,15 +29,15 @@ from repro_torch.models import layers as L
 
 __all__ = [
     "init_stack",
+    "apply_stack",
     "init_decode_cache",
     "decode_stack",
 ]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.forward_mode == "graph":
-        raise NotImplementedError(
-            "forward_mode='graph' arrives with the hnp frontend slice")
+    if cfg.forward_mode not in ("eager", "graph"):
+        raise ValueError(f"unknown forward_mode {cfg.forward_mode!r}")
     if cfg.family == "ssm" or not cfg.uniform_stack:
         raise NotImplementedError(
             f"{cfg.family} stacks (Mamba / hybrid) arrive with the SSM slice")
@@ -57,6 +59,25 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, dtype, *, device):
         "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, cfg.mlp_kind,
                           device=device),
     }
+
+
+def _apply_block(p, x, cfg: ArchConfig, *, positions, window, rope_theta):
+    """One pre-norm residual dense block (training / prefill)."""
+    if cfg.forward_mode == "graph":
+        # Whole-block graph capture: the hnp scheduler fuses elementwise
+        # epilogues and threads residency across the block
+        # (models/forward.py).  Same descriptors, same math.
+        from repro_torch.models import forward as F
+
+        return F.graph_block(
+            p, x, cfg, "attn", False,
+            positions=positions, window=window, rope_theta=rope_theta,
+        )[0]
+    h = L.apply_norm(x, p["norm1"], cfg.norm_eps, cfg.norm_kind)
+    x = x + A.attention_block(p["mixer"], h, cfg, positions=positions,
+                              window=window, rope_theta=rope_theta)
+    h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
+    return x + L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +103,22 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, *,
     _check_supported(cfg)
     return [_init_block(gen, cfg, dtype, device=device)
             for _ in range(cfg.num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# stack apply (training / prefill)
+# ---------------------------------------------------------------------------
+
+def apply_stack(params, x, cfg: ArchConfig, *, positions):
+    """x: (B, S, D); positions: (B, S) int.  Loops the layers, each with its
+    window and RoPE theta; returns ``(x, aux_loss)`` — the aux loss is 0
+    for the dense stack (MoE brings a router loss)."""
+    _check_supported(cfg)
+    windows, thetas = _layer_data(cfg, x.shape[1])
+    for i, lp in enumerate(params):
+        x = _apply_block(lp, x, cfg, positions=positions, window=windows[i],
+                         rope_theta=thetas[i])
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +148,13 @@ def _decode_block(p, x, cache_slices, cache_index, cfg, *, window, rope_theta):
     )
     x = x + mix
     h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
+    if cfg.forward_mode == "graph":
+        # Decode's graph half: the attention mutates the cache eagerly, the
+        # dense FFN is captured (residual fused into its launch).
+        from repro_torch.models import forward as F
+
+        return F.graph_ffn(p["ffn"], h, cfg, residual=x), \
+            {"k": k_new, "v": v_new}
     x = x + L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
     return x, {"k": k_new, "v": v_new}
 

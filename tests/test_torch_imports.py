@@ -41,7 +41,9 @@ def test_port_file_imports_no_jax_or_reference(path):
 def test_port_import_loads_no_jax_reference_or_triton():
     code = (
         "import sys, repro_torch, repro_torch.launch.serve, "
-        "repro_torch.convert, repro_torch.kernels.ops\n"
+        "repro_torch.convert, repro_torch.kernels.ops, repro_torch.hnp, "
+        "repro_torch.frontend, repro_torch.models.forward, "
+        "repro_torch.kernels.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"
