@@ -25,8 +25,8 @@ Kernel path  : the hand-written CUDA kernels of :mod:`repro_torch.kernels`
 
 The descriptors carry no tensor-parallel ``plan`` yet (the reference's
 shard_map forms): the distributed layer is ported last.  Ops of the
-reference not yet here (``expert_matmul``, ``moe_expert_ffn``,
-``ssd_scan``) are listed in ROADMAP.md.
+reference not yet here (``expert_matmul``, ``moe_expert_ffn``) arrive with
+the MoE slice and are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ __all__ = [
     "attention",
     "attention_math",
     "decode_attention",
+    "ssd_scan",
     "syrk",
     "gemv",
     "dot",
@@ -563,6 +564,117 @@ register(OffloadOp(
 
 
 # ---------------------------------------------------------------------------
+# ssd_scan — the whole Mamba-2 SSD core (chunked quadratic term + inter-chunk
+# state recurrence + D skip) behind one descriptor.  The within-chunk term
+# is the SSD chunk kernel's work; the inter-chunk recurrence over (N, P)
+# states, a loop over chunks, stays plain torch in every lowering, as the
+# reference keeps its ``lax.scan`` outside the Pallas kernel.
+# ---------------------------------------------------------------------------
+
+def _ssd_dims(xh, dt, a, bh, ch, d_skip, *, chunk):
+    if xh.ndim != 4:
+        raise ValueError(
+            f"ssd_scan: x must be (B, S, H, P), got {tuple(xh.shape)}")
+    bsz, s, h, pdim = xh.shape
+    n = bh.shape[-1]
+    if tuple(dt.shape) != (bsz, s, h):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)} != {(bsz, s, h)}")
+    if tuple(a.shape) != (h,) or tuple(d_skip.shape) != (h,):
+        raise ValueError(f"ssd_scan: a/d_skip must be ({h},)")
+    if tuple(bh.shape) != (bsz, s, h, n) or tuple(ch.shape) != (bsz, s, h, n):
+        raise ValueError(
+            f"ssd_scan: bad B/C {tuple(bh.shape)} {tuple(ch.shape)}")
+    q = min(int(chunk), s)
+    if s % q:
+        raise ValueError(f"ssd_scan: seq {s} not divisible by chunk {q}")
+    return bsz, s, h, pdim, n, q
+
+
+def _ssd_cost(xh, dt, a, bh, ch, d_skip, *, chunk):
+    bsz, s, h, pdim, n, q = _ssd_dims(xh, dt, a, bh, ch, d_skip, chunk=chunk)
+    return cm.gemm_cost(bsz * s, 2 * n + pdim, q, xh.element_size(), batch=h,
+                        op="ssd_scan")
+
+
+def _ssd_eligible(xh, dt, a, bh, ch, d_skip, *, chunk):
+    bsz, s, h, pdim, n, q = _ssd_dims(xh, dt, a, bh, ch, d_skip, chunk=chunk)
+    return min(pdim, n, q) >= 8 and xh.dtype in _KERNEL_DTYPES
+
+
+def _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk, diag_fn):
+    """Chunked SSD core: (B, S, H, P) -> (B, S, H, P) fp32.  ``diag_fn``
+    computes the within-chunk quadratic term (plain version or kernel);
+    the (N, P)-state inter-chunk recurrence is a loop over chunks.  Reads
+    shapes only, never values, so it also runs on meta tensors."""
+    bsz, s, h, pdim = xh.shape
+    n = bh.shape[-1]
+    q = min(int(chunk), s)
+    nc = s // q
+    da = dt * a                                               # (B, S, H)
+    xdt = xh * dt[..., None]
+
+    def to_bh(t):
+        t = t.reshape(bsz, nc, q, h, -1).permute(0, 3, 1, 2, 4)
+        return t.reshape(bsz * h, nc, q, t.shape[-1])
+
+    cum_c = torch.cumsum(da.reshape(bsz, nc, q, h), dim=2)    # (B, C, Q, H)
+    cum_bh = cum_c.permute(0, 3, 1, 2).reshape(bsz * h, nc, q)
+
+    x_bh = to_bh(xdt).float()
+    b_bh = to_bh(bh).float()
+    c_bh = to_bh(ch).float()
+
+    y_diag = diag_fn(x_bh, cum_bh, b_bh, c_bh)
+
+    decay_to_end = torch.exp(cum_bh[:, :, -1:] - cum_bh)
+    states = torch.einsum("zcq,zcqn,zcqp->zcnp", decay_to_end, b_bh, x_bh)
+    chunk_decay = torch.exp(cum_bh[:, :, -1])                 # (BH, C)
+
+    # State entering each chunk: h_c = decay_{c-1} · h_{c-1} + states_{c-1}.
+    prev = torch.zeros((bsz * h, n, pdim), dtype=torch.float32,
+                       device=xh.device)
+    entering = []
+    for ci in range(nc):
+        entering.append(prev)
+        prev = chunk_decay[:, ci, None, None] * prev + states[:, ci]
+    prev_states = torch.stack(entering, dim=1)                # (BH, C, N, P)
+
+    y_off = torch.einsum("zcqn,zcnp,zcq->zcqp", c_bh, prev_states,
+                         torch.exp(cum_bh))
+    y = y_diag.float() + y_off
+    y = y.reshape(bsz, h, s, pdim).permute(0, 2, 1, 3)
+    return y + xh.float() * d_skip[None, None, :, None]
+
+
+def _ssd_host(xh, dt, a, bh, ch, d_skip, *, chunk):
+    from repro_torch.kernels import ref as kref  # lazy: avoid import cycle
+
+    return _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk,
+                          kref.ssd_chunk_diag_ref)
+
+
+def _ssd_kernel(xh, dt, a, bh, ch, d_skip, *, chunk):
+    kernel = _kops().kernel_lowering("ssd_scan")
+
+    def diag(x_bh, cum_bh, b_bh, c_bh):
+        # The kernel takes one dtype; the log-decays are fp32 in the kernel
+        # whatever they arrive in, as in the reference's Pallas kernel.
+        return kernel(x_bh.contiguous(), cum_bh.float().contiguous(),
+                      b_bh.contiguous(), c_bh.contiguous())
+
+    return _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk, diag)
+
+
+register(OffloadOp(
+    name="ssd_scan",
+    cost=_ssd_cost,
+    host=_ssd_host,
+    kernel=_ssd_kernel,
+    eligible=_ssd_eligible,
+))
+
+
+# ---------------------------------------------------------------------------
 # Level-2 / Level-1 descriptors (host lowering only; still scored + routed,
 # so traces show whether the decision model would offload them)
 # ---------------------------------------------------------------------------
@@ -814,6 +926,29 @@ def decode_attention(
     cache so affinity scheduling routes decode to the data."""
     return dispatch(
         "decode_attention", q, k_cache, v_cache, lo, hi, handle=handle
+    )
+
+
+def ssd_scan(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    bh: torch.Tensor,
+    ch: torch.Tensor,
+    d_skip: torch.Tensor,
+    *,
+    chunk: int,
+    handle: Optional[DeviceHandle] = None,
+) -> torch.Tensor:
+    """Whole Mamba-2 SSD core through the offload seam.
+
+    xh: (B, S, H, P); dt: (B, S, H) fp32; a, d_skip: (H,); bh, ch:
+    (B, S, H, N).  Returns the fp32 (B, S, H, P) mixer output (within-chunk
+    quadratic term + inter-chunk state recurrence + D skip).  The kernel
+    path runs the within-chunk term on the hand-written SSD chunk kernel
+    (``ssd_chunk_diag``)."""
+    return dispatch(
+        "ssd_scan", xh, dt, a, bh, ch, d_skip, chunk=chunk, handle=handle
     )
 
 

@@ -33,7 +33,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_ROOT = _REPO_ROOT / "build" / "kernels"
 
-KERNEL_SOURCES: Tuple[str, ...] = ("gemm", "flash_decode", "flash_attention")
+KERNEL_SOURCES: Tuple[str, ...] = ("gemm", "flash_decode", "flash_attention",
+                                   "ssd_scan")
 
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 __all__ = ["gemm_ref", "gemm_batched_ref", "attention_ref",
-           "decode_attention_ref"]
+           "decode_attention_ref", "ssd_chunk_diag_ref"]
 
 _NEG_INF = -1e30
 
@@ -100,3 +100,22 @@ def decode_attention_ref(
     p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
     out = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def ssd_chunk_diag_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor) -> torch.Tensor:
+    """Y_diag = (L ∘ (C B^T)) X per (bh, chunk); L[i,j] = exp(Σa_i - Σa_j)·[j<=i].
+
+    x: (BH, C, Q, P); dt_a: (BH, C, Q) cumulative log-decay within each
+    chunk; b, c: (BH, C, Q, N).  fp32 throughout, one rounding to
+    ``x.dtype``.  Masked pairs are selected to 0, never multiplied by a 0/1
+    mask: their exponent is positive and may overflow to inf."""
+    xf, af, bf, cf = x.float(), dt_a.float(), b.float(), c.float()
+    s = torch.einsum("zcqn,zckn->zcqk", cf, bf)
+    q = x.shape[2]
+    pos = torch.arange(q, device=x.device)
+    causal = pos[None, :] <= pos[:, None]
+    l_mask = torch.where(causal, torch.exp(af[..., :, None] - af[..., None, :]),
+                         torch.zeros((), device=x.device))
+    y = torch.einsum("zcqk,zckp->zcqp", s * l_mask, xf)
+    return y.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Batched serving driver: prefill + decode with a KV cache.
+"""Batched serving loop: prefill + decode with a KV cache (or, for an
+SSM stack such as mamba2-370m, a per-layer SSM and conv state cache).
 
 A deliberately small but real serving loop: requests arrive with prompts,
 are padded into a batch, prefilled token by token through the decode step
@@ -17,6 +18,7 @@ The CLI serves the arch's reduced config, as the reference's CLI does, with
 every eligible op on the kernels:
 
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 [--forward-mode graph]
+    python -m repro_torch.launch.serve --arch mamba2-370m
 """
 
 from __future__ import annotations

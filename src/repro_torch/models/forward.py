@@ -1,4 +1,5 @@
-"""Graph-captured block forwards — the dense decoder on lazy ``hnp`` graphs.
+"""Graph-captured block forwards — dense and Mamba blocks on lazy ``hnp``
+graphs.
 
 ``cfg.forward_mode = "graph"`` routes every transformer block through this
 module instead of the eager per-op seam calls.  Each block's forward is
@@ -9,20 +10,22 @@ decides the launches:
 * elementwise epilogues (residual adds) **fuse** into their producer's
   launch — no extra dispatch record, no staging for the chain's
   intermediates;
-* attention intermediates **stay device-resident** across the block: each
-  launch carries its exact ``resident_fraction``, so a qkv projection
-  consumed by the attention launch on the same device never pays the
-  host<->device staging region.
+* independent same-shape projections (a Mamba block's z/x and B/C pairs)
+  **batch** into one ``gemm_batched`` launch each;
+* intermediates **stay device-resident** across the block: each launch
+  carries its exact ``resident_fraction``, so a qkv projection consumed by
+  the attention launch on the same device never pays the host<->device
+  staging region.
 
 Everything heavy dispatches through the same registered ``OffloadOp``
 descriptors as the eager path (``qkv_project``, ``attention``,
-``mlp_block``, ``matmul``, ``rmsnorm_scale``), so eager and graph forwards
-agree per backend.  RoPE runs eagerly between forces; the region shares
-residency across those forces.
+``ssd_scan``, ``mlp_block``, ``matmul``, ``rmsnorm_scale``), so eager and
+graph forwards agree per backend.  RoPE and the Mamba conv run eagerly
+between forces; the region shares residency across those forces.
 
 The reference traces one block under ``lax.scan`` and so writes one
 ``GraphReport`` per forward; the port's eager layer loop captures one per
-layer.  Mamba and MoE blocks arrive with the SSM and MoE slices.
+layer.  MoE FFNs arrive with the MoE slice.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import contextlib
 from typing import Any, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
@@ -113,8 +117,37 @@ def _graph_attention(p, h, shape, cfg, positions, window, rope_theta):
     return hnp.matmul(o2, p["wo"])
 
 
-def _graph_mamba(*args, **kwargs):
-    raise NotImplementedError("graph-mode Mamba blocks arrive with the SSM slice")
+def _graph_mamba(p, h, shape, cfg, out_dtype):
+    """Projections (z/x and B/C pairs batch into gemm_batched) -> conv
+    (eager) -> ``ssd_scan`` with the SiLU gate fused into its launch ->
+    gated-norm -> out projection."""
+    hnp = _hnp()
+    from repro_torch.models.ssm import conv_and_inputs
+
+    b, s, d = shape
+    h2 = h.reshape(b * s, d)
+    za = hnp.matmul(h2, p["wz"])       # same shape as wx -> one gemm_batched
+    xa = hnp.matmul(h2, p["wx"])
+    ba = hnp.matmul(h2, p["wb"])       # same shape as wc -> one gemm_batched
+    ca = hnp.matmul(h2, p["wc"])
+    dta = hnp.matmul(h2, p["wdt"], out_dtype=torch.float32)
+    hnp.block_all(za, xa, ba, ca, dta)  # one wave: independent GEMMs batch
+
+    def val3(t):
+        return _force(t).reshape(b, s, -1)
+
+    z, xin, b_, c_, dt = val3(za), val3(xa), val3(ba), val3(ca), val3(dta)
+    xh, dt_f, a, bh_, ch_ = conv_and_inputs(p, xin, b_, c_, dt, cfg)
+
+    ya = hnp.ssd_scan(
+        hnp.array(xh), dt_f, a, bh_, ch_, p["d_skip"], chunk=cfg.ssm_chunk
+    )
+    gate = F.silu(z.float())
+    hp = (cfg.ssm_num_heads, cfg.ssm_head_dim)
+    ya = ya * hnp.array(gate.reshape(b, s, *hp))  # fuses into the ssd launch
+    yn = ya.reshape(b, s, cfg.d_inner).astype(out_dtype)
+    yn = hnp.rmsnorm_scale(yn, p["norm"]["scale"], eps=cfg.norm_eps)
+    return hnp.matmul(yn, p["wo"])
 
 
 def _graph_moe(*args, **kwargs):
@@ -135,10 +168,9 @@ def graph_block(
     """One pre-norm residual block as a captured ``hnp`` graph.
 
     Mirrors ``transformer._apply_block`` exactly (same descriptors, same
-    math); returns ``(x, aux_loss)``.
+    math); returns ``(x, aux_loss)``.  An SSM stack's block is the Mamba
+    mixer alone (no second norm, no FFN).
     """
-    if kind != "attn":
-        _graph_mamba()
     if is_moe:
         _graph_moe()
     hnp = _hnp()
@@ -147,10 +179,15 @@ def graph_block(
         _record_report(region.report)
         xa = hnp.array(x)
         h1 = _graph_norm(xa, p["norm1"], cfg, cfg.norm_kind)
-        mix = _graph_attention(
-            p["mixer"], h1, x.shape, cfg, positions, window, rope_theta
-        )
+        if kind == "attn":
+            mix = _graph_attention(
+                p["mixer"], h1, x.shape, cfg, positions, window, rope_theta
+            )
+        else:
+            mix = _graph_mamba(p["mixer"], h1, x.shape, cfg, x.dtype)
         xres = xa + mix           # residual fuses into the mixer's launch
+        if cfg.family == "ssm":
+            return _force(xres), aux
         h2 = _graph_norm(xres, p["norm2"], cfg, cfg.norm_kind)
         f = hnp.mlp_block(
             h2, p["ffn"]["w_up"], p["ffn"]["w_down"],

@@ -253,9 +253,16 @@ def test_cli_forward_mode_graph(capsys):
 
 
 def test_graph_mamba_and_moe_wait_for_their_slices():
-    with pytest.raises(NotImplementedError, match="SSM"):
-        tforward.graph_block({}, torch.zeros(1, 1, 4), None, "mamba", False,
-                             positions=None)
+    """Mamba blocks run in graph mode since the SSM slice
+    (tests/test_torch_ssm.py); stacks that put Mamba layers beside attention
+    and MoE layers (jamba), and MoE FFNs, wait for the MoE slice."""
+    from repro_torch.models import transformer as T
+
+    hybrid = dataclasses.replace(tget_arch("mamba2-370m").reduced(),
+                                 family="hybrid", attn_layer_period=2,
+                                 forward_mode="graph")
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        T.apply_stack([], torch.zeros(1, 1, 4), hybrid, positions=None)
     with pytest.raises(NotImplementedError, match="MoE"):
         tforward.graph_block({}, torch.zeros(1, 1, 4), None, "attn", True,
                              positions=None)

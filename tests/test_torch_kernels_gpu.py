@@ -8,7 +8,9 @@ that has only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: ``tests/conftest.py`` imports JAX.)  Tolerances are
 ``tests/test_kernels.py``'s, f32 2e-5 and bf16 2e-2, of max |plain|
-(for attention, of each output row's max |plain|).
+(for attention, of each output row's max |plain|); the SSD chunk kernel's
+is 1e-4 in f32 (``tests/test_kernels.py:169``), of each output row's max
+|plain|.
 """
 
 import numpy as np
@@ -19,7 +21,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gemm import gemm, gemm_batched
 from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
-                                     gemm_batched_ref, gemm_ref)
+                                     gemm_batched_ref, gemm_ref,
+                                     ssd_chunk_diag_ref)
+from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
 pytestmark = pytest.mark.gpu
 
@@ -248,3 +252,112 @@ def test_hnp_batches_same_shape_gemms_on_the_card(card):
     for y, w in ((y1, w1), (y2, w2)):
         want = x.astype(np.float64) @ w.astype(np.float64)
         assert np.abs(hnp.asnumpy(y) - want).max() <= 2e-5 * np.abs(want).max()
+
+
+# tests/test_kernels.py::test_ssd_chunk_diag's shapes (BH, C, Q, P, N), then
+# mamba2-370m's at 4 x 1024 tokens (BH 128, 4 chunks of 256, P 64, N 128),
+# a 16-token forward (one 16-row chunk) and a ragged shape.
+SSD_SHAPES = [(4, 2, 32, 16, 8), (2, 8, 64, 32, 16), (1, 1, 8, 8, 8),
+              (128, 4, 256, 64, 128), (32, 1, 16, 64, 128),
+              (3, 2, 100, 80, 40)]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _ssd_inputs(gen, bh, nc, q, p, n, decay=0.1, dtype=torch.float32):
+    dta = torch.cumsum(-torch.randn(bh, nc, q, generator=gen,
+                                    device="cuda").abs() * decay, dim=-1)
+    return [torch.randn(bh, nc, q, p, generator=gen, device="cuda").to(dtype),
+            dta.to(dtype),
+            torch.randn(bh, nc, q, n, generator=gen, device="cuda").to(dtype),
+            torch.randn(bh, nc, q, n, generator=gen, device="cuda").to(dtype)]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_diag_kernel(card, shape, dtype):
+    ins = _ssd_inputs(card, *shape, dtype=getattr(torch, dtype))
+    before = ssd_chunk_diag.launches
+    got = ssd_chunk_diag(*ins)
+    torch.cuda.synchronize()
+    assert ssd_chunk_diag.launches == before + 1
+    assert got.dtype == ins[0].dtype and got.shape == ins[0].shape
+    assert _row_err(got, ssd_chunk_diag_ref(*ins)) <= SSD_TOL[dtype]
+
+
+def test_ssd_chunk_diag_kernel_deep_decay_and_causality(card):
+    """The model's decay (a = -1, dt ≈ 0.7: the log-decay reaches about
+    -180 over a 256-token chunk) leaves every output finite, and
+    tests/test_kernels.py's causality case holds on the kernel."""
+    ins = _ssd_inputs(card, 16, 2, 256, 64, 128, decay=0.7)
+    assert ins[1][..., -1].max().item() < -100
+    got = ssd_chunk_diag(*ins)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _row_err(got, ssd_chunk_diag_ref(*ins)) <= SSD_TOL["float32"]
+    x, dta, b, c = _ssd_inputs(card, 1, 1, 16, 8, 4)
+    x2 = x.clone()
+    x2[:, :, 10:, :] = 123.0
+    y1, y2 = ssd_chunk_diag(x, dta, b, c), ssd_chunk_diag(x2, dta, b, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y1[:, :, :10], y2[:, :, :10], rtol=1e-5,
+                               atol=0)
+
+
+def test_ssd_chunk_diag_kernel_rejects_mixed_dtypes(card):
+    x, dta, b, c = _ssd_inputs(card, 2, 1, 8, 8, 8)
+    with pytest.raises(TypeError, match="f32/bf16"):
+        ssd_chunk_diag(x, dta.double(), b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk_diag(x.transpose(2, 3).contiguous().transpose(2, 3), dta,
+                       b, c)
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+def test_mamba_forward_reduced_on_kernels(card, mode):
+    """Reduced mamba2-370m (f32, 2 layers) Model.forward on the card: one
+    SSD launch per layer, 6 GEMMs per layer + the tied head in eager mode
+    (graph mode: z/x and B/C in one batched launch each), logits within
+    1e-4 of the plain device path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch("mamba2-370m").reduced(),
+                              forward_mode=mode)
+    model = build_model(cfg)
+    params = model.init_params(card, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=card,
+                           device="cuda")
+    gemm.launches = gemm_batched.launches = ssd_chunk_diag.launches = 0
+    with offload_policy(mode="device", use_kernels=True), torch.no_grad():
+        got, _ = model.forward(params, tokens)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    want_counts = ((6 * L + 1, 0) if mode == "eager" else (2 * L + 1, 2 * L))
+    assert (gemm.launches, gemm_batched.launches) == want_counts
+    assert ssd_chunk_diag.launches == L
+    with offload_policy(mode="device", use_kernels=False), torch.no_grad():
+        want, _ = model.forward(params, tokens)
+    assert _err(got, want) <= 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_mamba_serve_reduced_on_kernels(card):
+    """Reduced mamba2-370m served on the card: 6 GEMMs per layer + the head
+    per decode step, no SSD launch (decode is the one-step recurrence), and
+    the kernel path's greedy tokens equal the plain path's."""
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.launch.serve import serve_batch
+
+    rng = np.random.default_rng(2)
+    prompts = [list(map(int, rng.integers(1, 200, size=4))) for _ in range(8)]
+    gemm.launches = ssd_chunk_diag.launches = 0
+    with offload_policy(mode="device", use_kernels=True):
+        got = serve_batch("mamba2-370m", prompts, max_new_tokens=4)
+    assert gemm.launches == (4 + 4) * (6 * 2 + 1)
+    assert ssd_chunk_diag.launches == 0
+    with offload_policy(mode="device", use_kernels=False):
+        want = serve_batch("mamba2-370m", prompts, max_new_tokens=4)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
