@@ -11,9 +11,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               started together;
 2. check    — each kernel against its plain PyTorch version on the card, at
               the reference tests' shapes, at yi-6b's shapes (decode,
-              prefill, the stacked GEMMs of the hnp phase) and at
-              mamba2-370m's (the SSD chunk term of a 4 x 1024 and of a
-              16-token forward);
+              prefill, the forward's GEMMs, the stacked GEMMs of the hnp
+              phase) and at mamba2-370m's (the forward's GEMMs and their
+              graph-mode stacks, the SSD chunk term of a 4 x 1024 and of a
+              16-token forward); the GEMM's tensor-core route also at
+              ragged shapes with both layouts of B, its fp32 accumulation,
+              and each stacked launch bit for bit against its single
+              launches;
 3. serve    — yi-6b at full width (bf16, random weights from a seeded
               generator), 8 requests, through the offload seam with the
               kernels on; launch counters and trace backends prove the path
@@ -45,7 +49,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               version and one library call (CUDA events).
 
 Each path's launch counters are set to 0 just before it runs and read just
-after.  The last line of stdout is ``{"ok": true, "device": {...}}``; the
+after; the GEMM's route counters too, and every bf16 forward and hnp-wave
+GEMM must have taken the tensor-core route (``wgmma``), every serving GEMM
+the skinny one.  The last line of stdout is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
 one before that lists every kernel.  Imports nothing of JAX or of the JAX
 reference package.
@@ -120,6 +126,11 @@ F32_LOGIT_TOL = 1e-4
 # GEMM shapes of tests/test_kernels.py:25-30.
 TEST_GEMM_SHAPES = [(128, 128, 128), (256, 128, 384), (200, 130, 96),
                     (8, 8, 8), (1, 256, 64)]
+# The GEMM's tensor-core route (bf16, m > 16) at ragged shapes: m, n and k
+# off the 128 / 128 / 64 tile (k a multiple of 8, as TMA needs), a narrow n
+# (the 64-wide tile), each with B row-major ("mn") and K-major ("k").
+WGMMA_RAGGED = [(17, 72, 104), (100, 32, 1016), (1000, 5128, 8 * 131),
+                (200, 136, 96)]
 # Batched GEMM: tests/test_kernels.py:51-57 (bsz x 96x64 @ 64x80).
 TEST_GEMM_BATCHED = [1, 3, 8]
 # Flash-decode cases of tests/test_kernels.py:120-123, the serve shape
@@ -176,6 +187,69 @@ def serve_gemm_shapes(cfg):
     ]
 
 
+def forward_gemm_shapes(cfg, ssm_cfg):
+    """(tag, m, k, n, launches per forward, B layout) of every GEMM of the
+    yi-6b forward (m = 2 x 512) and of the mamba2-370m forward (m = 4 x
+    1024; its tied head multiplies by ``embed.T``, a K-major B)."""
+    m = FWD_BATCH * FWD_SEQ
+    yi = [(f"yi:{name}", m, k, n, count, "mn")
+          for name, _, k, n, count in serve_gemm_shapes(cfg)]
+    ms, Ls = SSM_FWD_BATCH * SSM_FWD_SEQ, ssm_cfg.num_layers
+    d, di = ssm_cfg.d_model, ssm_cfg.d_inner
+    gn = ssm_cfg.ssm_num_groups * ssm_cfg.ssm_state_dim
+    ssm = [("mamba:wz/wx", ms, d, di, 2 * Ls, "mn"),
+           ("mamba:wb/wc", ms, d, gn, 2 * Ls, "mn"),
+           ("mamba:wdt", ms, d, ssm_cfg.ssm_num_heads, Ls, "mn"),
+           ("mamba:wo", ms, di, d, Ls, "mn"),
+           ("mamba:head", ms, d, ssm_cfg.vocab_size, 1, "k")]
+    return yi + ssm
+
+
+def graph_stack_shapes(cfg, ssm_cfg):
+    """(tag, batch, m, k, n, launches per forward or wave) of the stacked
+    GEMMs: mamba2-370m's graph-mode z/x and B/C stacks and the hnp wave."""
+    ms, Ls = SSM_FWD_BATCH * SSM_FWD_SEQ, ssm_cfg.num_layers
+    d = ssm_cfg.d_model
+    gn = ssm_cfg.ssm_num_groups * ssm_cfg.ssm_state_dim
+    return [("mamba-graph:z/x", 2, ms, d, ssm_cfg.d_inner, Ls),
+            ("mamba-graph:B/C", 2, ms, d, gn, Ls),
+            ("hnp-wave", 2, HNP_ROWS, cfg.d_model,
+             cfg.num_kv_heads * cfg.head_dim, 1)]
+
+
+def b_operand(randn, k, n, layout, dtype, batch=None):
+    """B as [k, n] (or [batch, k, n]): row-major for ``"mn"``, the
+    transpose of a row-major [n, k] for ``"k"``."""
+    lead = () if batch is None else (batch,)
+    if layout == "mn":
+        return randn(*lead, k, n, dtype=dtype)
+    return randn(*lead, n, k, dtype=dtype).transpose(-1, -2)
+
+
+def zero_routes():
+    from repro_torch.kernels.gemm import gemm, gemm_batched
+
+    for fn in (gemm, gemm_batched):
+        fn.route_launches.update(dict.fromkeys(fn.route_launches, 0))
+
+
+def read_routes():
+    """{"gemm": {route: launches}, "gemm_batched": {...}} since the last
+    ``zero_routes``."""
+    from repro_torch.kernels.gemm import gemm, gemm_batched
+
+    return {"gemm": dict(gemm.route_launches),
+            "gemm_batched": dict(gemm_batched.route_launches)}
+
+
+def require_route(label, routes, route):
+    """Fail unless every GEMM launch in ``routes`` took ``route``."""
+    stray = {k: {r: n for r, n in v.items() if r != route and n}
+             for k, v in routes.items()}
+    if any(stray.values()):
+        fail(f"{label}: GEMM launches off the {route} route: {routes}")
+
+
 def attn_work(b, hq, hkv, sq, skv, d, causal, window, itemsize):
     """(bytes, flops) of one attention call: q, k, v read once and the
     output written once; 4·D FLOPs per live (query, key) pair."""
@@ -222,6 +296,7 @@ def main() -> None:
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+        zero_routes()
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -241,7 +316,8 @@ def main() -> None:
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     cfg = get_arch(ARCH)
-    max_abs = check_kernels(cfg, randn)
+    ssm_cfg = get_arch(SSM_ARCH)
+    max_abs = check_kernels(cfg, ssm_cfg, randn)
 
     # ---- 3.-5. serve, forward, serve in graph mode (bf16) ---------------
     from repro_torch.models import build_model
@@ -256,18 +332,21 @@ def main() -> None:
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
                                              size=PROMPT_LEN)]
                for _ in range(BATCH)]
-    launches = {}
+    launches, routes = {}, {}
     serve = run_serve(cfg, model, params, prompts, "eager", zero_counts,
                       read_counts)
     serve["init_s"] = init_s
     serve["params"] = sum(t.numel() for t in _leaves(params))
     launches["serve"] = serve["launches"]
+    routes["serve"] = serve["routes"]
     emit({"phase": "serve", **serve})
 
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(FWD_BATCH, FWD_SEQ))).to(dev)
     fwd = run_forward(cfg, model, params, tokens, zero_counts, read_counts)
     launches["forward"] = fwd["launches"]["eager"]
+    routes["forward"] = fwd["routes"]["eager"]
+    routes["forward-graph"] = fwd["routes"]["graph"]
     emit({"phase": "forward", **fwd})
 
     serve_g = run_serve(cfg, model, params, prompts, "graph", zero_counts,
@@ -287,12 +366,12 @@ def main() -> None:
     # ---- 7. hnp: the paper's path ---------------------------------------
     hnp_phase = run_hnp(cfg, randn, zero_counts, read_counts)
     launches["hnp"] = hnp_phase["launches"]
+    routes["hnp-wave"] = hnp_phase["wave"]["routes"]
     max_abs["gemm_batched"] = max(max_abs["gemm_batched"],
                                   hnp_phase["wave"]["max_abs_err_vs_plain"])
     emit({"phase": "hnp", **hnp_phase})
 
     # ---- 8.-10. the SSM path: mamba2-370m at full width -------------------
-    ssm_cfg = get_arch(SSM_ARCH)
     ssm_model = build_model(ssm_cfg)
     t0 = time.perf_counter()
     ssm_params = ssm_model.init_params(
@@ -306,6 +385,9 @@ def main() -> None:
     ssm_fwd["init_s"] = ssm_init_s
     ssm_fwd["params"] = sum(t.numel() for t in _leaves(ssm_params))
     launches["ssm-forward"] = ssm_fwd["launches"]["eager"]
+    launches["ssm-forward-graph"] = ssm_fwd["launches"]["graph"]
+    routes["ssm-forward"] = ssm_fwd["routes"]["eager"]
+    routes["ssm-forward-graph"] = ssm_fwd["routes"]["graph"]
     emit({"phase": "ssm-forward", **ssm_fwd})
     ssm_prompts = [[int(t) for t in rng.integers(1, ssm_cfg.vocab_size,
                                                  size=PROMPT_LEN)]
@@ -314,13 +396,14 @@ def main() -> None:
                           "eager", zero_counts, read_counts)
     ssm_serve.pop("tokens")
     launches["ssm-serve"] = ssm_serve["launches"]
+    routes["ssm-serve"] = ssm_serve["routes"]
     emit({"phase": "ssm-serve", **ssm_serve})
     del ssm_params
     torch.cuda.empty_cache()
     run_ssm_f32(ssm_cfg, ssm_tokens, ssm_prompts)
 
     # ---- 11. times --------------------------------------------------------
-    kernels = run_times(cfg, ssm_cfg, randn, launches, max_abs)
+    kernels = run_times(cfg, ssm_cfg, randn, launches, routes, max_abs)
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
 
@@ -347,7 +430,7 @@ def _row_rel_err(got, want):
     return (diff[live] / scale[live]).max().item(), diff.max().item()
 
 
-def check_kernels(cfg, randn):
+def check_kernels(cfg, ssm_cfg, randn):
     """Phase 2: every kernel against its plain version; returns the max
     abs errors at the main paths' shapes (bf16)."""
     import torch
@@ -361,21 +444,35 @@ def check_kernels(cfg, randn):
     from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
     dev = torch.device("cuda")
+    bf16 = torch.bfloat16
     max_abs = {"gemm": 0.0, "flash_decode": 0.0, "gemm_batched": 0.0,
-               "flash_attention": 0.0, "ssd_chunk_diag": 0.0}
+               "flash_attention": 0.0, "ssd_chunk_diag": 0.0,
+               "gemm:forward": 0.0, "gemm_batched:forward": 0.0}
     checks = []
 
     def record(kernel, case, dt, err, abs_err, main_shape, scale="max",
-               tol=TOL, main_dtype=torch.bfloat16):
+               tol=TOL, main_dtype=torch.bfloat16, key=None):
         """One check against its bar; ``main_shape`` checks in the main
-        path's dtype feed the kernel's max abs error."""
+        path's dtype feed the max abs error under ``key`` (default: the
+        kernel's)."""
         dname = str(dt).removeprefix("torch.")
         checks.append({"kernel": kernel, "case": case, "dtype": dname,
                        "err": err, "tol": tol[dname], "scale": scale})
         if main_shape and dt == main_dtype:
-            max_abs[kernel] = max(max_abs[kernel], abs_err)
+            key = key or kernel
+            max_abs[key] = max(max_abs[key], abs_err)
         if not err <= tol[dname]:
             fail(f"{kernel} {case} {dname}: err {err} > {tol[dname]}")
+
+    def on_route(fn, route, call):
+        """``call()``, failing unless it launched ``fn`` once on ``route``."""
+        before = dict(fn.route_launches)
+        out = call()
+        torch.cuda.synchronize()
+        if fn.route_launches != {**before, route: before[route] + 1}:
+            fail(f"{fn.__name__} did not take the {route} route: "
+                 f"{before} -> {fn.route_launches}")
+        return out
 
     gemm_cases = [(m, n, k, "test") for m, n, k in TEST_GEMM_SHAPES] + [
         (m, n, k, "serve:" + name)
@@ -399,16 +496,64 @@ def check_kernels(cfg, randn):
     checks.append({"kernel": "gemm", "case": "bf16 fp32-accumulation k=4096",
                    "err": err, "tol": 0.02})
 
-    d, kv_n = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
+    # The tensor-core route: every forward GEMM shape of both models, then
+    # ragged shapes with both B layouts and both output dtypes.
+    wg_cases = [(m, n, k, lay, tag, bf16) for tag, m, k, n, _, lay
+                in forward_gemm_shapes(cfg, ssm_cfg)]
+    wg_cases += [(m, n, k, lay, "ragged", out) for m, n, k in WGMMA_RAGGED
+                 for lay in ("mn", "k") for out in (bf16, torch.float32)]
+    # An odd n (unaligned C rows: scalar stores) needs a K-major B.
+    wg_cases += [(100, 33, 1016, "k", "ragged", out)
+                 for out in (bf16, torch.float32)]
+    for m, n, k, lay, tag, out in wg_cases:
+        a, b = randn(m, k, dtype=bf16), b_operand(randn, k, n, lay, bf16)
+        got = on_route(gemm, "wgmma", lambda: gemm(a, b, out_dtype=out))
+        err, abs_err = _rel_err(got, gemm_ref(a, b, out_dtype=torch.float32))
+        record("gemm", f"wgmma {tag} {m}x{k}@{k}x{n} B {lay}-major "
+               f"out {str(out)[6:]}", bf16, err, abs_err, tag != "ragged",
+               key="gemm:forward")
+        del a, b, got
+    # fp32 accumulation on the tensor cores, at m = 128.
+    k = 4096
+    a = torch.full((128, k), 0.01, dtype=bf16, device=dev)
+    b = torch.full((k, 128), 0.01, dtype=bf16, device=dev)
+    acc = on_route(gemm, "wgmma",
+                   lambda: gemm(a, b, out_dtype=torch.float32))
+    err = ((acc - k * 1e-4).abs().max() / (k * 1e-4)).item()
+    if not err < 0.02:
+        fail(f"gemm wgmma route does not accumulate in fp32: {err}")
+    checks.append({"kernel": "gemm", "case": "wgmma bf16 fp32-accumulation "
+                   "m=128 k=4096", "err": err, "tol": 0.02})
+
     batched = [(z, 96, 64, 80, "test") for z in TEST_GEMM_BATCHED] + [
-        (2, HNP_ROWS, d, kv_n, "hnp-wave")]
+        (z, m, k, n, tag)
+        for tag, z, m, k, n, _ in graph_stack_shapes(cfg, ssm_cfg)]
     for z, m, k, n, tag in batched:
         for dt in (torch.float32, torch.bfloat16):
             a, b = randn(z, m, k, dtype=dt), randn(z, k, n, dtype=dt)
             got = gemm_batched(a, b)
             torch.cuda.synchronize()
             record("gemm_batched", f"{tag} {z}x{m}x{k}@{z}x{k}x{n}", dt,
-                   *_rel_err(got, gemm_batched_ref(a, b)), tag != "test")
+                   *_rel_err(got, gemm_batched_ref(a, b)), tag != "test",
+                   key=None if tag == "hnp-wave" else "gemm_batched:forward")
+    # A stacked launch on the tensor cores equals its single launches bit
+    # for bit (graph mode stacks what eager mode runs one by one), at the
+    # stacks of the main paths and at a ragged K-major one.
+    stacks = [(z, m, k, n, "mn", tag)
+              for tag, z, m, k, n, _ in graph_stack_shapes(cfg, ssm_cfg)]
+    stacks.append((2, 1000, 8 * 131, 5128, "k", "ragged"))
+    for z, m, k, n, lay, tag in stacks:
+        a, b = randn(z, m, k, dtype=bf16), b_operand(randn, k, n, lay, bf16, z)
+        got = on_route(gemm_batched, "wgmma", lambda: gemm_batched(a, b))
+        singles = torch.stack([on_route(gemm, "wgmma",
+                                        lambda i=i: gemm(a[i], b[i]))
+                               for i in range(z)])
+        if not torch.equal(got, singles):
+            fail(f"gemm_batched {tag} differs from its single launches")
+        checks.append({"kernel": "gemm_batched", "case": f"wgmma {tag} "
+                       f"{z}x{m}x{k}@{z}x{k}x{n} B {lay}-major == single "
+                       "launches", "err": 0.0, "tol": 0.0})
+        del a, b, got, singles
 
     for case in TEST_DECODE_CASES:
         b = len(case["bounds"])
@@ -549,11 +694,13 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
     with offload_policy(**KERNEL_POLICY), offload_trace() as trace:
         res_k = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
     launches = read_counts()
+    routes = read_routes()
     per_step, ops = expected(cfg, "serve", forward_mode)
     want = {k: steps * v for k, v in per_step.items()}
     if launches != want:
         fail(f"{arch} serve ({forward_mode}) kernel launches {launches}, "
              f"want {want}")
+    require_route(f"{arch} serve ({forward_mode})", routes, "skinny")
     backends = _backends(trace, ops)
     with offload_policy(**PLAIN_POLICY):
         res_p = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
@@ -569,7 +716,7 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
                    "tokens_per_s": res_k.tokens_per_s},
         "plain": {"prefill_s": res_p.prefill_s, "decode_s": res_p.decode_s,
                   "tokens_per_s": res_p.tokens_per_s},
-        "launches": launches, "trace_backends": backends,
+        "launches": launches, "routes": routes, "trace_backends": backends,
         "greedy_token_agreement": float((res_k.tokens == res_p.tokens).mean()),
         "tokens": tok.tolist(),
     }
@@ -621,7 +768,7 @@ def _backends(trace, ops):
     return {k: sorted(v) for k, v in backends.items()}
 
 
-KERNEL_FAMILIES = {"gemm": ("gemm_tiled", "gemm_skinny"),
+KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
                    "flash_attention": ("flash_attention_kernel",),
                    "flash_decode": ("flash_decode_kernel",),
                    "ssd_chunk_diag": ("ssd_chunk_kernel",)}
@@ -691,7 +838,7 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
     arch = cfg.name
     bsz, seq = tokens.shape
     out = {"arch": arch, "dtype": cfg.dtype, "batch": bsz, "seq": seq,
-           "seconds": {}, "launches": {}, "trace_backends": {}}
+           "seconds": {}, "launches": {}, "routes": {}, "trace_backends": {}}
     last = {}
     for mode in ("eager", "graph"):
         mdl = build_model(dataclasses.replace(cfg, forward_mode=mode))
@@ -707,6 +854,9 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
         runs = [time.perf_counter() - t0]
         counts = read_counts()
         out["launches"][mode] = counts
+        out["routes"][mode] = read_routes()
+        require_route(f"{arch} forward ({mode})", out["routes"][mode],
+                      "wgmma")
         for _ in range(2):           # two more, uncounted, for the spread
             t0 = time.perf_counter()
             with offload_policy(**KERNEL_POLICY), torch.no_grad():
@@ -864,6 +1014,8 @@ def run_hnp(cfg, randn, zero_counts, read_counts):
             torch.cuda.synchronize()
             got = torch.stack([yk.node.value, yv.node.value])
     wave_counts = read_counts()
+    wave_routes = read_routes()
+    require_route("hnp wave", wave_routes, "wgmma")
     ops = [r.op for r in t.records if r.op != "d2d_copy"]
     if ops != ["gemm_batched"] or wave_counts["gemm_batched"] != 1 or \
             wave_counts["gemm"] != 0:
@@ -884,7 +1036,7 @@ def run_hnp(cfg, randn, zero_counts, read_counts):
     wave = {
         "summary": region.report.summary(), "records": ops,
         "shape": [2, HNP_ROWS, d, n], "dtype": "bfloat16",
-        "kernel_launches": wave_counts,
+        "kernel_launches": wave_counts, "routes": wave_routes,
         "gemm_batched_launched": wave_counts["gemm_batched"] == 1,
         "max_rel_err_vs_float64": err64, "max_rel_err_vs_plain": err_plain,
         "max_abs_err_vs_plain": abs_plain,
@@ -947,14 +1099,14 @@ def run_ssm_f32(cfg, tokens, prompts):
     torch.cuda.empty_cache()
 
 
-def run_times(cfg, ssm_cfg, randn, launches, max_abs):
+def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
     """Phase 11: each kernel at its path's shapes; returns the kernels
     line."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.gemm import gemm, gemm_batched
+    from repro_torch.kernels.gemm import gemm, gemm_batched, gemm_route
     from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                          gemm_batched_ref, gemm_ref,
                                          ssd_chunk_diag_ref)
@@ -985,31 +1137,48 @@ def run_times(cfg, ssm_cfg, randn, launches, max_abs):
         del ws
     emit({"gemm_shapes": per_shape})
 
-    # The same GEMMs at the forward's m = 2 x 512 rows, per forward.
-    fwd_shapes = []
-    fwd_tot = {"ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for name, _, k, n, count in serve_gemm_shapes(cfg):
-        m = FWD_BATCH * FWD_SEQ
+    # The forwards' GEMMs (yi-6b at m = 2 x 512 rows, mamba2-370m at 4 x
+    # 1024; the tied head's B K-major), per forward, with the route each
+    # takes.  mamba2-370m's dt projection writes f32 in the model; timed
+    # here in bf16.
+    def route_of(a, w):
+        return gemm_route(a.shape[0], w.shape[1], a.shape[1], 1, a.dtype,
+                          (0, *a.stride()), (0, *w.stride()), a.data_ptr(),
+                          w.data_ptr())
+
+    fwd_shapes = {"yi": [], "mamba": []}
+    fwd_tot = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                     "bytes": 0.0, "flops": 0.0} for key in fwd_shapes}
+    for tag, m, k, n, count, lay in forward_gemm_shapes(cfg, ssm_cfg):
+        key, name = tag.split(":")
         a = randn(m, k, dtype=bf16)
-        ws = _rotation(lambda: randn(k, n, dtype=bf16), k * n * 2)
+        ws = _rotation(lambda: b_operand(randn, k, n, lay, bf16), k * n * 2)
         t_k = _time(lambda w: gemm(a, w), ws, iters=10)
+        t_p = _time(lambda w: gemm_ref(a, w), ws, iters=10)
         t_l = _time(lambda w: torch.matmul(a, w), ws, iters=10)
         nbytes = 2.0 * (m * k + k * n + m * n)
         flops = 2.0 * m * n * k
-        fwd_shapes.append({"shape": name, "m": m, "k": k, "n": n,
-                           "launches_per_forward": count, "ms": t_k,
-                           "library_ms": t_l,
-                           "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
-                           "TFLOPs": flops / t_k / 1e9})
-        fwd_tot["ms"] += count * t_k
-        fwd_tot["library_ms"] += count * t_l
-        fwd_tot["bytes"] += count * nbytes
-        fwd_tot["flops"] += count * flops
+        fwd_shapes[key].append({
+            "shape": name, "m": m, "k": k, "n": n, "b_major": lay,
+            "route": route_of(a, ws[0]), "launches_per_forward": count,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
+            "TFLOPs": flops / t_k / 1e9})
+        ftot = fwd_tot[key]
+        ftot["ms"] += count * t_k
+        ftot["plain_ms"] += count * t_p
+        ftot["library_ms"] += count * t_l
+        ftot["bytes"] += count * nbytes
+        ftot["flops"] += count * flops
         del ws
-    emit({"forward_gemm_shapes": fwd_shapes, "per_forward": {
-        "ms": fwd_tot["ms"], "library_ms": fwd_tot["library_ms"],
-        "bound_ms": _bound_ms(fwd_tot["bytes"], fwd_tot["flops"],
-                              "bfloat16")}})
+    per_forward = {key: {
+        "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+        "library_ms": ft["library_ms"],
+        "bound_ms": _bound_ms(ft["bytes"], ft["flops"], "bfloat16"),
+        "TFLOPs": ft["flops"] / ft["ms"] / 1e9}
+        for key, ft in fwd_tot.items()}
+    emit({"forward_gemm_shapes": fwd_shapes["yi"],
+          "per_forward": per_forward["yi"]})
 
     # Decode attention at the last serve step: cache_len slots, the first
     # prompt + new - 1 of them valid, for every layer.
@@ -1121,50 +1290,60 @@ def run_times(cfg, ssm_cfg, randn, launches, max_abs):
         "TFLOPs": ssd_flops / t_sk / 1e9}})
     del ins
 
-    # mamba2-370m's forward GEMMs at m = 4 x 1024 rows, per forward (the
-    # dt projection writes f32 in the model; timed here in bf16).
-    ms_ = SSM_FWD_BATCH * SSM_FWD_SEQ
-    d_s, di_s = ssm_cfg.d_model, ssm_cfg.d_inner
-    gn_s = ssm_cfg.ssm_num_groups * ns
-    ssm_shapes = [("wz/wx", d_s, di_s, 2 * Ls), ("wb/wc", d_s, gn_s, 2 * Ls),
-                  ("wdt", d_s, ssm_cfg.ssm_num_heads, Ls),
-                  ("wo", di_s, d_s, Ls), ("head", d_s, ssm_cfg.vocab_size, 1)]
-    ssm_gemm = []
-    ssm_tot = {"ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for name, k, n, count in ssm_shapes:
-        a = randn(ms_, k, dtype=bf16)
-        ws = _rotation(lambda: randn(k, n, dtype=bf16), k * n * 2)
-        t_k = _time(lambda w: gemm(a, w), ws, iters=10)
-        t_l = _time(lambda w: torch.matmul(a, w), ws, iters=10)
-        nbytes = 2.0 * (ms_ * k + k * n + ms_ * n)
-        flops = 2.0 * ms_ * n * k
-        ssm_gemm.append({"shape": name, "m": ms_, "k": k, "n": n,
+    emit({"ssm_forward_gemm_shapes": fwd_shapes["mamba"],
+          "per_forward": {**per_forward["mamba"], "ssd_ms": Ls * t_sk}})
+
+    # The batched GEMM in mamba2-370m's graph-mode forward: z/x and B/C
+    # stacked, one launch each per layer.
+    g_tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+             "flops": 0.0}
+    g_shapes = []
+    for tag, z, m, k, n, count in graph_stack_shapes(cfg, ssm_cfg):
+        if not tag.startswith("mamba-graph"):
+            continue
+        xs = randn(z, m, k, dtype=bf16)
+        ws = _rotation(lambda: randn(z, k, n, dtype=bf16), z * k * n * 2)
+        t_k = _time(lambda w: gemm_batched(xs, w), ws, iters=10)
+        t_p = _time(lambda w: gemm_batched_ref(xs, w), ws, iters=10)
+        t_l = _time(lambda w: torch.bmm(xs, w), ws, iters=10)
+        nbytes = 2.0 * z * (m * k + k * n + m * n)
+        flops = 2.0 * z * m * n * k
+        g_shapes.append({"shape": tag, "batch": z, "m": m, "k": k, "n": n,
                          "launches_per_forward": count, "ms": t_k,
-                         "library_ms": t_l,
+                         "plain_ms": t_p, "library_ms": t_l,
                          "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
                          "TFLOPs": flops / t_k / 1e9})
-        ssm_tot["ms"] += count * t_k
-        ssm_tot["library_ms"] += count * t_l
-        ssm_tot["bytes"] += count * nbytes
-        ssm_tot["flops"] += count * flops
+        g_tot["ms"] += count * t_k
+        g_tot["plain_ms"] += count * t_p
+        g_tot["library_ms"] += count * t_l
+        g_tot["bytes"] += count * nbytes
+        g_tot["flops"] += count * flops
         del ws
-    emit({"ssm_forward_gemm_shapes": ssm_gemm, "per_forward": {
-        "ms": ssm_tot["ms"], "library_ms": ssm_tot["library_ms"],
-        "bound_ms": _bound_ms(ssm_tot["bytes"], ssm_tot["flops"],
-                              "bfloat16"),
-        "ssd_ms": Ls * t_sk}})
+    emit({"ssm_graph_gemm_batched_shapes": g_shapes})
 
     per = "decode_step"
     return [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemm.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
          "replaces": "src/repro/kernels/gemm.py:32",
          "launches": launches["serve"]["gemm"], "path": "serve",
          "max_abs_err": max_abs["gemm"],
          "ms": tot["ms"], "plain_ms": tot["plain_ms"],
          "bound_ms": _bound_ms(tot["bytes"], tot["flops"], "bfloat16"),
          "bound_by": _bound_by(tot["bytes"], tot["flops"], "bfloat16"),
-         "library_ms": tot["library_ms"], "per": per},
+         "library_ms": tot["library_ms"], "per": per,
+         "forward_launches": launches["forward"]["gemm"],
+         "forward_max_abs_err": max_abs["gemm:forward"],
+         "forward_ms": per_forward["yi"]["ms"],
+         "forward_plain_ms": per_forward["yi"]["plain_ms"],
+         "forward_library_ms": per_forward["yi"]["library_ms"],
+         "forward_bound_ms": per_forward["yi"]["bound_ms"],
+         "ssm_forward_ms": per_forward["mamba"]["ms"],
+         "ssm_forward_plain_ms": per_forward["mamba"]["plain_ms"],
+         "ssm_forward_library_ms": per_forward["mamba"]["library_ms"],
+         "ssm_forward_bound_ms": per_forward["mamba"]["bound_ms"],
+         "route_launches": {path: r["gemm"] for path, r in routes.items()}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:32",
@@ -1176,13 +1355,23 @@ def run_times(cfg, ssm_cfg, randn, launches, max_abs):
          "library_ms": L * t_dl, "per": per},
         {"name": "gemm_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemm.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
          "replaces": "src/repro/kernels/gemm.py:105",
          "launches": launches["hnp"]["gemm_batched"], "path": "hnp",
          "max_abs_err": max_abs["gemm_batched"],
          "ms": t_bk, "plain_ms": t_bp,
          "bound_ms": _bound_ms(b_bytes, b_flops, "bfloat16"),
          "bound_by": _bound_by(b_bytes, b_flops, "bfloat16"),
-         "library_ms": t_bl, "per": "hnp_wave"},
+         "library_ms": t_bl, "per": "hnp_wave",
+         "forward_launches": launches["ssm-forward-graph"]["gemm_batched"],
+         "forward_max_abs_err": max_abs["gemm_batched:forward"],
+         "forward_ms": g_tot["ms"], "forward_plain_ms": g_tot["plain_ms"],
+         "forward_library_ms": g_tot["library_ms"],
+         "forward_bound_ms": _bound_ms(g_tot["bytes"], g_tot["flops"],
+                                       "bfloat16"),
+         "forward_path": "ssm-forward-graph",
+         "route_launches": {path: r["gemm_batched"]
+                            for path, r in routes.items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:37",

@@ -7,9 +7,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
          -Xcompiler -fPIC -o lib<name>.so csrc/<name>.cu
 
 No PyTorch header is included, so a build takes seconds, not minutes.  The
-output goes to ``build/kernels/<hash>/`` under the repository root (listed in
-``.gitignore``), where ``<hash>`` covers the source and the flags: an edited
-source builds into a fresh directory and a stale library is never loaded.
+output goes to ``build/kernels/<name>-<hash>/`` under the repository root
+(listed in ``.gitignore``), where ``<hash>`` covers the source, every header
+``csrc/*.cuh`` (a source may include any of them) and the flags: an edited
+source or header builds into a fresh directory and a stale library is never
+loaded.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time; a machine without ``nvcc`` can import
@@ -61,9 +63,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def _start(name: str, nvcc: str, verbose: bool):

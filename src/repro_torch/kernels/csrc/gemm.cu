@@ -1,37 +1,48 @@
-// Tiled GEMM for Hopper (sm_90a): C[z] = A[z] @ B[z], fp32 accumulation.
+// GEMM for Hopper (sm_90a): C[z] = A[z] @ B[z], fp32 accumulation, one
+// rounding to the output type.
 //
 // Replaces the reference's Pallas TPU kernel `gemm_kernel` / `pallas_gemm`
 // (src/repro/kernels/gemm.py).  There the sequential k grid axis carried an
 // fp32 VMEM accumulator from one grid step to the next and operands were
 // zero-padded to 128-tiles.  Here blocks run in parallel in no order, so the
-// k loop lives inside the block: each block stages (BM x BK) and (BK x BN)
-// operand tiles in shared memory, accumulates in fp32 registers and writes
-// each output element exactly once, in the output type.  Ragged edges are
-// masked in the tile loads and the store; no operand is padded or copied.
+// k loop lives inside the block and each output element is written once.
+// Ragged edges are masked (or zero-filled by TMA); no operand is padded or
+// copied.
 //
-// Arithmetic: operands are widened to fp32 on load and every product is a
-// true fp32 FMA on the CUDA cores (no TF32, no tensor cores), so an f32 GEMM
-// matches the fp32 reference to ~1e-6 relative and bf16 inputs accumulate in
-// fp32.  The result is rounded once (round-to-nearest-even for bf16).
+// Three kernels; the caller names which one runs (`route`, chosen in
+// kernels/gemm.py::gemm_route by shape, dtype, layout and alignment), and
+// nothing here falls back from one to another:
 //
-// What bounds it on an H100: at the serving shapes (m = batch = 8, k = 4096
-// or 11008, n up to 64000) a GEMM does 2*m FLOPs per weight element it
-// reads, far below the card's ~295 FLOP/byte ridge, so the bound is the
-// bytes of B over 3.35 TB/s.  The skinny kernel below is shaped for that:
-// one block covers all (up to 8) rows and 32 columns, eight warps split the
-// k range so each block keeps eight independent rows of B in flight, and
-// the eight partial sums are reduced through shared memory before the one
-// store.  For m > 16 the generic 64x64 register-tiled kernel is used.
-// Both take a batch index (blockIdx.z) with batch strides, so a batched
-// GEMM is a wrapper over the same kernels.
+//   wgmma (gemm_wgmma.cuh) — bf16 operands with m > 16: the forward's,
+//     graph forward's and hnp's GEMMs.  Tensor cores (`wgmma`) on bf16
+//     tiles staged by TMA through a ring of mbarrier-guarded stages, fp32
+//     accumulators in registers; bound by 989 TFLOP/s of bf16 work.
+//   tiled  — every other m > 16 GEMM: fp32 operands, a column-major A, or
+//     operands TMA cannot address (k % 8 != 0, misaligned).  A 64x64
+//     register tile on the CUDA cores: operands widened to fp32 on load and
+//     every product a true fp32 FMA (no TF32), so an f32 GEMM matches the
+//     fp32 reference to ~1e-6 relative.
+//   skinny — m <= 16 (serving and prefill: m = batch).  A GEMM there does
+//     2*m FLOPs per weight element it reads, far below the card's ~295
+//     FLOP/byte ridge, so the bound is the bytes of B over 3.35 TB/s: one
+//     block covers all (up to 8) rows and 32 columns, eight warps split the
+//     k range so each block keeps eight independent rows of B in flight,
+//     and the eight partial sums are reduced through shared memory before
+//     the one store.  CUDA-core FMAs in fp32, as the tiled kernel.
+//
+// All three take a batch index (blockIdx.z) with batch strides, so a
+// batched GEMM is the same kernel as the single one.
 //
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes (see ../_build.py).  The launch never synchronises; it returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments the named
+// kernel does not take) so the Python wrapper can raise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -51,7 +62,7 @@ struct GemmArgs {
   long long sc_b, sc_m;         // C strides: batch, row (column stride 1)
 };
 
-// ---- generic register-tiled kernel (m > 16) --------------------------------
+// ---- register-tiled kernel on the CUDA cores (m > 16, not the wgmma route) --
 constexpr int TB_M = 64, TB_N = 64, TB_K = 16, TT_M = 4, TT_N = 4;
 constexpr int TB_THREADS = (TB_M / TT_M) * (TB_N / TT_N);   // 256
 
@@ -179,38 +190,67 @@ gemm_skinny(const TI* __restrict__ A, const TI* __restrict__ B,
   if (gm < g.M && gc < g.N) C[gm * g.sc_m + gc] = from_f32<TO>(s);
 }
 
+enum Route { kSkinny = 0, kTiled = 1, kWgmma = 2 };
+
 template <typename TI, typename TO>
-void launch(const void* a, const void* b, void* c, const GemmArgs& g, int batch,
-            cudaStream_t stream) {
+cudaError_t launch(const void* a, const void* b, void* c, const GemmArgs& g,
+                   int batch, int route, cudaStream_t stream) {
   const TI* A = static_cast<const TI*>(a);
   const TI* B = static_cast<const TI*>(b);
   TO* C = static_cast<TO*>(c);
-  if (g.M <= 16) {
+  if (route == kSkinny) {
     dim3 grid((g.N + SK_N - 1) / SK_N, (g.M + SK_M - 1) / SK_M, batch);
     gemm_skinny<TI, TO><<<grid, SK_THREADS, 0, stream>>>(A, B, C, g);
-  } else {
+  } else if (route == kTiled) {
     dim3 grid((g.N + TB_N - 1) / TB_N, (g.M + TB_M - 1) / TB_M, batch);
     gemm_tiled<TI, TO><<<grid, TB_THREADS, 0, stream>>>(A, B, C, g);
+  } else {
+    return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int
-// (cudaErrorInvalidValue for an unsupported dtype pair).
+// dtype codes: 0 = float32, 1 = bfloat16.  route: 0 skinny, 1 tiled,
+// 2 wgmma (bf16 inputs, row-major A, B with k- or n-stride 1).  Returns a
+// cudaError_t as int (cudaErrorInvalidValue for a dtype pair or operands the
+// route does not take).
 extern "C" int repro_gemm(const void* a, const void* b, void* c,
                           int M, int N, int K, int batch,
                           long long sa_b, long long sa_m, long long sa_k,
                           long long sb_b, long long sb_k, long long sb_n,
                           long long sc_b, long long sc_m,
-                          int in_dtype, int out_dtype, void* stream) {
+                          int in_dtype, int out_dtype, int route,
+                          void* stream) {
   GemmArgs g{M, N, K, sa_b, sa_m, sa_k, sb_b, sb_k, sb_n, sc_b, sc_m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || batch <= 0) return 0;
-  if (in_dtype == 0 && out_dtype == 0) launch<float, float>(a, b, c, g, batch, s);
-  else if (in_dtype == 0 && out_dtype == 1) launch<float, __nv_bfloat16>(a, b, c, g, batch, s);
-  else if (in_dtype == 1 && out_dtype == 0) launch<__nv_bfloat16, float>(a, b, c, g, batch, s);
-  else if (in_dtype == 1 && out_dtype == 1) launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, g, batch, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (route == kWgmma) {
+    if (in_dtype != 1 || sa_k != 1 || (sb_n != 1 && sb_k != 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto* A = static_cast<const __nv_bfloat16*>(a);
+    const auto* B = static_cast<const __nv_bfloat16*>(b);
+    if (out_dtype == 0)
+      e = wg::launch<float>(A, B, static_cast<float*>(c), M, N, K, batch,
+                            sa_b, sa_m, sb_b, sb_k, sb_n, sc_b, sc_m, s);
+    else if (out_dtype == 1)
+      e = wg::launch<__nv_bfloat16>(A, B, static_cast<__nv_bfloat16*>(c), M,
+                                    N, K, batch, sa_b, sa_m, sb_b, sb_k, sb_n,
+                                    sc_b, sc_m, s);
+    else
+      e = cudaErrorInvalidValue;
+  } else if (in_dtype == 0 && out_dtype == 0) {
+    e = launch<float, float>(a, b, c, g, batch, route, s);
+  } else if (in_dtype == 0 && out_dtype == 1) {
+    e = launch<float, __nv_bfloat16>(a, b, c, g, batch, route, s);
+  } else if (in_dtype == 1 && out_dtype == 0) {
+    e = launch<__nv_bfloat16, float>(a, b, c, g, batch, route, s);
+  } else if (in_dtype == 1 && out_dtype == 1) {
+    e = launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, g, batch, route, s);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }

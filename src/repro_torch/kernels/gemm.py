@@ -2,21 +2,33 @@
 
 Replaces the reference's Pallas TPU kernel ``gemm_kernel`` via
 ``pallas_gemm`` (``src/repro/kernels/gemm.py``): ``C = A @ B`` with an fp32
-accumulator and one rounding to ``out_dtype``.  On the H100 the serving
-shapes (m = batch) are bound by the bytes of B over 3.35 TB/s; the kernel's
-design and its bound are described in the CUDA source.
+accumulator and one rounding to ``out_dtype``.
+
+The source holds three kernels, and :func:`gemm_route` names the one a call
+runs, by shape, dtype, layout and alignment, before the launch:
+
+* ``"wgmma"`` — bf16 operands with m > 16 (the forward's and hnp's GEMMs):
+  Hopper tensor cores fed by TMA, bound by bf16 FLOPs
+  (``csrc/gemm_wgmma.cuh``);
+* ``"skinny"`` — m <= 16 (serving: m = batch), bound by the bytes of B;
+* ``"tiled"`` — anything else (fp32 operands, a column-major A, k % 8 != 0
+  or a misaligned operand): fp32 FMAs on the CUDA cores, no TF32.
+
+The route is not a fallback: a launch that fails raises, and is never
+retried on another kernel.
 
 :func:`gemm` launches the kernel for CUDA tensors and takes the plain
 version, :func:`repro_torch.kernels.ref.gemm_ref`, only for CPU tensors.
 There is no fallback: a CUDA tensor the kernel does not take raises.
-``gemm.launches`` counts kernel launches (never plain-version calls).
+``gemm.launches`` counts kernel launches (never plain-version calls), and
+``gemm.route_launches[route]`` the launches of each route.
 
 :func:`gemm_batched` replaces ``pallas_gemm_batched`` (same source file,
 the same ``gemm_kernel`` with the batch as the outermost parallel grid
 axis): ``C[z] = A[z] @ B[z]``, launched as one grid over ``blockIdx.z``
 with the operands' own batch strides.  It has its own counter,
 ``gemm_batched.launches``, so a stacked launch is told apart from a
-single one.
+single one, and its own ``gemm_batched.route_launches``.
 """
 
 from __future__ import annotations
@@ -30,9 +42,44 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gemm_batched_ref, gemm_ref
 
-__all__ = ["gemm", "gemm_batched", "gemm_ref", "gemm_batched_ref"]
+__all__ = ["ROUTES", "gemm", "gemm_batched", "gemm_batched_ref", "gemm_ref",
+           "gemm_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("skinny", "tiled", "wgmma")       # index = the C side's route code
+# TMA addresses 16-byte units: base pointers and every stride but the unit
+# one must be multiples of 16 bytes, i.e. of 8 bf16 elements.
+_TMA_ALIGN = 16
+_TMA_ELEMS = _TMA_ALIGN // 2
+
+
+def gemm_route(m: int, n: int, k: int, batch: int, dtype: torch.dtype,
+               a_strides, b_strides, a_ptr: int, b_ptr: int) -> str:
+    """The kernel that runs ``C[z] = A[z] @ B[z]`` for these operands.
+
+    ``a_strides`` are A's (batch, row, k) strides and ``b_strides`` B's
+    (batch, k, column), in elements (batch stride 0: one matrix or a
+    broadcast); ``a_ptr``/``b_ptr`` the operands' addresses.  m <= 16 takes
+    ``"skinny"``.  bf16 operands with a row-major A, a B with unit k- or
+    n-stride, and the 16-byte alignment TMA needs take ``"wgmma"``;
+    anything else ``"tiled"``."""
+    if m <= 16:
+        return "skinny"
+    sa_b, sa_m, sa_k = a_strides
+    sb_b, sb_k, sb_n = b_strides
+    if dtype != torch.bfloat16 or sa_k != 1 or k % _TMA_ELEMS:
+        return "tiled"
+    if sb_n == 1:              # row-major [k, n]: MN-major for wgmma
+        b_row = sb_k
+    elif sb_k == 1:            # K-major, e.g. a tied embedding's transpose
+        b_row = sb_n
+    else:
+        return "tiled"
+    strides = (sa_m, b_row) + ((sa_b, sb_b) if batch > 1 else ())
+    if any(s % _TMA_ELEMS for s in strides) or a_ptr % _TMA_ALIGN \
+            or b_ptr % _TMA_ALIGN:
+        return "tiled"
+    return "wgmma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +90,7 @@ def _fn():
         [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 8
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     return fn
 
@@ -71,7 +118,10 @@ def _check_kernel_operands(name, a, b, out_dtype, mats) -> None:
             f"matrices, got strides {a.stride()} and {b.stride()}")
 
 
-def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides):
+def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides) -> str:
+    """Launch the route :func:`gemm_route` names; returns the route."""
+    route = gemm_route(m, n, k, batch, a.dtype, a_strides, b_strides,
+                       a.data_ptr(), b.data_ptr())
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(
@@ -79,10 +129,13 @@ def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides):
             *a_strides,         # A strides: batch, row, k
             *b_strides,         # B strides: batch, k, column
             *c_strides,         # C strides: batch, row
-            _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], stream,
+            _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], ROUTES.index(route),
+            stream,
         )
     if err:
-        raise RuntimeError(f"gemm kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"gemm kernel launch failed ({route} route): cudaError {err}")
+    return route
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
@@ -103,12 +156,15 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _launch(a, b, c, m, n, k, 1, (0, *a.stride()), (0, *b.stride()), (0, n))
+    route = _launch(a, b, c, m, n, k, 1, (0, *a.stride()), (0, *b.stride()),
+                    (0, n))
     gemm.launches += 1
+    gemm.route_launches[route] += 1
     return c
 
 
 gemm.launches = 0
+gemm.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
@@ -134,9 +190,11 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
     if z == 0:
         return c
     _check_kernel_operands("gemm_batched", a, b, out_dtype, (a[0], b[0]))
-    _launch(a, b, c, m, n, k, z, a.stride(), b.stride(), (m * n, n))
+    route = _launch(a, b, c, m, n, k, z, a.stride(), b.stride(), (m * n, n))
     gemm_batched.launches += 1
+    gemm_batched.route_launches[route] += 1
     return c
 
 
 gemm_batched.launches = 0
+gemm_batched.route_launches = dict.fromkeys(ROUTES, 0)

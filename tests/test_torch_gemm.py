@@ -18,11 +18,13 @@ from repro.core import blas as jblas
 from repro.core.accounting import offload_trace as jtrace
 from repro.core.hero import offload_policy as jpolicy
 from repro.kernels import ops as jops
+from repro_torch.configs import get_arch
 from repro_torch.core import blas as tblas
 from repro_torch.core.accounting import offload_trace as ttrace
 from repro_torch.core.hero import offload_policy as tpolicy
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels import _build
+from repro_torch.kernels.gemm import gemm, gemm_route
 
 SHAPES = [(128, 128, 128), (256, 128, 384), (200, 130, 96), (8, 8, 8),
           (1, 256, 64)]
@@ -138,3 +140,82 @@ def test_wrapper_raises_off_cpu_without_kernel():
     a = torch.empty(8, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         gemm(a, a)
+
+
+def _route_cases():
+    """(id, gemm_route arguments, route) for every GEMM of the main paths:
+    operands as the models hand them over (contiguous row-major, or the
+    tied head's ``embed.T``), addresses 16-byte aligned as torch allocates
+    them."""
+    bf16 = torch.bfloat16
+
+    def rm(m, k, n, batch=1, dtype=bf16):
+        a = (m * k if batch > 1 else 0, k, 1)
+        b = (k * n if batch > 1 else 0, n, 1)
+        return (m, n, k, batch, dtype, a, b, 0, 256)
+
+    yi, mb = get_arch("yi-6b"), get_arch("mamba2-370m")
+    d, hd = yi.d_model, yi.head_dim
+    yi_gemms = [("qkv", d, (yi.num_heads + 2 * yi.num_kv_heads) * hd),
+                ("wo", yi.num_heads * hd, d), ("gate_up", d, yi.d_ff),
+                ("down", yi.d_ff, d), ("head", d, yi.vocab_size)]
+    ds, di = mb.d_model, mb.d_inner
+    mamba_gemms = [("zx", ds, di),
+                   ("bc", ds, mb.ssm_num_groups * mb.ssm_state_dim),
+                   ("dt", ds, mb.ssm_num_heads), ("out", di, ds)]
+    cases = []
+    for name, k, n in yi_gemms:
+        cases.append((f"yi-forward-{name}", rm(2 * 512, k, n), "wgmma"))
+        cases.append((f"yi-serve-{name}", rm(8, k, n), "skinny"))
+        cases.append((f"yi-serve-f32-{name}", rm(8, k, n, dtype=torch.float32),
+                      "skinny"))
+    for name, k, n in mamba_gemms:
+        cases.append((f"mamba-forward-{name}", rm(4 * 1024, k, n), "wgmma"))
+        cases.append((f"mamba-serve-{name}", rm(8, k, n), "skinny"))
+    for name, k, n in mamba_gemms[:2]:
+        cases.append((f"mamba-graph-{name}-stack", rm(4 * 1024, k, n, 2),
+                      "wgmma"))
+    head = (4 * 1024, mb.vocab_size, ds, 1, bf16, (0, ds, 1), (0, 1, ds), 0, 0)
+    cases.append(("mamba-forward-tied-head", head, "wgmma"))
+    cases.append(("hnp-wave", rm(1024, d, yi.num_kv_heads * hd, 2), "wgmma"))
+    cases += [
+        ("f32", rm(1024, 4096, 4096, dtype=torch.float32), "tiled"),
+        ("col-major-a", (1024, 512, 256, 1, bf16, (0, 1, 1024), (0, 512, 1),
+                         0, 0), "tiled"),
+        ("k-not-multiple-of-8", rm(1024, 100, 512), "tiled"),
+        ("b-row-not-16-byte", rm(1024, 4096, 130), "tiled"),
+        ("misaligned-a", (1024, 512, 256, 1, bf16, (0, 256, 1), (0, 512, 1),
+                          2, 0), "tiled"),
+        ("b-strided-both", (1024, 512, 256, 1, bf16, (0, 256, 1),
+                            (0, 1024, 2), 0, 0), "tiled"),
+    ]
+    return cases
+
+
+_ROUTE_CASES = _route_cases()
+
+
+@pytest.mark.parametrize("args,route", [c[1:] for c in _ROUTE_CASES],
+                         ids=[c[0] for c in _ROUTE_CASES])
+def test_gemm_route(args, route):
+    """Every bf16 GEMM with m > 16 of the yi-6b forward (2 x 512 rows),
+    the mamba2-370m forward (4 x 1024, the tied head's K-major B included),
+    their graph-mode stacks and the hnp wave takes the tensor-core kernel;
+    every serving GEMM (m = batch = 8) the skinny one; f32, a column-major
+    A, k % 8 != 0 or operands TMA cannot address the CUDA-core tile."""
+    assert gemm_route(*args) == route
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """An edited csrc header moves every kernel's library path, so a
+    source that includes it is never served a stale build."""
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\n')
+    (tmp_path / "t.cuh").write_text("// tile v1\n")
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "t.cuh").write_text("// tile v2\n")
+    second = _build._lib_path("k")
+    assert second != first and second.name == first.name == "libk.so"
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\n// edited\n')
+    assert _build._lib_path("k") not in (first, second)

@@ -66,6 +66,108 @@ def test_gemm_kernel(card, m, n, k, dtype):
     assert _err(got, gemm_ref(a, b)) <= TOL[dtype]
 
 
+# The wgmma route (bf16, m > 16): one block and one k step first (a
+# single tile of 16 k), then the reference tests' shapes, ragged m / n / k
+# (k a multiple of 8 but not of the 64-wide k tile) and a yi-6b forward
+# shape, each with B row-major ("mn": MN-major for wgmma) and as the
+# transpose of a row-major [n, k] ("k": K-major, as a tied embedding's).
+# An odd n (a C row stride TMA never sees) is possible only with a K-major
+# B, whose rows are k long.
+WGMMA_SHAPES = [(64, 128, 16), (128, 128, 128), (256, 128, 384),
+                (200, 136, 96), (17, 72, 104), (100, 32, 1016),
+                (1000, 5128, 8 * 131), (1024, 5120, 4096)]
+WGMMA_CASES = [(*shape, layout) for shape in WGMMA_SHAPES
+               for layout in ("mn", "k")] + [(100, 33, 1016, "k")]
+
+
+def _b_operand(card, k, n, layout, dt=torch.bfloat16):
+    if layout == "mn":
+        return torch.randn(k, n, generator=card, device="cuda").to(dt)
+    return torch.randn(n, k, generator=card, device="cuda").to(dt).T
+
+
+def _route_counts():
+    return dict(gemm.route_launches), dict(gemm_batched.route_launches)
+
+
+@pytest.mark.parametrize("m,n,k,layout", WGMMA_CASES,
+                         ids=["x".join(map(str, c)) for c in WGMMA_CASES])
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_gemm_wgmma_route(card, m, n, k, layout, out):
+    a = torch.randn(m, k, generator=card, device="cuda").to(torch.bfloat16)
+    b = _b_operand(card, k, n, layout)
+    before = dict(gemm.route_launches)
+    got = gemm(a, b, out_dtype=getattr(torch, out))
+    torch.cuda.synchronize()
+    assert gemm.route_launches == {**before, "wgmma": before["wgmma"] + 1}
+    assert got.dtype == getattr(torch, out) and got.shape == (m, n)
+    want = gemm_ref(a, b, out_dtype=torch.float32)
+    assert _err(got, want) <= TOL["bfloat16"]
+
+
+def test_gemm_wgmma_fp32_accumulation(card):
+    """bf16 inputs accumulate in fp32 on the tensor cores, at m = 128 (the
+    CPU test's bar; a bf16 accumulator would stall far below k * 1e-4)."""
+    k = 4096
+    a = torch.full((128, k), 0.01, dtype=torch.bfloat16, device="cuda")
+    b = torch.full((k, 128), 0.01, dtype=torch.bfloat16, device="cuda")
+    before = gemm.route_launches["wgmma"]
+    got = gemm(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert gemm.route_launches["wgmma"] == before + 1
+    assert (got - k * 1e-4).abs().max().item() / (k * 1e-4) < 0.02
+
+
+@pytest.mark.parametrize("layout", ["mn", "k"])
+@pytest.mark.parametrize("broadcast_a", [False, True])
+def test_gemm_batched_wgmma_equals_single_launches(card, layout,
+                                                   broadcast_a):
+    """A stack of two GEMMs in one batched launch equals the two single
+    launches bit for bit (graph mode stacks projections that eager mode
+    runs one by one), also with A broadcast (batch stride 0)."""
+    m, k, n = 1000, 1024, 5128
+    if broadcast_a:
+        a = torch.randn(m, k, generator=card, device="cuda").to(
+            torch.bfloat16).expand(2, m, k)
+    else:
+        a = torch.randn(2, m, k, generator=card, device="cuda").to(
+            torch.bfloat16)
+    bs = [_b_operand(card, k, n, layout) for _ in range(2)]
+    b = torch.stack(bs) if layout == "mn" else \
+        torch.stack([x.T for x in bs]).transpose(1, 2)
+    singles, batched = _route_counts()
+    got = gemm_batched(a, b)
+    torch.cuda.synchronize()
+    assert gemm_batched.route_launches == {
+        **batched, "wgmma": batched["wgmma"] + 1}
+    want = torch.stack([gemm(a[i], bs[i]) for i in range(2)])
+    torch.cuda.synchronize()
+    assert gemm.route_launches == {**singles, "wgmma": singles["wgmma"] + 2}
+    assert torch.equal(got, want)
+    assert _err(got, gemm_batched_ref(a, b)) <= TOL["bfloat16"]
+
+
+def test_gemm_routes_counted_by_kernel(card):
+    """Serving shapes (m = 8) take the skinny kernel, f32 and a
+    column-major A the CUDA-core tile, bf16 at m > 16 the tensor cores."""
+    bf16 = torch.bfloat16
+    cases = [
+        ((8, 4096), (4096, 5120), bf16, False, "skinny"),
+        ((128, 256), (256, 128), torch.float32, False, "tiled"),
+        ((256, 128), (256, 128), bf16, True, "tiled"),
+        ((128, 256), (256, 128), bf16, False, "wgmma"),
+    ]
+    for sa, sb, dt, col_major_a, route in cases:
+        a = torch.randn(*sa, generator=card, device="cuda").to(dt)
+        a = a.T if col_major_a else a
+        b = torch.randn(*sb, generator=card, device="cuda").to(dt)
+        before = dict(gemm.route_launches)
+        got = gemm(a, b)
+        torch.cuda.synchronize()
+        assert gemm.route_launches == {**before, route: before[route] + 1}
+        assert _err(got, gemm_ref(a, b)) <= TOL[str(dt)[6:]]
+
+
 def test_gemm_kernel_transposed_operands(card):
     a = torch.randn(48, 40, generator=card, device="cuda")
     b = torch.randn(24, 48, generator=card, device="cuda")
