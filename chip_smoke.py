@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               16-token forward); the GEMM's tensor-core route also at
               ragged shapes with both layouts of B, its fp32 accumulation,
               and each stacked launch bit for bit against its single
-              launches;
+              launches; flash attention on both routes (bf16 at D 64 / 128
+              on the tensor cores, f32 and other head dims on the CUDA
+              cores), the prefill shape also as the model's transposed
+              (B, S, H, D) views;
 3. serve    — yi-6b at full width (bf16, random weights from a seeded
               generator), 8 requests, through the offload seam with the
               kernels on; launch counters and trace backends prove the path
@@ -46,14 +49,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               decode recurrence against the chunked SSD on the kernels (the
               serve prefill's last logits against the forward's);
 11. time    — each kernel at its path's shapes beside its bound, its plain
-              version and one library call (CUDA events).
+              version and one library call (CUDA events); flash attention
+              also on the transposed views and beside SDPA's is_causal.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after; the GEMM's route counters too, and every bf16 forward and hnp-wave
-GEMM must have taken the tensor-core route (``wgmma``), every serving GEMM
-the skinny one.  The last line of stdout is ``{"ok": true, "device": {...}}``; the
-line before it is the card's name and power limit from nvidia-smi, and the
-one before that lists every kernel.  Imports nothing of JAX or of the JAX
+after; the GEMM's and flash attention's route counters too: every bf16
+forward and hnp-wave GEMM and every bf16 forward attention launch must have
+taken the tensor-core route (``wgmma``), every serving GEMM the skinny one,
+and the f32 forward's attention the CUDA-core one (``simt``).  The last
+line of stdout is ``{"ok": true, "device": {...}}``; the line before it is
+the card's name and power limit from nvidia-smi, and the one before that
+lists every kernel.  Imports nothing of JAX or of the JAX
 reference package.
 """
 
@@ -148,8 +154,12 @@ TEST_DECODE_CASES = [
                  (100, 100), (37, 250), (0, 150)]),
 ]
 # Flash attention: the six cases of tests/test_kernels.py:83-106 (D 32,
-# B 2), the yi-6b prefill shape, and rows a window leaves empty (bidir.
-# with window -5: the last six queries see no key) at D 80 and 128.
+# B 2), the yi-6b prefill shape (as (B, H, S, D) tensors and as the
+# model's transposed (B, S, H, D) views), and rows a window leaves empty
+# (bidir. with window -5: the last six queries see no key) at D 80 and 128;
+# then D 64 (the tensor-core route's other tile): causal GQA, ragged with a
+# window, empty rows, and a kv loop (5 tiles) that wraps its 3-stage ring.  bf16 at D 64 / 128 must take the ``wgmma``
+# route, everything else ``simt``.
 TEST_ATTN_CASES = [
     dict(b=2, sq=128, skv=128, hq=4, hkv=4, d=32, causal=True),
     dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=32, causal=True),
@@ -159,8 +169,15 @@ TEST_ATTN_CASES = [
     dict(b=2, sq=100, skv=100, hq=4, hkv=2, d=32, causal=True),
     dict(b=FWD_BATCH, sq=FWD_SEQ, skv=FWD_SEQ, hq=32, hkv=4, d=128,
          causal=True, tag="prefill"),
+    dict(b=FWD_BATCH, sq=FWD_SEQ, skv=FWD_SEQ, hq=32, hkv=4, d=128,
+         causal=True, tag="prefill", view=True),
     dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=False, window=-5),
     dict(b=1, sq=200, skv=200, hq=8, hkv=1, d=128, causal=False, window=-5),
+    dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=64, causal=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=64, causal=True, window=20),
+    dict(b=2, sq=200, skv=200, hq=4, hkv=4, d=64, causal=False, window=-5,
+         view=True),
+    dict(b=1, sq=600, skv=600, hq=4, hkv=2, d=64, causal=True),
 ]
 
 
@@ -226,28 +243,43 @@ def b_operand(randn, k, n, layout, dtype, batch=None):
     return randn(*lead, n, k, dtype=dtype).transpose(-1, -2)
 
 
-def zero_routes():
+def _routed():
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gemm import gemm, gemm_batched
 
-    for fn in (gemm, gemm_batched):
+    return {"gemm": gemm, "gemm_batched": gemm_batched,
+            "flash_attention": flash_attention}
+
+
+def zero_routes():
+    for fn in _routed().values():
         fn.route_launches.update(dict.fromkeys(fn.route_launches, 0))
 
 
 def read_routes():
-    """{"gemm": {route: launches}, "gemm_batched": {...}} since the last
-    ``zero_routes``."""
-    from repro_torch.kernels.gemm import gemm, gemm_batched
-
-    return {"gemm": dict(gemm.route_launches),
-            "gemm_batched": dict(gemm_batched.route_launches)}
+    """{"gemm": {route: launches}, "gemm_batched": {...},
+    "flash_attention": {...}} since the last ``zero_routes``."""
+    return {k: dict(fn.route_launches) for k, fn in _routed().items()}
 
 
 def require_route(label, routes, route):
-    """Fail unless every GEMM launch in ``routes`` took ``route``."""
+    """Fail unless every GEMM and attention launch in ``routes`` took
+    ``route`` (a path that launches no attention passes on the GEMMs)."""
     stray = {k: {r: n for r, n in v.items() if r != route and n}
              for k, v in routes.items()}
     if any(stray.values()):
-        fail(f"{label}: GEMM launches off the {route} route: {routes}")
+        fail(f"{label}: kernel launches off the {route} route: {routes}")
+
+
+def attn_operands(randn, b, hq, hkv, sq, skv, d, dtype, view):
+    """q, k, v as (B, H, S, D) tensors, or (``view``) as transposed views
+    of (B, S, H, D) storage, as the model hands them over."""
+    def make(h, s):
+        if view:
+            return randn(b, s, h, d, dtype=dtype).transpose(1, 2)
+        return randn(b, h, s, d, dtype=dtype)
+
+    return make(hq, sq), make(hkv, skv), make(hkv, skv)
 
 
 def attn_work(b, hq, hkv, sq, skv, d, causal, window, itemsize):
@@ -361,7 +393,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 6. the same model with f32 weights -----------------------------
-    run_f32(cfg, tokens, prompts)
+    routes["float32"] = run_f32(cfg, tokens, prompts)
 
     # ---- 7. hnp: the paper's path ---------------------------------------
     hnp_phase = run_hnp(cfg, randn, zero_counts, read_counts)
@@ -580,16 +612,19 @@ def check_kernels(cfg, ssm_cfg, randn):
     for case in TEST_ATTN_CASES:
         kw = dict(causal=case["causal"], window=case.get("window"))
         for dt in (torch.float32, torch.bfloat16):
-            q = randn(case["b"], case["hq"], case["sq"], case["d"], dtype=dt)
-            k = randn(case["b"], case["hkv"], case["skv"], case["d"], dtype=dt)
-            v = randn(case["b"], case["hkv"], case["skv"], case["d"], dtype=dt)
-            got = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
+            q, k, v = attn_operands(randn, case["b"], case["hq"],
+                                    case["hkv"], case["sq"], case["skv"],
+                                    case["d"], dt, case.get("view", False))
+            route = ("wgmma" if dt == bf16 and case["d"] in (64, 128)
+                     else "simt")
+            got = on_route(flash_attention, route,
+                           lambda: flash_attention(q, k, v, **kw))
             want = attention_ref(q, k, v, **kw)
             tag = (f"{case.get('tag', 'test')} B{case['b']} Hq{case['hq']} "
                    f"Hkv{case['hkv']} Sq{case['sq']} Skv{case['skv']} "
                    f"D{case['d']} causal={case['causal']} "
-                   f"window={case.get('window')}")
+                   f"window={case.get('window')} "
+                   f"{'BSHD views' if case.get('view') else 'BHSD'} {route}")
             record("flash_attention", tag, dt, *_row_rel_err(got, want),
                    case.get("tag") == "prefill", scale="row max")
             dead = want.float().abs().amax(dim=-1) == 0
@@ -769,7 +804,8 @@ def _backends(trace, ops):
 
 
 KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
-                   "flash_attention": ("flash_attention_kernel",),
+                   "flash_attention": ("flash_attention_kernel",
+                                       "attn_wgmma"),
                    "flash_decode": ("flash_decode_kernel",),
                    "ssd_chunk_diag": ("ssd_chunk_kernel",)}
 
@@ -910,7 +946,9 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
 
 def run_f32(cfg, tokens, prompts):
     """Phase 6: decode first-step and forward last-position logits with
-    f32 weights at full width, kernels against plain, bar 1e-4."""
+    f32 weights at full width, kernels against plain, bar 1e-4.  Every
+    attention launch of the f32 forward must take the CUDA-core route
+    (``simt``: true fp32); returns the phase's route counts."""
     import torch
 
     from repro_torch.core import blas
@@ -935,18 +973,23 @@ def run_f32(cfg, tokens, prompts):
                 torch.no_grad():
             return model32.forward(params32, toks)[0][:, -1].float()
 
+    zero_routes()
     out = {"decode_first_step": _logit_errs(first_logits,
                                             (BATCH, cfg.vocab_size)),
            "forward_last_position": _logit_errs(
                last_logits, (F32_FWD_BATCH, cfg.vocab_size)),
            "bar": F32_LOGIT_TOL, "forward_batch": F32_FWD_BATCH,
-           "forward_seq": F32_FWD_SEQ}
+           "forward_seq": F32_FWD_SEQ, "routes": read_routes()}
+    attn = out["routes"]["flash_attention"]
+    if attn != {"simt": cfg.num_layers, "wgmma": 0}:
+        fail(f"f32 forward attention off the simt route: {attn}")
     for name in ("decode_first_step", "forward_last_position"):
         if not out[name]["err"] <= F32_LOGIT_TOL:
             fail(f"f32 {name} logits differ: {out[name]} > {F32_LOGIT_TOL}")
     emit({"phase": "float32", **out})
     del params32
     torch.cuda.empty_cache()
+    return out["routes"]
 
 
 def run_hnp(cfg, randn, zero_counts, read_counts):
@@ -1206,28 +1249,48 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
         "bound_ms": _bound_ms(d_bytes, d_flops, "bfloat16")}})
     del kvs
 
-    # Flash attention at the forward's shape: one launch per layer.
+    # Flash attention at the forward's shape: one launch per layer, on
+    # (B, H, S, D) tensors and on the model's transposed (B, S, H, D)
+    # views; SDPA with the explicit right-aligned mask and with
+    # is_causal=True (the same mask here, Sq == Skv).
     s = FWD_SEQ
-    qkv = _rotation(lambda: (randn(FWD_BATCH, hq, s, d, dtype=bf16),
-                             randn(FWD_BATCH, hkv, s, d, dtype=bf16),
-                             randn(FWD_BATCH, hkv, s, d, dtype=bf16)),
-                    2 * FWD_BATCH * (hq + 2 * hkv) * s * d)
+    qkv_bytes = 2 * FWD_BATCH * (hq + 2 * hkv) * s * d
+    qkv = _rotation(lambda: attn_operands(randn, FWD_BATCH, hq, hkv, s, s, d,
+                                          bf16, False), qkv_bytes)
+    qkv_views = _rotation(lambda: attn_operands(randn, FWD_BATCH, hq, hkv, s,
+                                                s, d, bf16, True), qkv_bytes)
     causal = (torch.arange(s, device=dev)[None, :]
               <= torch.arange(s, device=dev)[:, None])   # right-aligned
-    t_ak = _time(lambda t: flash_attention(*t, causal=True), qkv)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def time_attention(operands):
+        """Kernel ms per launch on ``operands``; fails unless every timed
+        launch took the tensor-core route."""
+        before = dict(flash_attention.route_launches)
+        t = _time(lambda t: flash_attention(*t, causal=True), operands)
+        moved = {r: n - before[r]
+                 for r, n in flash_attention.route_launches.items()}
+        if any(n for r, n in moved.items() if r != "wgmma"):
+            fail(f"prefill attention timed off the wgmma route: {moved}")
+        return t
+
+    t_ak = time_attention(qkv)
+    t_akv = time_attention(qkv_views)
     t_ap = _time(lambda t: attention_ref(*t, causal=True), qkv)
-    t_al = _time(lambda t: torch.nn.functional.scaled_dot_product_attention(
-        *t, attn_mask=causal, enable_gqa=True), qkv)
+    t_al = _time(lambda t: sdpa(*t, attn_mask=causal, enable_gqa=True), qkv)
+    t_alc = _time(lambda t: sdpa(*t, is_causal=True, enable_gqa=True), qkv)
     a_bytes, a_flops = attn_work(FWD_BATCH, hq, hkv, s, s, d, True, None, 2)
     emit({"flash_attention_shape": {
         "B": FWD_BATCH, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-        "causal": True, "launches_per_forward": L, "ms": t_ak,
-        "plain_ms": t_ap, "library_ms": t_al,
+        "causal": True, "route": "wgmma", "launches_per_forward": L,
+        "ms": t_ak, "views_ms": t_akv, "plain_ms": t_ap,
+        "library_ms": t_al, "library_causal_ms": t_alc,
+        "library": "SDPA, GQA: explicit mask / is_causal=True",
         "bound_ms": _bound_ms(a_bytes, a_flops, "bfloat16"),
         "bytes_bound_ms": 1e3 * a_bytes / HBM_BYTES_PER_S,
         "flop_bound_ms": 1e3 * a_flops / PEAK_FLOPS["bfloat16"],
-        "TFLOPs": a_flops / t_ak / 1e9}})
-    del qkv
+        "TFLOPs": a_flops / t_ak / 1e9, "views_TFLOPs": a_flops / t_akv / 1e9}})
+    del qkv, qkv_views
 
     # Batched GEMM at the hnp wave's stacked shape: one launch.
     kv_n = hkv * d
@@ -1380,7 +1443,12 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "ms": L * t_ak, "plain_ms": L * t_ap,
          "bound_ms": _bound_ms(L * a_bytes, L * a_flops, "bfloat16"),
          "bound_by": _bound_by(a_bytes, a_flops, "bfloat16"),
-         "library_ms": L * t_al, "per": "forward"},
+         "library_ms": L * t_al, "library_causal_ms": L * t_alc,
+         "views_ms": L * t_akv, "per": "forward",
+         "tile_source": "src/repro_torch/kernels/csrc/attn_wgmma.cuh",
+         "route_launches": {path: r["flash_attention"]
+                            for path, r in routes.items()
+                            if any(r["flash_attention"].values())}},
         {"name": "ssd_chunk_diag", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:37",

@@ -2,7 +2,17 @@
 // query sequence, causal / sliding-window / bidirectional, with GQA.
 //
 // Replaces the reference's Pallas TPU kernel `_attn_kernel` / `flash_attention`
-// (src/repro/kernels/flash_attention.py).  There the grid was (b, q head,
+// (src/repro/kernels/flash_attention.py).  Two kernels; the caller names
+// which one runs (`route`, chosen in kernels/flash_attention.py::
+// flash_attention_route by dtype, head dim, strides and alignment), and
+// nothing here falls back from one to the other:
+//
+//   wgmma (attn_wgmma.cuh) — bf16 with D 64 or 128 and TMA-addressable
+//     operands (yi-6b's prefill): Hopper tensor cores fed by TMA.
+//   simt (below) — everything else: f32 (true fp32, the 2e-5 bar), other
+//     head dims (D 80, 32, ...), misaligned operands.
+//
+// The CUDA-core kernel.  In the Pallas kernel the grid was (b, q head,
 // q block, kv block) with the kv axis sequential: the fp32 running state
 // (m, l, acc) lived in VMEM scratch and was carried from one grid step to
 // the next, fully masked tiles skipped their compute under `pl.when` but
@@ -32,8 +42,8 @@
 // live key) pair against 2·D·itemsize bytes per key row, so at yi-6b's
 // prefill shape (S 512, D 128) the work is FLOP-bound at the tensor cores'
 // rate; this first kernel uses the CUDA cores' fp32 FMAs (about 67 TFLOP/s
-// on the data sheet) and sits far from that bound.  `wgmma` tiles fed by
-// TMA are the later step.
+// on the data sheet) and sits far from that bound; bf16 at D 64 / 128
+// takes the tensor-core kernel instead.
 //
 // Thread layout: 256 threads as a 16 x 16 grid (ty, tx).  Thread (ty, tx)
 // owns query rows ty + 16 i (i < 4) of the 64-row tile; for the scores it
@@ -46,6 +56,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -260,7 +272,9 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 // head dimension; one dtype (0 = float32, 1 = bfloat16).  With use_window a
 // key is live only if q_pos - kv_pos < window (any int: 0 or less masks
 // whole rows, as in the reference).  Hq % Hkv == 0, Skv >= Sq and
-// 1 <= D <= 256 are checked here and by the caller.
+// 1 <= D <= 256 are checked here and by the caller.  route: 0 simt, 1
+// wgmma (bf16, D 64 or 128, 16-byte-aligned addresses and strides; an
+// operand TMA cannot address returns cudaErrorInvalidValue).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
@@ -269,13 +283,21 @@ extern "C" int repro_flash_attention(
     long long k_b, long long k_h, long long k_s,
     long long v_b, long long v_h, long long v_s,
     long long o_b, long long o_h, long long o_s,
-    int dtype, void* stream) {
+    int dtype, int route, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || D <= 0 || D > 256 || Skv < Sq)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(fa::run(
+        q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, use_window, window,
+        scale, {q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
+        {o_b, o_h, o_s}, s));
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a{Hq, Hkv, Sq, Skv, D, causal, use_window, window, scale,
              q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(q, k, v, out, B, a, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(q, k, v, out, B, a, s);
   return static_cast<int>(cudaErrorInvalidValue);

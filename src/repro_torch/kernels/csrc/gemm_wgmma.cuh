@@ -41,6 +41,8 @@
 // TMA needs 16-byte-aligned base addresses and strides: kernels/gemm.py's
 // gemm_route sends only such operands here.  A wait on an mbarrier that
 // never completes traps after a bounded spin instead of hanging the card.
+// The barrier, TMA, descriptor and `wgmma` helpers below also serve flash
+// attention's tensor-core kernel (attn_wgmma.cuh).
 
 #pragma once
 
@@ -115,6 +117,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 4-D map: flash attention's (head dim, sequence, head,
+// batch) tiles (attn_wgmma.cuh).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Shared-memory matrix descriptor of a 128B-swizzled tile: start address,
 // leading and stride byte offsets (16-byte units), layout type 1 (128B).
 // K-major: SBO is the 1024 bytes between groups of 8 rows (LBO unused).
@@ -183,6 +198,77 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
                                            uint64_t db) {
   if constexpr (BN == 128) wgmma_n128<TB>(d, da, db);
   else wgmma_n64<TB>(d, da, db);
+}
+
+// D(64 x N, fp32, in registers) += A(64 x 16) @ B(16 x N) with A in
+// registers: four 32-bit registers of bf16 pairs per thread.  Thread
+// (warp, lane) holds, of the 64 x 16 tile, a0 = row warp*16 + lane/4 at
+// columns 2(lane%4) and +1, a1 = the same columns of row +8, a2 and a3 =
+// a0 and a1 eight columns on.  That is the accumulator fragment's layout
+// (see the epilogue below), so a product's fp32 accumulator, rounded
+// pairwise to bf16, is the next product's A operand without a trip
+// through shared memory.  B from shared memory, TB its transpose bit.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  if constexpr (N == 128) wgmma_rs_n128<TB>(d, a0, a1, a2, a3, db);
+  else wgmma_rs_n64<TB>(d, a0, a1, a2, a3, db);
+}
+
+// Pin registers that an asynchronous `wgmma` reads or writes: the empty
+// asm "redefines" each one, so the compiler neither reads an accumulator
+// before the wait that completes it nor reuses an operand's register while
+// the product is in flight.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -357,6 +443,26 @@ inline bool encode_3d(CUtensorMap* map, const void* base, long long inner,
   cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D bf16 map with unit stride along dims[0] and the element strides
+// of the other three (any order: a transposed view keeps its own), a box of
+// (box0, box1, 1, 1) and 128-byte swizzle; out-of-bounds reads are 0.
+inline bool encode_4d(CUtensorMap* map, const void* base,
+                      const long long (&dims)[4], const long long (&strides)[3],
+                      int box0, int box1) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t gdims[4], gstrides[3];
+  for (int i = 0; i < 4; ++i) gdims[i] = static_cast<cuuint64_t>(dims[i]);
+  for (int i = 0; i < 3; ++i) gstrides[i] = static_cast<cuuint64_t>(strides[i]) * 2;
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(box0),
+                       static_cast<cuuint32_t>(box1), 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            gdims, gstrides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -4,13 +4,27 @@ wrapper.
 Replaces the reference's Pallas TPU kernel ``_attn_kernel`` via
 ``flash_attention`` (``src/repro/kernels/flash_attention.py``): full-sequence
 online-softmax attention, causal / sliding-window / bidirectional, GQA,
-queries right-aligned to the end of the keys, fully masked rows 0.  The
-kernel's design and its bound are described in the CUDA source.
+queries right-aligned to the end of the keys, fully masked rows 0.
+
+The source holds two kernels, and :func:`flash_attention_route` names the
+one a call runs, by dtype, head dim, strides and alignment, before the
+launch:
+
+* ``"wgmma"`` — bf16 with D 64 or 128 and operands TMA can address (the
+  forward's prefill attention): Hopper tensor cores fed by TMA
+  (``csrc/attn_wgmma.cuh``);
+* ``"simt"`` — anything else (f32, other head dims, misaligned strides or
+  addresses): fp32 FMAs on the CUDA cores, no TF32, so f32 stays true fp32.
+
+The route is not a fallback: a launch that fails raises, and is never
+retried on the other kernel.  Each kernel's design and bound are described
+in its source.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and takes the
 plain version, :func:`repro_torch.kernels.ref.attention_ref`, only for CPU
 tensors.  There is no fallback: a CUDA tensor the kernel does not take
-raises.  ``flash_attention.launches`` counts kernel launches.
+raises.  ``flash_attention.launches`` counts kernel launches and
+``flash_attention.route_launches[route]`` the launches of each route.
 """
 
 from __future__ import annotations
@@ -22,14 +36,38 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.gemm import _TMA_ALIGN, _TMA_ELEMS
 from repro_torch.kernels.ref import attention_ref
 
-__all__ = ["flash_attention", "attention_ref"]
+__all__ = ["ROUTES", "attention_ref", "flash_attention",
+           "flash_attention_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's widest head dim; a block then needs 148 KB of shared
-# memory, within the H100's 227 KB.
+ROUTES = ("simt", "wgmma")       # index = the C side's route code
+# The CUDA-core kernel's widest head dim; a block then needs 148 KB of
+# shared memory, within the H100's 227 KB.
 _MAX_D = 256
+# The tensor-core kernel's head dims (a multiple of the 64-column TMA box).
+_WGMMA_D = (64, 128)
+
+
+def flash_attention_route(dtype: torch.dtype, d: int, strides, ptrs) -> str:
+    """The kernel that runs attention on these operands.
+
+    ``strides`` holds the (batch, head, sequence, head-dim) strides in
+    elements of q, k, v and the output, ``ptrs`` their addresses.  bf16
+    with D 64 or 128, a contiguous head dim, and the 16-byte alignment TMA
+    needs (every base address; every batch, head and sequence stride a
+    positive multiple of 16 bytes, so no broadcast) take ``"wgmma"``;
+    anything else ``"simt"``."""
+    if dtype != torch.bfloat16 or d not in _WGMMA_D:
+        return "simt"
+    if any(st[3] != 1 or any(x <= 0 or x % _TMA_ELEMS for x in st[:3])
+           for st in strides):
+        return "simt"
+    if any(p % _TMA_ALIGN for p in ptrs):
+        return "simt"
+    return "wgmma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,7 +79,7 @@ def _fn():
         + [ctypes.c_int] * 9
         + [ctypes.c_float]
         + [ctypes.c_longlong] * 12
-        + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     return fn
 
@@ -91,6 +129,9 @@ def flash_attention(
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    operands = (q, k, v, out)
+    route = flash_attention_route(q.dtype, d, [t.stride() for t in operands],
+                                  [t.data_ptr() for t in operands])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(
@@ -99,13 +140,16 @@ def flash_attention(
             int(window is not None), 0 if window is None else int(window),
             float(scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], _DTYPE_CODE[q.dtype], stream,
+            *out.stride()[:3], _DTYPE_CODE[q.dtype], ROUTES.index(route),
+            stream,
         )
     if err:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
+                           f"route): cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

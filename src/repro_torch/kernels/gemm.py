@@ -95,13 +95,17 @@ def _fn():
     return fn
 
 
-def _dense_2d(t: torch.Tensor) -> bool:
-    """Row-major or column-major (a transposed view) — the two layouts the
-    kernel reads in place through its strides."""
+def _unit_stride_2d(t: torch.Tensor) -> bool:
+    """One unit stride: row-major with a row stride of at least its width,
+    or column-major (a transposed view) with a column stride of at least
+    its height; the stride of a size-1 dimension is free.  The kernels
+    read any such operand in place through its strides (a column slice
+    ``x[:, :k]`` included)."""
     rows, cols = t.shape
     s0, s1 = t.stride()
-    return (s1 == 1 and (rows <= 1 or s0 == cols)) or (
-        s0 == 1 and (cols <= 1 or s1 == rows))
+    row_major = (cols <= 1 or s1 == 1) and (rows <= 1 or s0 >= cols)
+    col_major = (rows <= 1 or s0 == 1) and (cols <= 1 or s1 >= rows)
+    return row_major or col_major
 
 
 def _check_kernel_operands(name, a, b, out_dtype, mats) -> None:
@@ -112,10 +116,11 @@ def _check_kernel_operands(name, a, b, out_dtype, mats) -> None:
                         f"{a.dtype}, {b.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"{name} kernel writes f32 or bf16, not {out_dtype}")
-    if not all(_dense_2d(t) for t in mats):
+    if not all(_unit_stride_2d(t) for t in mats):
         raise ValueError(
-            f"{name} kernel takes contiguous (or transposed contiguous) "
-            f"matrices, got strides {a.stride()} and {b.stride()}")
+            f"{name} kernel takes matrices with one unit stride (row- or "
+            f"column-major, rows or columns possibly spaced wider), got "
+            f"strides {a.stride()} and {b.stride()}")
 
 
 def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides) -> str:
@@ -143,8 +148,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     """C[m, n] = A[m, k] @ B[k, n] with fp32 accumulation.
 
     A and B must share one dtype (float32 or bfloat16) and one device, and
-    each be contiguous or the transpose of a contiguous matrix; ``out_dtype``
-    is float32 or bfloat16 (default: the input dtype)."""
+    each have one unit stride (row-major, or column-major as a transposed
+    view; a slice such as ``x[:, :k]`` is read in place); ``out_dtype`` is
+    float32 or bfloat16 (default: the input dtype)."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device != b.device:
@@ -172,8 +178,8 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
     """C[z] = A[z] @ B[z] for (Z, m, k) @ (Z, k, n), fp32 accumulation, in
     one launch.
 
-    Each A[z] and B[z] must be contiguous or a transposed contiguous
-    matrix; the batch stride is free (a stack, or a broadcast operand with
+    Each A[z] and B[z] must have one unit stride, as for :func:`gemm`; the
+    batch stride is free (a stack, or a broadcast operand with
     batch stride 0).  Dtypes as for :func:`gemm`."""
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:

@@ -25,7 +25,8 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import blas as tblas
 from repro_torch.core.accounting import offload_trace as ttrace
 from repro_torch.core.hero import offload_policy as tpolicy
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_route)
 from repro_torch.kernels.gemm import gemm_batched
 from repro_torch.kernels.ref import attention_ref, gemm_batched_ref
 
@@ -167,6 +168,75 @@ def test_flash_attention_wrapper_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="does not fit"):
         flash_attention(torch.zeros(1, 3, 8, 16), torch.zeros(1, 2, 8, 16),
                         torch.zeros(1, 2, 8, 16))
+
+
+def _route_strides(d, dtype, layout="bhsd", b=2, s=512, hq=32, hkv=4):
+    """(strides, ptrs) of q, k, v and the output as ``flash_attention``
+    hands them to :func:`flash_attention_route`: (B, H, S, D) tensors, the
+    model's (B, S, H, D) storage as transposed views (``"bshd"``), or k / v
+    as views into one packed (B, S, (Hq + 2 Hkv) D + pad) projection with a
+    row of ``pad`` extra elements (``"packed<pad>"``).  Meta tensors: only
+    strides matter; addresses are 16-byte aligned unless a test moves one.
+    """
+    def make(h):
+        if layout == "bshd":
+            return torch.empty(b, s, h, d, dtype=dtype,
+                               device="meta").transpose(1, 2)
+        return torch.empty(b, h, s, d, dtype=dtype, device="meta")
+
+    q, k, v = make(hq), make(hkv), make(hkv)
+    if layout.startswith("packed"):
+        width = (hq + 2 * hkv) * d + int(layout[len("packed"):])
+        qkv = torch.empty(b, s, width, dtype=dtype, device="meta")
+        k = qkv[..., hq * d:(hq + hkv) * d].unflatten(-1, (hkv, d))
+        k = k.transpose(1, 2)
+    out = torch.empty(b, hq, s, d, dtype=dtype, device="meta")
+    return [t.stride() for t in (q, k, v, out)], [0, 256 * 4096, 512, 1024]
+
+
+# yi-6b's prefill geometry (Hq 32, Hkv 4, S 512) at the tensor-core
+# route's head dims, contiguous and as the model's transposed views, then
+# what stays on the CUDA cores: f32, D 80 (h2o-danube, hubert), D 32 (the
+# reference tests), a sequence stride that is not a multiple of 8
+# elements, an odd base address, a strided head dim and a broadcast
+# (stride 0) batch.
+_ROUTE_CASES = [
+    ("bf16-d128", dict(d=128, dtype=torch.bfloat16), None, "wgmma"),
+    ("bf16-d64", dict(d=64, dtype=torch.bfloat16), None, "wgmma"),
+    ("bf16-d128-bshd-view", dict(d=128, dtype=torch.bfloat16,
+                                 layout="bshd"), None, "wgmma"),
+    ("bf16-d64-bshd-view", dict(d=64, dtype=torch.bfloat16,
+                                layout="bshd"), None, "wgmma"),
+    ("bf16-d128-packed-aligned", dict(d=128, dtype=torch.bfloat16,
+                                      layout="packed8"), None, "wgmma"),
+    ("f32-d128", dict(d=128, dtype=torch.float32), None, "simt"),
+    ("f32-d64-bshd-view", dict(d=64, dtype=torch.float32, layout="bshd"),
+     None, "simt"),
+    ("bf16-d80", dict(d=80, dtype=torch.bfloat16), None, "simt"),
+    ("bf16-d32", dict(d=32, dtype=torch.bfloat16), None, "simt"),
+    ("bf16-d128-misaligned-stride", dict(d=128, dtype=torch.bfloat16,
+                                         layout="packed4"), None, "simt"),
+    ("bf16-d128-odd-address", dict(d=128, dtype=torch.bfloat16),
+     ("ptr", 1, 2), "simt"),
+    ("bf16-d128-strided-head-dim", dict(d=128, dtype=torch.bfloat16),
+     ("stride", 2, (4096 * 128, 512 * 128, 256, 2)), "simt"),
+    ("bf16-d128-broadcast-batch", dict(d=128, dtype=torch.bfloat16),
+     ("stride", 0, (0, 512 * 128, 128, 1)), "simt"),
+]
+
+
+@pytest.mark.parametrize("kw,edit,route", [c[1:] for c in _ROUTE_CASES],
+                         ids=[c[0] for c in _ROUTE_CASES])
+def test_flash_attention_route(kw, edit, route):
+    """bf16 at D 64 / 128 with a contiguous head dim and 16-byte-aligned
+    addresses and strides (the forward's attention, as (B, H, S, D) tensors
+    or the model's transposed views) takes the tensor-core kernel;
+    everything else the CUDA-core one."""
+    strides, ptrs = _route_strides(**kw)
+    if edit is not None:
+        what, i, value = edit
+        (ptrs if what == "ptr" else strides)[i] = value
+    assert flash_attention_route(kw["dtype"], kw["d"], strides, ptrs) == route
 
 
 @pytest.mark.parametrize("bsz", [1, 3, 8])

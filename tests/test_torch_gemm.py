@@ -24,7 +24,7 @@ from repro_torch.core.accounting import offload_trace as ttrace
 from repro_torch.core.hero import offload_policy as tpolicy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import gemm, gemm_route
+from repro_torch.kernels.gemm import _unit_stride_2d, gemm, gemm_route
 
 SHAPES = [(128, 128, 128), (256, 128, 384), (200, 130, 96), (8, 8, 8),
           (1, 256, 64)]
@@ -140,6 +140,57 @@ def test_wrapper_raises_off_cpu_without_kernel():
     a = torch.empty(8, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         gemm(a, a)
+
+
+# Operands as callers slice them out of wider storage: 2-D views with one
+# unit stride are read in place by every route; a view with none is not.
+_STRIDE_CASES = [
+    ("contiguous", lambda x: x[:, :96], True),
+    ("column-slice", lambda x: x[:, :64], True),
+    ("row-slice", lambda x: x[:32], True),
+    ("row-and-column-slice", lambda x: x[8:40, 16:80], True),
+    ("transposed-column-slice", lambda x: x[:, :64].T, True),
+    ("transposed", lambda x: x.T, True),
+    ("single-row", lambda x: x[5:6, ::2], True),
+    ("single-column", lambda x: x[:, 7:8], True),
+    ("no-unit-stride", lambda x: x[:, ::2], False),
+    ("no-unit-stride-transposed", lambda x: x[::2, ::2].T, False),
+]
+
+
+@pytest.mark.parametrize("view,ok", [c[1:] for c in _STRIDE_CASES],
+                         ids=[c[0] for c in _STRIDE_CASES])
+def test_unit_stride_check(view, ok):
+    """The kernels' operand check: row-major with a row stride of at least
+    the width or column-major with a column stride of at least the height;
+    a size-1 dimension's stride is free."""
+    assert _unit_stride_2d(view(torch.zeros(64, 96))) is ok
+
+
+@pytest.mark.parametrize("op", ["gemm", "matmul"])
+@pytest.mark.parametrize("sliced", ["a", "b", "both"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_blas_on_column_sliced_operands_matches_reference(op, sliced, dtype):
+    """``blas.gemm`` / ``blas.matmul`` on a column slice ``x[:, :k]`` of a
+    wider matrix (read in place on the card) agree with the reference's on
+    the same numpy values, under the kernel policy."""
+    rng = np.random.default_rng(13)
+    m, k, n = 40, 48, 24
+    ja, ta = _pair(rng, (m, k + 16 if sliced != "b" else k), dtype)
+    jb, tb = _pair(rng, (k, n + 8 if sliced != "a" else n), dtype)
+    ja, ta = ja[:, :k], ta[:, :k]
+    jb, tb = jb[:, :n], tb[:, :n]
+    assert _unit_stride_2d(ta) and _unit_stride_2d(tb)
+    with jpolicy(mode="device", use_pallas=True, interpret=True), \
+            jtrace() as jt:
+        want = np.asarray(getattr(jblas, op)(ja, jb), np.float32)
+    with tpolicy(mode="device", use_kernels=True), ttrace() as tt:
+        got = getattr(tblas, op)(ta, tb)
+    assert got.shape == (m, n) and got.dtype == getattr(torch, dtype)
+    _close(_np(got), want, dtype)
+    assert [r.backend for r in tt.records] == [
+        {"device-pallas": "device-kernel"}.get(r.backend, r.backend)
+        for r in jt.records]
 
 
 def _route_cases():

@@ -245,6 +245,155 @@ def test_flash_attention_kernel_strided_and_masked_rows(card):
         assert got[dead].abs().max().item() == 0.0 if dead.any() else True
 
 
+# The tensor-core route (bf16, D 64 / 128): the prefill geometry as
+# contiguous tensors and as the model's (B, S, H, D) transposed views, a
+# suffix (Sq < Skv), ragged lengths, a window, bidirectional, GQA 8:1 and
+# 1:1, windows that leave rows no key (0 or less), whose outputs must be
+# exactly 0, and kv loops long enough to wrap the ring of K / V stages
+# (three stages at D 64, two at D 128) more than once.
+WGMMA_ATTN_CASES = [
+    dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=128, causal=True),
+    dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=64, causal=True),
+    dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=128, causal=True, view=True),
+    dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=64, causal=True, view=True),
+    dict(b=2, sq=16, skv=128, hq=4, hkv=2, d=128, causal=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=128, causal=True),
+    dict(b=1, sq=200, skv=200, hq=8, hkv=8, d=64, causal=True),
+    dict(b=2, sq=200, skv=200, hq=8, hkv=1, d=128, causal=True, window=32),
+    dict(b=2, sq=130, skv=130, hq=4, hkv=4, d=64, causal=False),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=1, d=128, causal=False, view=True),
+    dict(b=1, sq=200, skv=200, hq=8, hkv=1, d=128, causal=False, window=-5),
+    dict(b=2, sq=77, skv=130, hq=4, hkv=2, d=64, causal=True, window=0),
+    dict(b=1, sq=600, skv=600, hq=4, hkv=2, d=64, causal=True),
+    dict(b=1, sq=700, skv=1000, hq=4, hkv=1, d=128, causal=True, window=300,
+         view=True),
+]
+
+
+def _attn_operands(card, case, dtype):
+    """q, k, v as (B, H, S, D) tensors, or as transposed views of (B, S, H,
+    D) storage (``view``), as the model hands them over."""
+    b, d = case["b"], case["d"]
+
+    def make(h, s):
+        if case.get("view"):
+            return torch.randn(b, s, h, d, generator=card,
+                               device="cuda").to(dtype).transpose(1, 2)
+        return torch.randn(b, h, s, d, generator=card, device="cuda").to(dtype)
+
+    return (make(case["hq"], case["sq"]), make(case["hkv"], case["skv"]),
+            make(case["hkv"], case["skv"]))
+
+
+def _attn_id(c):
+    return "-".join(f"{k}{v}" for k, v in c.items())
+
+
+@pytest.mark.parametrize("case", WGMMA_ATTN_CASES, ids=_attn_id)
+def test_flash_attention_wgmma_route(card, case):
+    q, k, v = _attn_operands(card, case, torch.bfloat16)
+    kw = dict(causal=case["causal"], window=case.get("window"))
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches == {
+        **before, "wgmma": before["wgmma"] + 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q, k, v, **kw)
+    dead = want.float().abs().amax(dim=-1) == 0
+    if (~dead).any():
+        assert _row_err(got, want) <= TOL["bfloat16"]
+    window = case.get("window")
+    assert bool(dead.any()) == (window is not None and window <= 0)
+    if dead.any():
+        assert got[dead].abs().max().item() == 0.0
+
+
+# The CUDA-core route keeps f32 (true fp32, the 2e-5 bar), the head dims
+# the tensor-core tile lacks (D 32 of the reference tests, D 80 of
+# h2o-danube / hubert) and operands TMA cannot address.
+SIMT_ATTN_CASES = [
+    dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=128, causal=True,
+         dtype="float32"),
+    dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=32, causal=True,
+         dtype="bfloat16"),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=20,
+         dtype="bfloat16"),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=False,
+         dtype="float32"),
+]
+
+
+@pytest.mark.parametrize("case", SIMT_ATTN_CASES, ids=_attn_id)
+def test_flash_attention_simt_route(card, case):
+    dtype = case["dtype"]
+    q, k, v = _attn_operands(card, case, getattr(torch, dtype))
+    kw = dict(causal=case["causal"], window=case.get("window"))
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches == {
+        **before, "simt": before["simt"] + 1}
+    assert _row_err(got, attention_ref(q, k, v, **kw)) <= TOL[dtype]
+
+
+def test_flash_attention_misaligned_operand_takes_simt(card):
+    """A k whose base address is off by one element (2 bytes) cannot be a
+    TMA operand: the bf16 D 128 call runs on the CUDA cores instead."""
+    case = dict(b=1, sq=64, skv=64, hq=4, hkv=2, d=128)
+    q, k, v = _attn_operands(card, case, torch.bfloat16)
+    flat = torch.randn(k.numel() + 1, generator=card, device="cuda").to(
+        torch.bfloat16)
+    k_odd = flat[1:].view(k.shape)
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k_odd, v)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches == {
+        **before, "simt": before["simt"] + 1}
+    assert _row_err(got, attention_ref(q, k_odd, v)) <= TOL["bfloat16"]
+
+
+# A column slice x[:, :k] of a wider matrix (row stride > k) as A and as B,
+# on every GEMM route: skinny (m <= 16), tiled (f32, or bf16 with a slice
+# TMA cannot address) and wgmma (bf16, m > 16, 16-byte-aligned rows).
+SLICE_CASES = [(8, 256, 192, "float32", "skinny"),
+               (8, 256, 192, "bfloat16", "skinny"),
+               (200, 136, 192, "float32", "tiled"),
+               (200, 136, 100, "bfloat16", "tiled"),
+               (200, 136, 192, "bfloat16", "wgmma")]
+
+
+@pytest.mark.parametrize("m,n,k,dtype,route", SLICE_CASES,
+                         ids=["-".join(map(str, c)) for c in SLICE_CASES])
+def test_gemm_column_sliced_operands(card, m, n, k, dtype, route):
+    dt = getattr(torch, dtype)
+    a = torch.randn(m, k + 40, generator=card, device="cuda").to(dt)[:, :k]
+    b = torch.randn(k, n + 24, generator=card, device="cuda").to(dt)[:, :n]
+    before = dict(gemm.route_launches)
+    got = gemm(a, b)
+    torch.cuda.synchronize()
+    assert gemm.route_launches == {**before, route: before[route] + 1}
+    assert _err(got, gemm_ref(a, b)) <= TOL[dtype]
+    a = torch.randn(2, m, k + 40, generator=card,
+                    device="cuda").to(dt)[..., :k]
+    b = torch.randn(2, k, n + 24, generator=card,
+                    device="cuda").to(dt)[..., :n]
+    before = dict(gemm_batched.route_launches)
+    got = gemm_batched(a, b)
+    torch.cuda.synchronize()
+    assert gemm_batched.route_launches == {**before, route: before[route] + 1}
+    assert _err(got, gemm_batched_ref(a, b)) <= TOL[dtype]
+
+
+def test_gemm_rejects_operand_without_unit_stride(card):
+    """A view with no unit stride (every other column) is not read in
+    place: the kernel wrapper raises instead of copying or falling back."""
+    a = torch.randn(64, 96, generator=card, device="cuda")[:, ::2]
+    b = torch.randn(48, 32, generator=card, device="cuda")
+    with pytest.raises(ValueError, match="one unit stride"):
+        gemm(a, b)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_kernel(card, dtype):
     bounds = [(0, 300), (5, 40), (10, 33), (0, 1), (299, 300), (100, 100),
