@@ -17,7 +17,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               16-token forward); the GEMM's tensor-core route also at
               ragged shapes with both layouts of B, its fp32 accumulation,
               and each stacked launch bit for bit against its single
-              launches; flash attention on both routes (bf16 at D 64 / 128
+              launches; the skinny route at every decode GEMM of both
+              models (mamba2-370m's K-major head and f32-output dt
+              projection included) at m = 8 and 16, and a stacked decode
+              launch bit for bit against its single launches; flash
+              attention on both routes (bf16 at D 64 / 128
               on the tensor cores, f32 and other head dims on the CUDA
               cores), the prefill shape also as the model's transposed
               (B, S, H, D) views;
@@ -49,8 +53,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               decode recurrence against the chunked SSD on the kernels (the
               serve prefill's last logits against the forward's);
 11. time    — each kernel at its path's shapes beside its bound, its plain
-              version and one library call (CUDA events); flash attention
-              also on the transposed views and beside SDPA's is_causal.
+              version and one library call (CUDA events); the decode GEMMs
+              of both models over rotated weights with GB/s, the bound's
+              share and per-step totals, and the skinny kernel against k
+              (streaming rate and fixed cost beside torch.matmul's); flash
+              attention also on the transposed views and beside SDPA's
+              is_causal.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's and flash attention's route counters too: every bf16
@@ -202,6 +210,20 @@ def serve_gemm_shapes(cfg):
         ("mlp_down", BATCH, cfg.d_ff, d, L),
         ("head", BATCH, d, cfg.vocab_size, 1),
     ]
+
+
+def ssm_serve_gemm_shapes(ssm_cfg):
+    """(name, m, k, n, launches per decode step, B layout, out dtype) of
+    every GEMM mamba2-370m's decode step runs on the kernel (m = batch):
+    z, x, B, C, dt (written f32) and out per layer, and the tied head's
+    ``embed.T`` (K-major)."""
+    d, di, L = ssm_cfg.d_model, ssm_cfg.d_inner, ssm_cfg.num_layers
+    gn = ssm_cfg.ssm_num_groups * ssm_cfg.ssm_state_dim
+    return [("wz/wx", BATCH, d, di, 2 * L, "mn", "bfloat16"),
+            ("wb/wc", BATCH, d, gn, 2 * L, "mn", "bfloat16"),
+            ("wdt", BATCH, d, ssm_cfg.ssm_num_heads, L, "mn", "float32"),
+            ("wo", BATCH, di, d, L, "mn", "bfloat16"),
+            ("head", BATCH, d, ssm_cfg.vocab_size, 1, "k", "bfloat16")]
 
 
 def forward_gemm_shapes(cfg, ssm_cfg):
@@ -479,7 +501,8 @@ def check_kernels(cfg, ssm_cfg, randn):
     bf16 = torch.bfloat16
     max_abs = {"gemm": 0.0, "flash_decode": 0.0, "gemm_batched": 0.0,
                "flash_attention": 0.0, "ssd_chunk_diag": 0.0,
-               "gemm:forward": 0.0, "gemm_batched:forward": 0.0}
+               "gemm:forward": 0.0, "gemm_batched:forward": 0.0,
+               "gemm:ssm-serve": 0.0}
     checks = []
 
     def record(kernel, case, dt, err, abs_err, main_shape, scale="max",
@@ -516,6 +539,36 @@ def check_kernels(cfg, ssm_cfg, randn):
             torch.cuda.synchronize()
             record("gemm", f"{tag} {m}x{k}@{k}x{n}", dt,
                    *_rel_err(got, gemm_ref(a, b)), tag != "test")
+    # The skinny route (m <= 16): every decode GEMM of both models (the
+    # mamba2-370m head's B K-major, its dt projection written f32) at the
+    # serving batch and at m = 16, each launch on ``skinny``; then a
+    # graph-mode stack at m = 8 against its single launches, bit for bit.
+    sk_cases = [(name, k, n, "mn", "bfloat16")
+                for name, _, k, n, _ in serve_gemm_shapes(cfg)]
+    sk_cases += [("mamba:" + name, k, n, lay, out)
+                 for name, _, k, n, _, lay, out in ssm_serve_gemm_shapes(ssm_cfg)]
+    for name, k, n, lay, out in sk_cases:
+        for m in (BATCH, 16):
+            ot = getattr(torch, out)
+            a, b = randn(m, k, dtype=bf16), b_operand(randn, k, n, lay, bf16)
+            got = on_route(gemm, "skinny", lambda: gemm(a, b, out_dtype=ot))
+            err, abs_err = _rel_err(got, gemm_ref(a, b,
+                                                  out_dtype=torch.float32))
+            record("gemm", f"skinny serve:{name} {m}x{k}@{k}x{n} B "
+                   f"{lay}-major out {out}", bf16, err, abs_err, m == BATCH,
+                   tol={"bfloat16": TOL[out]}, key="gemm:ssm-serve"
+                   if name.startswith("mamba:") else None)
+            del a, b, got
+    d, di = ssm_cfg.d_model, ssm_cfg.d_inner
+    a = randn(2, BATCH, d, dtype=bf16)
+    b = randn(2, d, di, dtype=bf16)
+    got = on_route(gemm_batched, "skinny", lambda: gemm_batched(a, b))
+    singles = torch.stack([on_route(gemm, "skinny", lambda i=i: gemm(a[i], b[i]))
+                           for i in range(2)])
+    if not torch.equal(got, singles):
+        fail("gemm_batched skinny stack differs from its single launches")
+    checks.append({"kernel": "gemm_batched", "case": f"skinny 2x{BATCH}x{d}"
+                   f"@2x{d}x{di} == single launches", "err": 0.0, "tol": 0.0})
     # bf16 inputs accumulate in fp32: test_gemm_fp32_accumulation_bf16_inputs,
     # with its bar (bf16 accumulation would stall far below k * 1e-4).
     k = 4096
@@ -1157,28 +1210,72 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    per_shape = []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "flops": 0.0}
-    for name, m, k, n, count in serve_gemm_shapes(cfg):
-        a = randn(m, k, dtype=bf16)
+
+    def time_serve_gemms(shapes):
+        """Each decode-step GEMM over rotated weights (each 4 MB or more,
+        which L2's 50 MB would otherwise hold): kernel, plain version and
+        ``torch.matmul`` (bf16 out) ms, bound, GB/s and the bound's share;
+        and the per-step totals."""
+        rows, tot = [], dict.fromkeys(
+            ("ms", "plain_ms", "library_ms", "bytes", "flops"), 0.0)
+        for name, m, k, n, count, lay, out in shapes:
+            ot = getattr(torch, out)
+            a = randn(m, k, dtype=bf16)
+            ws = _rotation(lambda: b_operand(randn, k, n, lay, bf16),
+                           k * n * 2)
+            t_k = _time(lambda w: gemm(a, w, out_dtype=ot), ws)
+            t_p = _time(lambda w: gemm_ref(a, w, out_dtype=ot), ws)
+            t_l = _time(lambda w: torch.matmul(a, w), ws)
+            nbytes = 2.0 * (m * k + k * n) + ot.itemsize * m * n
+            flops = 2.0 * m * n * k
+            bound = _bound_ms(nbytes, flops, "bfloat16")
+            rows.append({"shape": name, "m": m, "k": k, "n": n,
+                         "b_major": lay, "out": out,
+                         "launches_per_step": count, "ms": t_k,
+                         "plain_ms": t_p, "library_ms": t_l,
+                         "bound_ms": bound, "GBps": nbytes / t_k / 1e6,
+                         "bound_share": bound / t_k})
+            for key, t in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_l)):
+                tot[key] += count * t
+            tot["bytes"] += count * nbytes
+            tot["flops"] += count * flops
+            del ws
+        step = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                "library_ms": tot["library_ms"],
+                "bound_ms": _bound_ms(tot["bytes"], tot["flops"], "bfloat16"),
+                "launches": sum(r["launches_per_step"] for r in rows),
+                "GB": tot["bytes"] / 1e9}
+        step["bound_share"] = step["bound_ms"] / step["ms"]
+        step["vs_library"] = step["ms"] / step["library_ms"]
+        return rows, step, tot
+
+    per_shape, per_step, tot = time_serve_gemms(
+        [(name, m, k, n, count, "mn", "bfloat16")
+         for name, m, k, n, count in serve_gemm_shapes(cfg)])
+    emit({"gemm_shapes": per_shape, "per_step": per_step})
+    ssm_shapes, ssm_step, _ = time_serve_gemms(ssm_serve_gemm_shapes(ssm_cfg))
+    emit({"ssm_gemm_shapes": ssm_shapes, "per_step": ssm_step})
+
+    # The skinny kernel's time against k at yi-6b's qkv width, beside
+    # torch.matmul's: the step from k/2 to k is B's streaming rate, what is
+    # left at k the fixed cost of a launch.
+    n = serve_gemm_shapes(cfg)[0][3]
+    sweep = []
+    for k in (1024, 2048, 4096, 8192):
+        a = randn(BATCH, k, dtype=bf16)
         ws = _rotation(lambda: randn(k, n, dtype=bf16), k * n * 2)
-        t_k = _time(lambda w: gemm(a, w), ws)
-        t_p = _time(lambda w: gemm_ref(a, w), ws)
-        t_l = _time(lambda w: torch.matmul(a, w), ws)
-        nbytes = 2.0 * (m * k + k * n + m * n)
-        flops = 2.0 * m * n * k
-        per_shape.append({"shape": name, "m": m, "k": k, "n": n,
-                          "launches_per_step": count, "ms": t_k,
-                          "plain_ms": t_p, "library_ms": t_l,
-                          "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
-                          "GBps": nbytes / t_k / 1e6})
-        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l)):
-            tot[key] += count * t
-        tot["bytes"] += count * nbytes
-        tot["flops"] += count * flops
+        sweep.append((k, _time(lambda w: gemm(a, w), ws),
+                      _time(lambda w: torch.matmul(a, w), ws)))
         del ws
-    emit({"gemm_shapes": per_shape})
+    (k1, t1, l1), (k2, t2, l2) = sweep[-2], sweep[-1]
+    step_bytes = 2.0 * (k2 - k1) * n
+    emit({"skinny_k_sweep": {
+        "m": BATCH, "n": n, "ms": {k: t for k, t, _ in sweep},
+        "library_ms": {k: t for k, _, t in sweep},
+        "streaming_TBps": step_bytes / (t2 - t1) / 1e9,
+        "library_streaming_TBps": step_bytes / (l2 - l1) / 1e9,
+        "fixed_ms": t1 - (t2 - t1), "library_fixed_ms": l1 - (l2 - l1)}})
 
     # The forwards' GEMMs (yi-6b at m = 2 x 512 rows, mamba2-370m at 4 x
     # 1024; the tied head's B K-major), per forward, with the route each
@@ -1406,6 +1503,12 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "ssm_forward_plain_ms": per_forward["mamba"]["plain_ms"],
          "ssm_forward_library_ms": per_forward["mamba"]["library_ms"],
          "ssm_forward_bound_ms": per_forward["mamba"]["bound_ms"],
+         "ssm_serve_launches": launches["ssm-serve"]["gemm"],
+         "ssm_serve_max_abs_err": max_abs["gemm:ssm-serve"],
+         "ssm_serve_ms": ssm_step["ms"],
+         "ssm_serve_plain_ms": ssm_step["plain_ms"],
+         "ssm_serve_library_ms": ssm_step["library_ms"],
+         "ssm_serve_bound_ms": ssm_step["bound_ms"],
          "route_launches": {path: r["gemm"] for path, r in routes.items()}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",

@@ -22,13 +22,21 @@
 //     register tile on the CUDA cores: operands widened to fp32 on load and
 //     every product a true fp32 FMA (no TF32), so an f32 GEMM matches the
 //     fp32 reference to ~1e-6 relative.
-//   skinny — m <= 16 (serving and prefill: m = batch).  A GEMM there does
-//     2*m FLOPs per weight element it reads, far below the card's ~295
-//     FLOP/byte ridge, so the bound is the bytes of B over 3.35 TB/s: one
-//     block covers all (up to 8) rows and 32 columns, eight warps split the
-//     k range so each block keeps eight independent rows of B in flight,
-//     and the eight partial sums are reduced through shared memory before
-//     the one store.  CUDA-core FMAs in fp32, as the tiled kernel.
+//   skinny — m <= 16 (serving: m = batch), in gemm_skinny.cuh.  A GEMM
+//     there does 2*m FLOPs per weight element it reads, far below the
+//     card's ~295 FLOP/byte ridge, so the bound is the bytes of B over
+//     3.35 TB/s: B read once in 16-byte cp.async copies through rings in
+//     shared memory, every m <= 16 row in one block, k split across warps
+//     and across the blocks of a cluster by a launch plan computed in
+//     kernels/gemm.py::skinny_plan (never from the batch count), split
+//     partials summed in split order through distributed shared memory (no
+//     workspace, no atomics).  bf16 with 16-byte B vectors multiplies on
+//     the tensor cores (mma.sync, fp32 accumulators); f32 and B the 16-byte
+//     copies cannot read use fp32 FMAs on the CUDA cores.  Each pair has a
+//     kernel for a row-major (MN-major) and one for a K-major B.  Each
+//     launch is a programmatic dependent launch (it may start while the
+//     kernel before it ends; all memory access waits for that kernel).
+//     Its own entry point, repro_gemm_skinny, takes the plan.
 //
 // All three take a batch index (blockIdx.z) with batch strides, so a
 // batched GEMM is the same kernel as the single one.
@@ -42,6 +50,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gemm_skinny.cuh"
 #include "gemm_wgmma.cuh"
 
 namespace {
@@ -128,68 +137,6 @@ gemm_tiled(const TI* __restrict__ A, const TI* __restrict__ B,
   }
 }
 
-// ---- skinny kernel (m <= 16): memory-bound on B ----------------------------
-constexpr int SK_M = 8;        // rows per block (grid.y covers the rest)
-constexpr int SK_N = 32;       // columns per block: one per lane
-constexpr int SK_WARPS = 8;    // warps split k
-constexpr int SK_K = 64;       // k rows of B per shared A tile
-constexpr int SK_THREADS = SK_WARPS * 32;
-
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(SK_THREADS)
-gemm_skinny(const TI* __restrict__ A, const TI* __restrict__ B,
-            TO* __restrict__ C, GemmArgs g) {
-  __shared__ float As[SK_M][SK_K];
-  __shared__ float red[SK_WARPS][SK_M][SK_N];
-  const long long z = blockIdx.z;
-  A += z * g.sa_b;
-  B += z * g.sb_b;
-  C += z * g.sc_b;
-  const int m0 = blockIdx.y * SK_M, n0 = blockIdx.x * SK_N;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int gn = n0 + lane;
-  const bool col_ok = gn < g.N;
-
-  float acc[SK_M];
-#pragma unroll
-  for (int r = 0; r < SK_M; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < g.K; k0 += SK_K) {
-    for (int i = threadIdx.x; i < SK_M * SK_K; i += SK_THREADS) {
-      const int r = i / SK_K, kk = i % SK_K;
-      const int gm = m0 + r, gk = k0 + kk;
-      As[r][kk] = (gm < g.M && gk < g.K) ? to_f32(A[gm * g.sa_m + gk * g.sa_k]) : 0.f;
-    }
-    __syncthreads();
-    // Warp w takes k rows w, w+8, ...: each iteration is one coalesced row
-    // segment of B (32 columns), eight independent loads per warp per tile.
-    float b[SK_K / SK_WARPS];
-#pragma unroll
-    for (int t = 0; t < SK_K / SK_WARPS; ++t) {
-      const int gk = k0 + w + t * SK_WARPS;
-      b[t] = (col_ok && gk < g.K) ? to_f32(B[gk * g.sb_k + gn * g.sb_n]) : 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < SK_K / SK_WARPS; ++t) {
-      const int kk = w + t * SK_WARPS;
-#pragma unroll
-      for (int r = 0; r < SK_M; ++r) acc[r] = fmaf(As[r][kk], b[t], acc[r]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < SK_M; ++r) red[w][r][lane] = acc[r];
-  __syncthreads();
-  // One thread per (row, column) of the block's tile sums the eight k-split
-  // partials and writes the element once.
-  const int r = threadIdx.x / SK_N, c = threadIdx.x % SK_N;
-  float s = 0.f;
-#pragma unroll
-  for (int ww = 0; ww < SK_WARPS; ++ww) s += red[ww][r][c];
-  const int gm = m0 + r, gc = n0 + c;
-  if (gm < g.M && gc < g.N) C[gm * g.sc_m + gc] = from_f32<TO>(s);
-}
-
 enum Route { kSkinny = 0, kTiled = 1, kWgmma = 2 };
 
 template <typename TI, typename TO>
@@ -198,10 +145,7 @@ cudaError_t launch(const void* a, const void* b, void* c, const GemmArgs& g,
   const TI* A = static_cast<const TI*>(a);
   const TI* B = static_cast<const TI*>(b);
   TO* C = static_cast<TO*>(c);
-  if (route == kSkinny) {
-    dim3 grid((g.N + SK_N - 1) / SK_N, (g.M + SK_M - 1) / SK_M, batch);
-    gemm_skinny<TI, TO><<<grid, SK_THREADS, 0, stream>>>(A, B, C, g);
-  } else if (route == kTiled) {
+  if (route == kTiled) {
     dim3 grid((g.N + TB_N - 1) / TB_N, (g.M + TB_M - 1) / TB_M, batch);
     gemm_tiled<TI, TO><<<grid, TB_THREADS, 0, stream>>>(A, B, C, g);
   } else {
@@ -212,10 +156,11 @@ cudaError_t launch(const void* a, const void* b, void* c, const GemmArgs& g,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  route: 0 skinny, 1 tiled,
-// 2 wgmma (bf16 inputs, row-major A, B with k- or n-stride 1).  Returns a
-// cudaError_t as int (cudaErrorInvalidValue for a dtype pair or operands the
-// route does not take).
+// dtype codes: 0 = float32, 1 = bfloat16.  route: 1 tiled, 2 wgmma (bf16
+// inputs, row-major A, B with k- or n-stride 1); the skinny route (0) has
+// its own entry point below.  Returns a cudaError_t as int
+// (cudaErrorInvalidValue for a dtype pair or operands the route does not
+// take).
 extern "C" int repro_gemm(const void* a, const void* b, void* c,
                           int M, int N, int K, int batch,
                           long long sa_b, long long sa_m, long long sa_k,
@@ -252,5 +197,41 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c,
   } else {
     e = cudaErrorInvalidValue;
   }
+  return static_cast<int>(e);
+}
+
+// The skinny route (m <= 16) with the launch plan of kernels/gemm.py::
+// skinny_plan: k_major (B's k stride is 1) picks the K-major kernel, else
+// the MN-major one; vec 16 / itemsize or 1 (bf16 with 16-byte vectors runs
+// on the tensor cores, the rest on the CUDA cores); splits blocks of a
+// cluster along k (at most 8), kc rows each (a multiple of 8); tn_log2 the
+// CUDA-core MN-major kernel's log2 of threads per k row; a_vec 16 /
+// itemsize when A is staged in 16-byte loads (unit k-stride, aligned
+// rows), else 1.  Needs no workspace.  Returns a cudaError_t as int
+// (cudaErrorInvalidValue for a plan the operands do not allow).
+extern "C" int repro_gemm_skinny(const void* a, const void* b, void* c,
+                                 int M, int N, int K, int batch,
+                                 long long sa_b, long long sa_m, long long sa_k,
+                                 long long sb_b, long long sb_k, long long sb_n,
+                                 long long sc_b, long long sc_m,
+                                 int in_dtype, int out_dtype, int k_major,
+                                 int vec, int splits, int kc, int tn_log2,
+                                 int a_vec, void* stream) {
+  sk::Args g{M, N, K, sa_b, sa_m, sa_k, sb_b, sb_k, sb_n, sc_b, sc_m,
+             splits, kc, tn_log2, a_vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || batch <= 0) return 0;
+  const bool km = k_major != 0;
+  cudaError_t e;
+  if (in_dtype == 0 && out_dtype == 0)
+    e = sk::launch<float, float>(a, b, c, g, batch, km, vec, s);
+  else if (in_dtype == 0 && out_dtype == 1)
+    e = sk::launch<float, __nv_bfloat16>(a, b, c, g, batch, km, vec, s);
+  else if (in_dtype == 1 && out_dtype == 0)
+    e = sk::launch<__nv_bfloat16, float>(a, b, c, g, batch, km, vec, s);
+  else if (in_dtype == 1 && out_dtype == 1)
+    e = sk::launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, g, batch, km, vec, s);
+  else
+    e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -24,7 +24,10 @@ from repro_torch.core.accounting import offload_trace as ttrace
 from repro_torch.core.hero import offload_policy as tpolicy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import _unit_stride_2d, gemm, gemm_route
+from repro_torch.kernels.gemm import (_unit_stride_2d, gemm, gemm_route,
+                                      skinny_plan)
+
+import gemm_pallas_ref
 
 SHAPES = [(128, 128, 128), (256, 128, 384), (200, 130, 96), (8, 8, 8),
           (1, 256, 64)]
@@ -255,6 +258,154 @@ def test_gemm_route(args, route):
     every serving GEMM (m = batch = 8) the skinny one; f32, a column-major
     A, k % 8 != 0 or operands TMA cannot address the CUDA-core tile."""
     assert gemm_route(*args) == route
+
+
+def _serving_plan_cases():
+    """(id, m, k, n, B layout) of every decode-step GEMM of yi-6b and
+    mamba2-370m (the tied head's ``embed.T`` K-major), at m = 8 and at the
+    other row counts a serving batch may have."""
+    yi, mb = get_arch("yi-6b"), get_arch("mamba2-370m")
+    d, hd = yi.d_model, yi.head_dim
+    ds, di = mb.d_model, mb.d_inner
+    shapes = [("yi-qkv", d, (yi.num_heads + 2 * yi.num_kv_heads) * hd, "mn"),
+              ("yi-wo", yi.num_heads * hd, d, "mn"),
+              ("yi-gate-up", d, yi.d_ff, "mn"),
+              ("yi-down", yi.d_ff, d, "mn"),
+              ("yi-head", d, yi.vocab_size, "mn"),
+              ("mamba-z-x", ds, di, "mn"),
+              ("mamba-b-c", ds, mb.ssm_num_groups * mb.ssm_state_dim, "mn"),
+              ("mamba-dt", ds, mb.ssm_num_heads, "mn"),
+              ("mamba-out", di, ds, "mn"),
+              ("mamba-head", ds, mb.vocab_size, "k")]
+    return [(f"{name}-m{m}", m, k, n, lay) for name, k, n, lay in shapes
+            for m in (1, 8, 16)]
+
+
+_PLAN_CASES = _serving_plan_cases()
+
+
+def _b_strides(k, n, layout, batch):
+    """B's (batch, k, column) strides: a row-major [k, n] or the transpose
+    of a row-major [n, k]; a stack of ``batch`` of them, or one."""
+    return ((k * n if batch > 1 else 0,)
+            + ((n, 1) if layout == "mn" else (1, k)))
+
+
+@pytest.mark.parametrize("m,k,n,layout", [c[1:] for c in _PLAN_CASES],
+                         ids=[c[0] for c in _PLAN_CASES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_skinny_plan_serving_shapes(m, k, n, layout, dtype):
+    """The skinny launch plan at every serving shape: the same for a
+    single GEMM and a stack of two (graph mode stacks decode projections,
+    and stacked launches must equal single ones bit for bit); the layout
+    B's strides give; 16-byte loads (8 bf16 / 4 f32) on 16-byte-aligned
+    operands, and bf16 then on the tensor cores; every m <= 16 in one
+    block, so the plan is the one m = 1 gets and B is read once; the
+    splits (one cluster of at most 8 blocks) cover k exactly."""
+    dt = getattr(torch, dtype)
+    plans = [skinny_plan(m, n, k, dt, (m * k if z > 1 else 0, k, 1),
+                         _b_strides(k, n, layout, z), 0, 4096)
+             for z in (1, 2)]
+    plan = plans[0]
+    assert plans[1] == plan
+    assert plan == skinny_plan(1, n, k, dt, (0, k, 1),
+                               _b_strides(k, n, layout, 1), 0, 4096)
+    assert plan.layout == layout
+    assert plan.vec == (8 if dtype == "bfloat16" else 4)
+    assert plan.kc % 8 == 0 and 1 <= plan.splits <= 8
+    assert (plan.splits - 1) * plan.kc < k <= plan.splits * plan.kc
+    cuda_core_mn = dtype == "float32" and layout == "mn"
+    assert (plan.tn > 0) == cuda_core_mn   # threads per k row: that kernel's
+    assert plan.tn & (plan.tn - 1) == 0 and plan.tn <= 32
+    assert plan.a_vec == plan.vec          # A: contiguous rows, aligned
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_skinny_plan_vector_width_follows_alignment(dtype):
+    """16-byte loads only where B's address, its non-unit stride and the
+    vector dimension allow them: a column slice with an odd row stride, a
+    base one element past a 16-byte boundary, or an n (MN-major) / k
+    (K-major) off the vector take scalar loads.  A's staging follows A's
+    own layout and alignment, independently of B's."""
+    dt = getattr(torch, dtype)
+    full = 8 if dtype == "bfloat16" else 4
+    item = 2 if dtype == "bfloat16" else 4
+    m, k, n = 8, 1024, 512
+    a = (0, k, 1)
+
+    def vec(b_strides, b_ptr=4096, kk=k, nn=n, a_strides=a, a_ptr=0):
+        return skinny_plan(m, nn, kk, dt, a_strides, b_strides, a_ptr,
+                           b_ptr).vec
+
+    assert vec((0, n, 1)) == full
+    assert vec((0, 1, k)) == full
+    assert vec((0, n + 3, 1)) == 1            # x[:, :n] of a [k, n + 3]
+    assert vec((0, 1, k + 3)) == 1            # K-major, odd column stride
+    assert vec((0, n, 1), b_ptr=4096 + item) == 1
+    assert vec((0, 1, k), b_ptr=4096 + item) == 1
+    assert vec((0, 130, 1), nn=130) == 1      # n off the vector
+    assert vec((0, 1, 1020), kk=1020) == (4 if dtype == "float32" else 1)
+    assert vec((k * n + 1, n, 1)) == 1        # stack with an odd batch stride
+    assert vec((0, n, 1), a_strides=(0, k + 3, 1), a_ptr=item) == full
+
+    def a_vec(a_strides, a_ptr=4096, kk=k):
+        return skinny_plan(m, n, kk, dt, a_strides, (0, n, 1), a_ptr,
+                           4096).a_vec
+
+    assert a_vec(a) == full
+    assert a_vec((0, k + 3, 1)) == 1          # x[:, :k] of an [m, k + 3]
+    assert a_vec(a, a_ptr=4096 + item) == 1
+    assert a_vec((0, 1, m)) == 1              # column-major A
+    assert a_vec((0, 1020, 1), kk=1020) == (4 if dtype == "float32" else 1)
+    assert skinny_plan(8, n, k, dt, a, (0, n, 1), 0, 0).layout == "mn"
+    assert skinny_plan(8, n, k, dt, a, (0, 1, k), 0, 0).layout == "k"
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_skinny_plan_rows_in_one_block(m, dtype):
+    """Every m <= 16 is one row group: the plan has no split over rows and
+    is the same for every m (the kernels hold all rows in one block: 16
+    accumulator rows on the tensor cores, 8 or 16 on the CUDA cores), and
+    it is a function of the operands alone, so it is the same at every
+    call; m outside [1, 16] is not the skinny route's."""
+    dt = getattr(torch, dtype)
+    for k, n in ((4096, 5120), (1024, 32), (11008, 4096), (0, 64)):
+        plan = skinny_plan(m, n, k, dt, (0, k, 1), (0, n, 1), 0, 0)
+        assert plan == skinny_plan(16, n, k, dt, (0, k, 1), (0, n, 1), 0, 0)
+        assert plan == skinny_plan(m, n, k, dt, (0, k, 1), (0, n, 1), 0, 0)
+    for bad in (0, 17):
+        with pytest.raises(ValueError, match="not in"):
+            skinny_plan(bad, 64, 64, torch.float32, (0, 64, 1), (0, 64, 1),
+                        0, 0)
+
+
+@pytest.fixture(scope="module")
+def pallas_kept():
+    return gemm_pallas_ref.load(), gemm_pallas_ref.pallas_outputs()
+
+
+@pytest.mark.parametrize("cid,m,layout,dtype,out", gemm_pallas_ref.CASES,
+                         ids=[c[0] for c in gemm_pallas_ref.CASES])
+def test_skinny_pallas_outputs_are_kept(pallas_kept, cid, m, layout, dtype,
+                                        out):
+    """``tests/data/gemm_skinny_pallas.npz`` holds what the reference's
+    Pallas GEMM computes on the decode cases the card tests hold the
+    skinny kernels against (to within one rounding of the output, in case
+    the reference's k order moves), and the port's plain version agrees
+    with it at the usual bars."""
+    kept, fresh = pallas_kept
+    want = fresh[cid]
+    assert kept[cid].shape == want.shape == (m, gemm_pallas_ref.N)
+    scale = float(np.abs(want).max())
+    bar = 1e-6 if out == "float32" else 2.0 ** -8
+    assert np.abs(kept[cid] - want).max() / scale <= bar
+    a, b = gemm_pallas_ref.inputs(cid)
+    dt = getattr(torch, dtype)
+    tb = torch.from_numpy(b).to(dt) if layout == "mn" else \
+        torch.from_numpy(np.ascontiguousarray(b.T)).to(dt).T
+    got = gemm(torch.from_numpy(a).to(dt), tb, out_dtype=getattr(torch, out))
+    _close(_np(got), want, out)
 
 
 def test_build_hash_covers_headers(tmp_path, monkeypatch):

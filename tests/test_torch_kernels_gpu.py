@@ -25,6 +25,8 @@ from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                      ssd_chunk_diag_ref)
 from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
+import gemm_pallas_ref
+
 pytestmark = pytest.mark.gpu
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -392,6 +394,146 @@ def test_gemm_rejects_operand_without_unit_stride(card):
     b = torch.randn(48, 32, generator=card, device="cuda")
     with pytest.raises(ValueError, match="one unit stride"):
         gemm(a, b)
+
+
+def _serving_gemms():
+    """(id, m, k, n, B layout, out dtype) of every GEMM a decode step of
+    yi-6b and of mamba2-370m runs (m = batch = 8): the dt projection writes
+    f32, the tied head multiplies by ``embed.T`` (K-major)."""
+    from repro_torch.configs import get_arch
+
+    yi, mb = get_arch("yi-6b"), get_arch("mamba2-370m")
+    d, hd = yi.d_model, yi.head_dim
+    bf16, f32 = "bfloat16", "float32"
+    out = [("yi-qkv", d, (yi.num_heads + 2 * yi.num_kv_heads) * hd, "mn", bf16),
+           ("yi-wo", yi.num_heads * hd, d, "mn", bf16),
+           ("yi-gate-up", d, yi.d_ff, "mn", bf16),
+           ("yi-down", yi.d_ff, d, "mn", bf16),
+           ("yi-head", d, yi.vocab_size, "mn", bf16)]
+    ds, di = mb.d_model, mb.d_inner
+    out += [("mamba-z-x", ds, di, "mn", bf16),
+            ("mamba-b-c", ds, mb.ssm_num_groups * mb.ssm_state_dim, "mn", bf16),
+            ("mamba-dt", ds, mb.ssm_num_heads, "mn", f32),
+            ("mamba-out", di, ds, "mn", bf16),
+            ("mamba-head", ds, mb.vocab_size, "k", bf16)]
+    return [(name, 8, k, n, lay, o) for name, k, n, lay, o in out]
+
+
+SERVING_GEMMS = _serving_gemms()
+_OUT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # by output dtype
+
+
+def _skinny_check(card, m, k, n, layout, dtype, out, a=None, b=None):
+    dt, ot = getattr(torch, dtype), getattr(torch, out)
+    if a is None:
+        a = torch.randn(m, k, generator=card, device="cuda").to(dt)
+    if b is None:
+        b = _b_operand(card, k, n, layout, dt)
+    before = dict(gemm.route_launches)
+    got = gemm(a, b, out_dtype=ot)
+    torch.cuda.synchronize()
+    assert gemm.route_launches == {**before, "skinny": before["skinny"] + 1}
+    assert got.dtype == ot and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    assert _err(got, gemm_ref(a, b, out_dtype=torch.float32)) <= _OUT_TOL[out]
+    return a, b, got
+
+
+@pytest.mark.parametrize("m,k,n,layout,out", [c[1:] for c in SERVING_GEMMS],
+                         ids=[c[0] for c in SERVING_GEMMS])
+def test_gemm_skinny_serving_shapes(card, m, k, n, layout, out):
+    """Every decode-step GEMM of both models on the skinny kernels (bf16
+    weights; mamba2-370m's head reads ``embed.T`` in place)."""
+    _skinny_check(card, m, k, n, layout, "bfloat16", out)
+
+
+# m at both accumulator-row counts and their edges; k and n off every
+# split and vector: 4100 rows split 16 ways leave a short last split,
+# n = 130 needs scalar loads, 50280 a ragged last column tile.
+SKINNY_SHAPES = [(1000, 1000), (4100, 520), (4096, 130), (1024, 50280)]
+DTYPE_PAIRS = [("float32", "float32"), ("float32", "bfloat16"),
+               ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+@pytest.mark.parametrize("k,n", SKINNY_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SKINNY_SHAPES])
+@pytest.mark.parametrize("layout", ["mn", "k"])
+@pytest.mark.parametrize("dtype,out", DTYPE_PAIRS,
+                         ids=["-".join(p) for p in DTYPE_PAIRS])
+def test_gemm_skinny_rows_shapes_dtypes(card, m, k, n, layout, dtype, out):
+    _skinny_check(card, m, k, n, layout, dtype, out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["mn", "k"])
+def test_gemm_skinny_misaligned_operands(card, dtype, layout):
+    """Column slices with an odd row stride (n + 3 for B, k + 3 for A) and
+    a B that starts one element past a 16-byte boundary: scalar loads,
+    the same results."""
+    dt = getattr(torch, dtype)
+    m, k, n = 8, 1032, 520
+    a = torch.randn(m, k + 3, generator=card, device="cuda").to(dt)[:, :k]
+    if layout == "mn":
+        b = torch.randn(k, n + 3, generator=card, device="cuda").to(dt)[:, :n]
+    else:
+        b = torch.randn(n, k + 3, generator=card, device="cuda").to(dt)[:, :k].T
+    _skinny_check(card, m, k, n, layout, dtype, dtype, a=a, b=b)
+    flat = torch.randn(k * n + 1, generator=card, device="cuda").to(dt)
+    b = flat[1:].view(k, n) if layout == "mn" else flat[1:].view(n, k).T
+    _skinny_check(card, m, k, n, layout, dtype, dtype, a=a, b=b)
+
+
+@pytest.mark.parametrize("cid,m,layout,dtype,out", gemm_pallas_ref.CASES,
+                         ids=[c[0] for c in gemm_pallas_ref.CASES])
+def test_gemm_skinny_matches_pallas_reference(card, cid, m, layout, dtype,
+                                              out):
+    """Each skinny kernel (tensor cores for bf16, CUDA cores for f32; both
+    B layouts, the K-major one read in place as a transpose) against the
+    reference's Pallas GEMM on the same numpy inputs: its outputs kept in
+    ``tests/data/gemm_skinny_pallas.npz`` (this machine has no JAX; see
+    ``tests/gemm_pallas_ref.py``)."""
+    a, b = gemm_pallas_ref.inputs(cid)
+    want = torch.from_numpy(gemm_pallas_ref.load()[cid])
+    dt = getattr(torch, dtype)
+    ta = torch.from_numpy(a).to(dt).cuda()
+    tb = torch.from_numpy(b).to(dt).cuda() if layout == "mn" else \
+        torch.from_numpy(np.ascontiguousarray(b.T)).to(dt).cuda().T
+    before = dict(gemm.route_launches)
+    got = gemm(ta, tb, out_dtype=getattr(torch, out))
+    torch.cuda.synchronize()
+    assert gemm.route_launches == {**before, "skinny": before["skinny"] + 1}
+    assert got.dtype == getattr(torch, out) and got.shape == want.shape
+    assert _err(got.cpu(), want) <= _OUT_TOL[out]
+
+
+@pytest.mark.parametrize("k,n,layout", [(4096, 11008, "mn"), (1024, 2048, "mn"),
+                                        (1024, 32, "mn"), (4096, 5120, "k")])
+def test_gemm_skinny_stacked_equals_single_and_repeats(card, k, n, layout):
+    """A stack of two decode GEMMs at m = 8 in one batched launch equals
+    the two single launches bit for bit (graph mode stacks what eager mode
+    runs one by one), and a second launch of the same GEMM equals the
+    first bit for bit: the split plan ignores the batch count and the
+    split-k sum has a fixed order."""
+    bf16 = torch.bfloat16
+    a = torch.randn(2, 8, k, generator=card, device="cuda").to(bf16)
+    bs = [_b_operand(card, k, n, layout) for _ in range(2)]
+    b = torch.stack(bs) if layout == "mn" else \
+        torch.stack([x.T for x in bs]).transpose(1, 2)
+    singles, batched = _route_counts()
+    got = gemm_batched(a, b)
+    again = gemm_batched(a, b)
+    torch.cuda.synchronize()
+    assert gemm_batched.route_launches == {
+        **batched, "skinny": batched["skinny"] + 2}
+    one = [gemm(a[i], bs[i]) for i in range(2)]
+    twice = [gemm(a[i], bs[i]) for i in range(2)]
+    torch.cuda.synchronize()
+    assert gemm.route_launches == {**singles, "skinny": singles["skinny"] + 4}
+    assert torch.equal(got, torch.stack(one))
+    assert torch.equal(got, again)
+    assert all(torch.equal(x, y) for x, y in zip(one, twice))
+    assert _err(got, gemm_batched_ref(a, b)) <= TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
