@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               attention on both routes (bf16 at D 64 / 128
               on the tensor cores, f32 and other head dims on the CUDA
               cores), the prefill shape also as the model's transposed
-              (B, S, H, D) views;
+              (B, S, H, D) views; flash decode on both routes (bf16 on
+              the tensor cores, f32 on the CUDA cores), also on 4096- and
+              4099-slot caches split across a cluster, each launch
+              repeated bit for bit;
 3. serve    — yi-6b at full width (bf16, random weights from a seeded
               generator), 8 requests, through the offload seam with the
               kernels on; launch counters and trace backends prove the path
@@ -35,9 +38,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               plain path;
 5. serve-graph — the serve run of phase 3 with ``forward_mode="graph"``;
               its greedy tokens must equal phase 3's, and its first-step
-              logits eager mode's on the kernels;
+              logits eager mode's on the kernels; then long-decode: one
+              decode step at cache index 4000 of a 4096-slot cache filled
+              from the seeded generator (yi-6b's published context), so
+              flash decode runs split across clusters, kernels against
+              the plain path;
 6. float32  — first-step decode logits and last-position forward logits of
-              the same model with f32 weights, kernels against plain;
+              the same model with f32 weights, kernels against plain, and
+              the long-cache decode step of phase 5 with these weights;
 7. hnp      — the paper's path: the reference quickstart's graph, then one
               wave of two same-shape GEMMs at yi-6b width stacked into one
               batched-GEMM launch;
@@ -58,13 +66,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               share and per-step totals, and the skinny kernel against k
               (streaming rate and fixed cost beside torch.matmul's); flash
               attention also on the transposed views and beside SDPA's
-              is_causal.
+              is_causal; flash decode at the serve step's cache and at a
+              4096-slot cache (B 8 and B 1) beside SDPA.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after; the GEMM's and flash attention's route counters too: every bf16
-forward and hnp-wave GEMM and every bf16 forward attention launch must have
-taken the tensor-core route (``wgmma``), every serving GEMM the skinny one,
-and the f32 forward's attention the CUDA-core one (``simt``).  The last
+after; the GEMM's, flash attention's and flash decode's route counters
+too: every bf16 forward and hnp-wave GEMM and every bf16 forward attention
+launch must have taken the tensor-core route (``wgmma``), every serving
+GEMM the skinny one, every bf16 decode attention launch the tensor-core
+one (``mma``), and the f32 forward's and decode's attention the CUDA-core
+one (``simt``).  The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that
 lists every kernel.  Imports nothing of JAX or of the JAX
@@ -91,6 +102,9 @@ PROMPT_LEN = 16
 MAX_NEW = 16
 CACHE_LEN = 64
 SEED = 0
+# Long-cache decode (phases 5 and 6): yi-6b's published 4096-token
+# context, one step at cache index 4000 (slots [0, 4001) valid).
+LONG_CACHE, LONG_INDEX = 4096, 4000
 # yi-6b forward (prefill) cell: 2 sequences of 512 tokens; the f32 check
 # runs 1 sequence of 128 tokens.
 FWD_BATCH, FWD_SEQ = 2, 512
@@ -149,8 +163,10 @@ WGMMA_RAGGED = [(17, 72, 104), (100, 32, 1016), (1000, 5128, 8 * 131),
 TEST_GEMM_BATCHED = [1, 3, 8]
 # Flash-decode cases of tests/test_kernels.py:120-123, the serve shape
 # itself (cache of CACHE_LEN slots, bounds [0, index + 1) as decode steps
-# give them), and the serve geometry at S = 300 with ragged bounds and one
-# fully masked row.
+# give them), the serve geometry at S = 300 with ragged bounds and one
+# fully masked row, and on 4096- and 4099-slot caches (8 splits): the long
+# step's bounds, a rolling window (lo > 0, hi = S), an empty row, rows
+# that leave whole splits empty, ragged rows.
 TEST_DECODE_CASES = [
     dict(hq=4, hkv=2, s=64, d=16, bounds=[(0, 64), (5, 40), (10, 33)]),
     dict(hq=8, hkv=8, s=96, d=16, bounds=[(0, 96), (0, 1), (95, 96)]),
@@ -160,7 +176,19 @@ TEST_DECODE_CASES = [
     dict(hq=32, hkv=4, s=300, d=128,
          bounds=[(0, 300), (5, 40), (10, 33), (0, 1), (299, 300),
                  (100, 100), (37, 250), (0, 150)]),
+    *[dict(hq=32, hkv=4, s=s, d=128,
+           bounds=[(0, LONG_INDEX + 1), (s // 3, s), (2048, 2048),
+                   (s - 40, s - 3), (5, 200), (2041, 2057), (37, s - 11),
+                   (0, s)])
+      for s in (LONG_CACHE, LONG_CACHE + 3)],
 ]
+# Flash-decode shapes timed in phase 11 and by tools/flash_decode_times.py:
+# (tag, B, S, valid slots): yi-6b's last serve step (a cache of CACHE_LEN
+# slots, PROMPT_LEN + MAX_NEW - 1 valid) and its published 4096-token
+# context (4095 valid) at B 8 and at B 1 (one long request).
+DECODE_TIME_SHAPES = [("serve", BATCH, CACHE_LEN, PROMPT_LEN + MAX_NEW - 1),
+                      ("long", BATCH, LONG_CACHE, LONG_CACHE - 1),
+                      ("long-b1", 1, LONG_CACHE, LONG_CACHE - 1)]
 # Flash attention: the six cases of tests/test_kernels.py:83-106 (D 32,
 # B 2), the yi-6b prefill shape (as (B, H, S, D) tensors and as the
 # model's transposed (B, S, H, D) views), and rows a window leaves empty
@@ -267,10 +295,11 @@ def b_operand(randn, k, n, layout, dtype, batch=None):
 
 def _routed():
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.gemm import gemm, gemm_batched
 
     return {"gemm": gemm, "gemm_batched": gemm_batched,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "flash_decode": flash_decode}
 
 
 def zero_routes():
@@ -280,17 +309,28 @@ def zero_routes():
 
 def read_routes():
     """{"gemm": {route: launches}, "gemm_batched": {...},
-    "flash_attention": {...}} since the last ``zero_routes``."""
+    "flash_attention": {...}, "flash_decode": {...}} since the last
+    ``zero_routes``."""
     return {k: dict(fn.route_launches) for k, fn in _routed().items()}
 
 
-def require_route(label, routes, route):
-    """Fail unless every GEMM and attention launch in ``routes`` took
-    ``route`` (a path that launches no attention passes on the GEMMs)."""
-    stray = {k: {r: n for r, n in v.items() if r != route and n}
+def require_route(label, routes, route, decode=None):
+    """Fail unless every GEMM and flash-attention launch in ``routes`` took
+    ``route`` and every flash-decode launch ``decode`` (a path that
+    launches no attention passes on the GEMMs)."""
+    stray = {k: {r: n for r, n in v.items()
+                 if r != (decode if k == "flash_decode" else route) and n}
              for k, v in routes.items()}
     if any(stray.values()):
-        fail(f"{label}: kernel launches off the {route} route: {routes}")
+        fail(f"{label}: kernel launches off the {route} / {decode} routes: "
+             f"{routes}")
+
+
+def decode_route_of(dtype):
+    """Flash decode's route for the models' (aligned, D 128) operands."""
+    import torch
+
+    return "mma" if dtype in ("bfloat16", torch.bfloat16) else "simt"
 
 
 def attn_operands(randn, b, hq, hkv, sq, skv, d, dtype, view):
@@ -411,11 +451,16 @@ def main() -> None:
         fail("graph-mode serving gave other greedy tokens than eager mode")
     serve_g["greedy_tokens_equal_eager"] = True
     emit({"phase": "serve-graph", **serve_g})
+    long_decode = run_long_decode(cfg, model, params, prompts, zero_counts,
+                                  read_counts)
+    launches["long-decode"] = long_decode["launches"]
+    routes["long-decode"] = long_decode["routes"]
     del params
     torch.cuda.empty_cache()
 
     # ---- 6. the same model with f32 weights -----------------------------
-    routes["float32"] = run_f32(cfg, tokens, prompts)
+    routes["float32"], routes["long-decode-f32"] = run_f32(
+        cfg, tokens, prompts, zero_counts, read_counts)
 
     # ---- 7. hnp: the paper's path ---------------------------------------
     hnp_phase = run_hnp(cfg, randn, zero_counts, read_counts)
@@ -490,7 +535,8 @@ def check_kernels(cfg, ssm_cfg, randn):
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import (cluster_capacity, decode_plan,
+                                                  flash_decode)
     from repro_torch.kernels.gemm import gemm, gemm_batched
     from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                          gemm_batched_ref, gemm_ref,
@@ -650,10 +696,19 @@ def check_kernels(cfg, ssm_cfg, randn):
                               dtype=torch.int32, device=dev)
             hi = torch.tensor([y for _, y in case["bounds"]],
                               dtype=torch.int32, device=dev)
-            got = flash_decode(q, k, v, lo, hi)
-            torch.cuda.synchronize()
+            route = (decode_route_of(dt) if case["d"] % 16 == 0
+                     else "simt")
+            got = on_route(flash_decode, route,
+                           lambda: flash_decode(q, k, v, lo, hi))
+            again = on_route(flash_decode, route,
+                             lambda: flash_decode(q, k, v, lo, hi))
+            plan = decode_plan(b, case["hq"], case["hkv"], case["s"],
+                               case["d"], dt, route,
+                               cluster_capacity(route, dt, case["d"], 0))
             tag = (f"B{b} Hq{case['hq']} Hkv{case['hkv']} S{case['s']} "
-                   f"D{case['d']}")
+                   f"D{case['d']} {route} splits {plan.splits}")
+            if not torch.equal(got, again):
+                fail(f"flash_decode {tag}: a repeat launch differs")
             record("flash_decode", tag, dt,
                    *_rel_err(got, decode_attention_ref(q, k, v, lo, hi)),
                    case["d"] == cfg.head_dim)
@@ -725,6 +780,10 @@ def check_kernels(cfg, ssm_cfg, randn):
     if not err <= 1e-5:
         fail(f"ssd_chunk_diag is not causal: {err}")
     emit({"phase": "check", "checks": checks,
+          "flash_decode_clusters_per_wave": {
+              f"{route} {str(dt)[6:]} D{cfg.head_dim}": cluster_capacity(
+                  route, dt, cfg.head_dim, 0)
+              for route, dt in (("mma", bf16), ("simt", torch.float32))},
           "flash_attention_masked_rows_exactly_zero": masked_rows,
           "ssd_min_log_decay": min_log_decay})
     return max_abs
@@ -788,7 +847,8 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
     if launches != want:
         fail(f"{arch} serve ({forward_mode}) kernel launches {launches}, "
              f"want {want}")
-    require_route(f"{arch} serve ({forward_mode})", routes, "skinny")
+    require_route(f"{arch} serve ({forward_mode})", routes, "skinny",
+                  decode=decode_route_of(cfg.dtype))
     backends = _backends(trace, ops)
     with offload_policy(**PLAIN_POLICY):
         res_p = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
@@ -859,7 +919,7 @@ def _backends(trace, ops):
 KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
                    "flash_attention": ("flash_attention_kernel",
                                        "attn_wgmma"),
-                   "flash_decode": ("flash_decode_kernel",),
+                   "flash_decode": ("flash_decode_",),
                    "ssd_chunk_diag": ("ssd_chunk_kernel",)}
 
 
@@ -997,11 +1057,68 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
     return out
 
 
-def run_f32(cfg, tokens, prompts):
+def run_long_decode(cfg, model, params, prompts, zero_counts, read_counts):
+    """One decode step of the model at full width at cache index
+    LONG_INDEX on a LONG_CACHE-slot cache whose every layer's K and V are
+    drawn from a generator seeded with SEED, the prompts' first tokens as
+    input: kernels (counted: each layer's flash decode split across a
+    cluster, on its dtype's route) against the plain path.  Logits bar:
+    1e-4 x max |logit| in f32, max(2e-2, 2 x floor) in bf16."""
+    import torch
+
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.kernels.flash_decode import cluster_capacity, decode_plan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base = model.init_decode_cache(BATCH, LONG_CACHE, device=dev)
+    for buf in base.values():
+        for layer in buf:
+            layer.copy_(torch.randn(layer.shape, generator=gen, device=dev))
+    first = torch.tensor([[p[0]] for p in prompts], device=dev)
+
+    def logits_of(pol, k_parts=1):
+        cache = {name: buf.clone() for name, buf in base.items()}
+        with offload_policy(**pol), blas.host_k_split(k_parts), \
+                torch.no_grad():
+            return model.decode_step(params, cache, first,
+                                     LONG_INDEX)[0].float()
+
+    zero_counts()
+    errs = _logit_errs(logits_of, (BATCH, cfg.vocab_size))
+    launches, routes = read_counts(), read_routes()
+    per_step, _ = expected(cfg, "serve", "eager")
+    if launches != per_step:
+        fail(f"long-cache decode step kernel launches {launches}, want "
+             f"{per_step}")
+    route = decode_route_of(cfg.dtype)
+    require_route("long-cache decode step", routes, "skinny", decode=route)
+    f32 = cfg.dtype == "float32"
+    bar = F32_LOGIT_TOL if f32 else max(LOGIT_TOL, 2 * errs["floor"])
+    if not errs["err"] <= bar:
+        fail(f"{cfg.dtype} long-cache decode logits differ: {errs} > {bar}")
+    dt = getattr(torch, cfg.dtype)
+    plan = decode_plan(BATCH, cfg.num_heads, cfg.num_kv_heads, LONG_CACHE,
+                       cfg.head_dim, dt, route,
+                       cluster_capacity(route, dt, cfg.head_dim, 0))
+    out = {"phase": "long-decode", "arch": cfg.name, "dtype": cfg.dtype,
+           "batch": BATCH, "cache_len": LONG_CACHE, "cache_index": LONG_INDEX,
+           "plan": plan._asdict(), "launches": launches, "routes": routes,
+           "logits": {**errs, "bar": bar}}
+    emit(out)
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_f32(cfg, tokens, prompts, zero_counts, read_counts):
     """Phase 6: decode first-step and forward last-position logits with
-    f32 weights at full width, kernels against plain, bar 1e-4.  Every
-    attention launch of the f32 forward must take the CUDA-core route
-    (``simt``: true fp32); returns the phase's route counts."""
+    f32 weights at full width, kernels against plain, bar 1e-4, and the
+    long-cache decode step at that bar.  Every attention launch of the f32
+    forward and decode must take the CUDA-core route (``simt``: true
+    fp32); returns the route counts of the phase's short and long-cache
+    decode steps."""
     import torch
 
     from repro_torch.core import blas
@@ -1036,13 +1153,18 @@ def run_f32(cfg, tokens, prompts):
     attn = out["routes"]["flash_attention"]
     if attn != {"simt": cfg.num_layers, "wgmma": 0}:
         fail(f"f32 forward attention off the simt route: {attn}")
+    dec = out["routes"]["flash_decode"]
+    if dec != {"simt": cfg.num_layers, "mma": 0}:
+        fail(f"f32 decode attention off the simt route: {dec}")
     for name in ("decode_first_step", "forward_last_position"):
         if not out[name]["err"] <= F32_LOGIT_TOL:
             fail(f"f32 {name} logits differ: {out[name]} > {F32_LOGIT_TOL}")
     emit({"phase": "float32", **out})
+    long32 = run_long_decode(model32.cfg, model32, params32, prompts,
+                             zero_counts, read_counts)
     del params32
     torch.cuda.empty_cache()
-    return out["routes"]
+    return out["routes"], long32["routes"]
 
 
 def run_hnp(cfg, randn, zero_counts, read_counts):
@@ -1203,9 +1325,8 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.gemm import gemm, gemm_batched, gemm_route
-    from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
-                                         gemm_batched_ref, gemm_ref,
-                                         ssd_chunk_diag_ref)
+    from repro_torch.kernels.ref import (attention_ref, gemm_batched_ref,
+                                         gemm_ref, ssd_chunk_diag_ref)
     from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
     dev = torch.device("cuda")
@@ -1320,31 +1441,15 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
     emit({"forward_gemm_shapes": fwd_shapes["yi"],
           "per_forward": per_forward["yi"]})
 
-    # Decode attention at the last serve step: cache_len slots, the first
-    # prompt + new - 1 of them valid, for every layer.
+    # Decode attention at the last serve step (every layer) and on a
+    # 4096-slot cache (B 8 and B 1).
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    valid = PROMPT_LEN + MAX_NEW - 1
-    q = randn(BATCH, hq, d, dtype=bf16)
-    kvs = _rotation(lambda: (randn(BATCH, hkv, CACHE_LEN, d, dtype=bf16),
-                             randn(BATCH, hkv, CACHE_LEN, d, dtype=bf16)),
-                    2 * BATCH * hkv * CACHE_LEN * d * 2)
-    lo = torch.zeros(BATCH, dtype=torch.int32, device=dev)
-    hi = torch.full((BATCH,), valid, dtype=torch.int32, device=dev)
-    slot_ok = (torch.arange(CACHE_LEN, device=dev) < valid)[None, None, None]
-    t_dk = _time(lambda kv: flash_decode(q, kv[0], kv[1], lo, hi), kvs)
-    t_dp = _time(lambda kv: decode_attention_ref(q, kv[0], kv[1], lo, hi), kvs)
-    q4 = q[:, :, None, :]
-    t_dl = _time(lambda kv: torch.nn.functional.scaled_dot_product_attention(
-        q4, kv[0], kv[1], attn_mask=slot_ok, enable_gqa=True), kvs)
-    d_bytes = 2.0 * (2 * BATCH * hq * d + 2 * BATCH * hkv * valid * d)
-    d_flops = 4.0 * BATCH * hq * valid * d
     L = cfg.num_layers
-    emit({"flash_decode_shape": {
-        "B": BATCH, "Hq": hq, "Hkv": hkv, "D": d, "S": CACHE_LEN,
-        "valid": valid, "launches_per_step": L, "ms": t_dk, "plain_ms": t_dp,
-        "library_ms": t_dl,
-        "bound_ms": _bound_ms(d_bytes, d_flops, "bfloat16")}})
-    del kvs
+    dec = time_flash_decode(flash_decode, hq, hkv, d, randn)
+    for row in dec.values():
+        row["launches_per_step"] = L
+    emit({"flash_decode_shapes": dec})
+    d_serve = dec["serve"]
 
     # Flash attention at the forward's shape: one launch per layer, on
     # (B, H, S, D) tensors and on the model's transposed (B, S, H, D)
@@ -1515,10 +1620,17 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "replaces": "src/repro/kernels/flash_decode.py:32",
          "launches": launches["serve"]["flash_decode"], "path": "serve",
          "max_abs_err": max_abs["flash_decode"],
-         "ms": L * t_dk, "plain_ms": L * t_dp,
-         "bound_ms": _bound_ms(L * d_bytes, L * d_flops, "bfloat16"),
-         "bound_by": _bound_by(d_bytes, d_flops, "bfloat16"),
-         "library_ms": L * t_dl, "per": per},
+         "ms": L * d_serve["ms"], "plain_ms": L * d_serve["plain_ms"],
+         "bound_ms": L * d_serve["bound_ms"],
+         "bound_by": d_serve["bound_by"],
+         "library_ms": L * d_serve["library_ms"], "per": per,
+         "long_cache_launches": launches["long-decode"]["flash_decode"],
+         "long_cache_per_launch": {tag: {key: dec[tag][key] for key in (
+             "B", "S", "valid", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_share")} for tag in ("long", "long-b1")},
+         "route_launches": {path: r["flash_decode"]
+                            for path, r in routes.items()
+                            if any(r["flash_decode"].values())}},
         {"name": "gemm_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemm.cu",
          "tile_source": "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
@@ -1563,6 +1675,48 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "library_ms": Ls * t_sl, "per": "forward",
          "ms_per_launch": t_sk},
     ]
+
+
+def time_flash_decode(flash_decode, hq, hkv, d, randn):
+    """Each DECODE_TIME_SHAPES shape in bf16: ``flash_decode`` (any tree's
+    wrapper), its plain version and SDPA (GQA, the same slot mask) in ms
+    per launch over caches rotated past L2, beside the bound (q read and
+    the output written once, the valid K and V slots read once, 4·D FLOPs
+    per q head and slot).  Returns ``{tag: {...}}``."""
+    import torch
+
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for tag, b, s, valid in DECODE_TIME_SHAPES:
+        q = randn(b, hq, d, dtype=bf16)
+        kvs = _rotation(lambda: (randn(b, hkv, s, d, dtype=bf16),
+                                 randn(b, hkv, s, d, dtype=bf16)),
+                        2 * b * hkv * s * d * 2)
+        lo = torch.zeros(b, dtype=torch.int32, device=dev)
+        hi = torch.full((b,), valid, dtype=torch.int32, device=dev)
+        slot_ok = (torch.arange(s, device=dev) < valid)[None, None, None]
+        q4 = q[:, :, None, :]
+        t_k = _time(lambda kv: flash_decode(q, kv[0], kv[1], lo, hi), kvs)
+        t_p = _time(lambda kv: decode_attention_ref(q, kv[0], kv[1], lo, hi),
+                    kvs, iters=10)
+        t_l = _time(lambda kv: sdpa(q4, kv[0], kv[1], attn_mask=slot_ok,
+                                    enable_gqa=True), kvs)
+        nbytes = 2.0 * (2 * b * hq * d + 2 * b * hkv * valid * d)
+        flops = 4.0 * b * hq * valid * d
+        bound = _bound_ms(nbytes, flops, "bfloat16")
+        out[tag] = {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "S": s,
+                    "valid": valid, "ms": t_k, "plain_ms": t_p,
+                    "library_ms": t_l, "library": "SDPA, GQA, slot mask",
+                    "bound_ms": bound,
+                    "bound_by": _bound_by(nbytes, flops, "bfloat16"),
+                    "bound_share": bound / t_k, "GBps": nbytes / t_k / 1e6,
+                    "vs_library": t_k / t_l}
+        del kvs
+    return out
 
 
 def _card_name_and_power_limit() -> str:

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX reference package, and importing
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and not ``tools/flash_decode_times.py`` (both run on the
+card's machine) imports JAX or the JAX reference package, and importing
 the port's serve path loads neither (nor triton, which is imported only
 inside the functions that launch a Triton kernel)."""
 
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "flash_decode_times.py"]
 
 
 def _imported_roots(path):

@@ -18,13 +18,15 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import (cluster_capacity, decode_plan,
+                                              flash_decode, flash_decode_route)
 from repro_torch.kernels.gemm import gemm, gemm_batched
 from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                      gemm_batched_ref, gemm_ref,
                                      ssd_chunk_diag_ref)
 from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
+import flash_decode_pallas_ref
 import gemm_pallas_ref
 
 pytestmark = pytest.mark.gpu
@@ -553,6 +555,144 @@ def test_flash_decode_kernel(card, dtype):
     assert flash_decode.launches == before + 1
     assert _err(got, decode_attention_ref(q, k, v, lo, hi)) <= TOL[dtype]
     assert got[5].abs().max().item() == 0.0          # lo == hi: no slot
+
+
+def _decode_bounds(s):
+    """Per-row bounds on an S-slot cache: the whole cache, one slot, a
+    rolling window (lo > 0, hi = S), an empty row (lo == hi), and ranges
+    that leave whole splits empty (near the end, near the start, around
+    the middle) and a ragged one."""
+    return [(0, s), (0, 1), (s // 3, s), (s // 2, s // 2), (s - 40, s - 3),
+            (5, min(s, 200)), (s // 2 - 7, s // 2 + 9), (37, s - 11)]
+
+
+def _decode_case(card, dtype, hq, hkv, s, d, bounds, q=None):
+    dt = getattr(torch, dtype)
+    b = len(bounds)
+    if q is None:
+        q = torch.randn(b, hq, d, generator=card, device="cuda").to(dt)
+    k = torch.randn(b, hkv, s, d, generator=card, device="cuda").to(dt)
+    v = torch.randn(b, hkv, s, d, generator=card, device="cuda").to(dt)
+    lo = torch.tensor([x for x, _ in bounds], dtype=torch.int32, device="cuda")
+    hi = torch.tensor([y for _, y in bounds], dtype=torch.int32, device="cuda")
+    return q, k, v, lo, hi
+
+
+def _decode_check(q, k, v, lo, hi, dtype, route, empty_rows=True):
+    """One launch on ``route`` against the plain version, its empty rows
+    (the case must have some unless ``empty_rows`` is False) exactly 0,
+    and a second launch equal to the first bit for bit."""
+    before = dict(flash_decode.route_launches)
+    got = flash_decode(q, k, v, lo, hi)
+    again = flash_decode(q, k, v, lo, hi)
+    torch.cuda.synchronize()
+    assert flash_decode.route_launches == {**before, route: before[route] + 2}
+    assert torch.equal(got, again)
+    assert _err(got, decode_attention_ref(q, k, v, lo, hi)) <= TOL[dtype]
+    empty = (hi <= lo).nonzero().flatten().tolist()
+    assert bool(empty) == empty_rows
+    if empty:
+        assert got[empty].abs().max().item() == 0.0
+    return got
+
+
+@pytest.mark.parametrize("s", [64, 300, 1024, 4096, 4099])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_split_kernels(card, dtype, d, s):
+    """The split kernels at yi-6b's GQA group (32 q / 4 kv heads) over
+    the split counts the plan gives these caches (1 up to 7 or 8, by the
+    card's cluster table), every head dim of the routes (bf16 D % 16 == 0
+    on the tensor cores, f32 on the CUDA cores), rows that leave whole
+    splits empty or nothing at all."""
+    args = _decode_case(card, dtype, 32, 4, s, d, _decode_bounds(s))
+    route = "mma" if dtype == "bfloat16" else "simt"
+    dt = getattr(torch, dtype)
+    assert flash_decode_route(dt, d, [t.data_ptr() for t in args[:3]]) == route
+    splits = decode_plan(8, 32, 4, s, d, dt, route,
+                         cluster_capacity(route, dt, d, 0)).splits
+    assert (splits == 1) == (s < 512)
+    _decode_check(*args, dtype, route)
+
+
+@pytest.mark.parametrize("b", [1, 8, 9, 11, 14, 16])
+def test_flash_decode_split_counts(card, b):
+    """B 1 to 16 at yi-6b's 4 kv heads on a 4096-slot cache: on the
+    H100's cluster table the plan gives 8, 7, 6, 5, 4 and 3 splits (the
+    most whose clusters fit on the card at once); bf16 against the plain
+    version."""
+    s = 4096
+    bounds = [(0, s)] if b == 1 else \
+        [(s // 2, s // 2)] + (_decode_bounds(s) * 2)[:b - 1]
+    args = _decode_case(card, "bfloat16", 32, 4, s, 128, bounds)
+    _decode_check(*args, "bfloat16", "mma", empty_rows=b > 1)
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (4, 2), (16, 4), (32, 4),
+                                    (32, 2), (24, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_gqa_groups(card, dtype, hq, hkv):
+    """GQA groups of 1 to 24 q heads a kv head: a block serves a head
+    group of at most 8 (groups 16 and 24 run 2 and 3 head groups)."""
+    args = _decode_case(card, dtype, hq, hkv, 1024, 128, _decode_bounds(1024))
+    _decode_check(*args, dtype, "mma" if dtype == "bfloat16" else "simt")
+
+
+@pytest.mark.parametrize("d,s", [(72, 1024), (12, 300), (9, 300),
+                                 (200, 4099), (8, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_simt_head_dims(card, dtype, d, s):
+    """Head dims off the tensor-core tile on the CUDA-core kernel.  Cache
+    rows that are not whole 16-byte chunks (bf16 D 9 and 12, f32 D 9) are
+    copied element by element; f32 D 200 rows take 8-slot warp steps."""
+    args = _decode_case(card, dtype, 32, 4, s, d, _decode_bounds(s))
+    _decode_check(*args, dtype, "simt")
+
+
+@pytest.mark.parametrize("operand", ["q", "cache"])
+def test_flash_decode_misaligned_operands_take_simt(card, operand):
+    """A bf16 q or cache that is contiguous but not 16-byte aligned (a
+    view one element into its storage) runs on the CUDA-core kernel, the
+    cache element by element."""
+    b, hq, hkv, s, d = 8, 32, 4, 1024, 128
+    q, k, v, lo, hi = _decode_case(card, "bfloat16", hq, hkv, s, d,
+                                   _decode_bounds(s))
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        flat[1:] = x.flatten()
+        return flat[1:].view(x.shape)
+
+    if operand == "q":
+        q = shifted(q)
+    else:
+        k, v = shifted(k), shifted(v)
+    assert q.is_contiguous() and k.is_contiguous()
+    _decode_check(q, k, v, lo, hi, "bfloat16", "simt")
+
+
+@pytest.mark.parametrize("dtype", flash_decode_pallas_ref.DTYPES)
+def test_flash_decode_matches_pallas_reference(card, dtype):
+    """The split kernels (4 splits of 256 slots; bf16 on the tensor cores,
+    f32 on the CUDA cores) against the reference's Pallas flash decode on
+    the same numpy inputs: its outputs kept in
+    ``tests/data/flash_decode_pallas.npz`` (this machine has no JAX; see
+    ``tests/flash_decode_pallas_ref.py``)."""
+    q, k, v, lo, hi = flash_decode_pallas_ref.inputs()
+    want = torch.from_numpy(flash_decode_pallas_ref.load()[dtype])
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to(dt).cuda() for x in (q, k, v)]
+    args += [torch.from_numpy(x).cuda() for x in (lo, hi)]
+    b, hkv, s, d = k.shape
+    hq = q.shape[1]
+    assert decode_plan(b, hq, hkv, s, d, dt, "mma",
+                       cluster_capacity("mma", dt, d, 0)).splits == 4
+    route = "mma" if dtype == "bfloat16" else "simt"
+    before = dict(flash_decode.route_launches)
+    got = flash_decode(*args).float().cpu()
+    assert flash_decode.route_launches == {**before, route: before[route] + 1}
+    assert _err(got, want) <= TOL[dtype]
+    assert got[flash_decode_pallas_ref.EMPTY_ROWS].abs().max().item() == 0.0
 
 
 def test_serve_reduced_runs_on_kernels(card):
