@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               (B, S, H, D) views; flash decode on both routes (bf16 on
               the tensor cores, f32 on the CUDA cores), also on 4096- and
               4099-slot caches split across a cluster, each launch
-              repeated bit for bit;
+              repeated bit for bit; the SSD chunk kernel on its
+              tensor-core route (``mma``) at every case, the forward's
+              shape repeated bit for bit;
 3. serve    — yi-6b at full width (bf16, random weights from a seeded
               generator), 8 requests, through the offload seam with the
               kernels on; launch counters and trace backends prove the path
@@ -52,7 +54,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 8. ssm-forward — the SSM path: ``Model.forward`` of mamba2-370m at full
               width (bf16, random weights) on 4 x 1024 tokens, eager and
               graph mode, on the kernels (48 SSD launches per forward) and
-              on the plain path;
+              on the plain path; the profiled eager forward's device time
+              by kernel name (top 15, with launches);
 9. ssm-serve — mamba2-370m served at full width, 8 requests of 16 + 16
               tokens, kernels against the plain path (decode is the
               one-step recurrence: GEMM kernel only);
@@ -67,15 +70,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               (streaming rate and fixed cost beside torch.matmul's); flash
               attention also on the transposed views and beside SDPA's
               is_causal; flash decode at the serve step's cache and at a
-              4096-slot cache (B 8 and B 1) beside SDPA.
+              4096-slot cache (B 8 and B 1) beside SDPA; the SSD chunk
+              kernel beside its bytes / 3xTF32 bound and the CUDA cores'
+              fp32 bound.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
 too: every bf16 forward and hnp-wave GEMM and every bf16 forward attention
 launch must have taken the tensor-core route (``wgmma``), every serving
 GEMM the skinny one, every bf16 decode attention launch the tensor-core
-one (``mma``), and the f32 forward's and decode's attention the CUDA-core
-one (``simt``).  The last
+one (``mma``), the f32 forward's and decode's attention the CUDA-core
+one (``simt``), and every SSD launch of the phase-2 checks and of the
+forwards (eager, graph, f32) the tensor-core one (``mma``).  The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that
 lists every kernel.  Imports nothing of JAX or of the JAX
@@ -137,7 +143,7 @@ TEST_SSD_CASES = [(4, 2, 32, 16, 8, "test"), (2, 8, 64, 32, 16, "test"),
 
 # H100 SXM data-sheet peaks (dense).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py:18
 # Flash attention holds each output row to the bar scaled by that row's
@@ -297,9 +303,11 @@ def _routed():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.gemm import gemm, gemm_batched
+    from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
     return {"gemm": gemm, "gemm_batched": gemm_batched,
-            "flash_attention": flash_attention, "flash_decode": flash_decode}
+            "flash_attention": flash_attention, "flash_decode": flash_decode,
+            "ssd_chunk_diag": ssd_chunk_diag}
 
 
 def zero_routes():
@@ -309,21 +317,22 @@ def zero_routes():
 
 def read_routes():
     """{"gemm": {route: launches}, "gemm_batched": {...},
-    "flash_attention": {...}, "flash_decode": {...}} since the last
-    ``zero_routes``."""
+    "flash_attention": {...}, "flash_decode": {...}, "ssd_chunk_diag":
+    {...}} since the last ``zero_routes``."""
     return {k: dict(fn.route_launches) for k, fn in _routed().items()}
 
 
 def require_route(label, routes, route, decode=None):
     """Fail unless every GEMM and flash-attention launch in ``routes`` took
-    ``route`` and every flash-decode launch ``decode`` (a path that
-    launches no attention passes on the GEMMs)."""
-    stray = {k: {r: n for r, n in v.items()
-                 if r != (decode if k == "flash_decode" else route) and n}
+    ``route``, every flash-decode launch ``decode`` and every SSD chunk
+    launch ``mma`` (a path that launches no attention or SSD passes on the
+    GEMMs)."""
+    want = {"flash_decode": decode, "ssd_chunk_diag": "mma"}
+    stray = {k: {r: n for r, n in v.items() if r != want.get(k, route) and n}
              for k, v in routes.items()}
     if any(stray.values()):
-        fail(f"{label}: kernel launches off the {route} / {decode} routes: "
-             f"{routes}")
+        fail(f"{label}: kernel launches off the {route} / {decode} / mma "
+             f"routes: {routes}")
 
 
 def decode_route_of(dtype):
@@ -541,7 +550,7 @@ def check_kernels(cfg, ssm_cfg, randn):
     from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                          gemm_batched_ref, gemm_ref,
                                          ssd_chunk_diag_ref)
-    from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+    from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_route
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -756,11 +765,22 @@ def check_kernels(cfg, ssm_cfg, randn):
             dta = torch.cumsum(-randn(bh, nc, q).abs() * decay,
                                dim=-1).to(dt)
             b, c = randn(bh, nc, q, n, dtype=dt), randn(bh, nc, q, n, dtype=dt)
+            case = f"{tag} BH{bh} C{nc} Q{q} P{p} N{n}"
+            before = dict(ssd_chunk_diag.route_launches)
             got = ssd_chunk_diag(x, dta, b, c)
             torch.cuda.synchronize()
-            case = f"{tag} BH{bh} C{nc} Q{q} P{p} N{n}"
+            route = ssd_route(dt, p, n, [t.data_ptr()
+                                         for t in (x, dta, b, c, got)])
+            moved = {r: k - before[r]
+                     for r, k in ssd_chunk_diag.route_launches.items()}
+            if route != "mma" or moved != {"simt": 0, "mma": 1}:
+                fail(f"ssd_chunk_diag {case} {dt}: off the mma route "
+                     f"({route}, {moved})")
             if not torch.isfinite(got).all():
                 fail(f"ssd_chunk_diag {case}: output not finite")
+            if tag == "forward" and not torch.equal(
+                    got, ssd_chunk_diag(x, dta, b, c)):
+                fail(f"ssd_chunk_diag {case} {dt}: a repeat launch differs")
             min_log_decay = min(min_log_decay, dta.float().min().item())
             record("ssd_chunk_diag", case, dt,
                    *_row_rel_err(got, ssd_chunk_diag_ref(x, dta, b, c)),
@@ -785,7 +805,8 @@ def check_kernels(cfg, ssm_cfg, randn):
                   route, dt, cfg.head_dim, 0)
               for route, dt in (("mma", bf16), ("simt", torch.float32))},
           "flash_attention_masked_rows_exactly_zero": masked_rows,
-          "ssd_min_log_decay": min_log_decay})
+          "ssd_min_log_decay": min_log_decay,
+          "ssd_forward_repeat_bit_equal": True})
     return max_abs
 
 
@@ -920,7 +941,7 @@ KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
                    "flash_attention": ("flash_attention_kernel",
                                        "attn_wgmma"),
                    "flash_decode": ("flash_decode_",),
-                   "ssd_chunk_diag": ("ssd_chunk_kernel",)}
+                   "ssd_chunk_diag": ("ssd_chunk_kernel", "ssd_mma_kernel")}
 
 
 def _profile(fn):
@@ -928,8 +949,9 @@ def _profile(fn):
     synchronize.  Returns the host-clock wall time of the profiled run,
     the device time of its kernels by family (the port's kernels by name,
     everything else as "other": torch's elementwise kernels, cuBLAS), and
-    the device's idle share 1 - busy / wall; "not measured" when the
-    profiler records no device activity."""
+    the device's idle share 1 - busy / wall, and the top 15 device kernels
+    by name (ms, launches); "not measured" when the profiler records no
+    device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -942,19 +964,27 @@ def _profile(fn):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by = {name: 0.0 for name in (*KERNEL_FAMILIES, "other")}
     launches = dict.fromkeys(by, 0)
+    names = {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         fam = next((f for f, keys in KERNEL_FAMILIES.items()
                     if any(k in ev.name for k in keys)), "other")
-        by[fam] += ev.time_range.elapsed_us() / 1e3
+        ms = ev.time_range.elapsed_us() / 1e3
+        by[fam] += ms
         launches[fam] += 1
+        row = names.setdefault(ev.name[:160], [0.0, 0])
+        row[0] += ms
+        row[1] += 1
     busy = sum(by.values())
     if busy == 0.0:
         return {"wall_ms": wall_ms, "device": "not measured"}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
-            "device_ms_by_kernel": by, "device_launches_by_kernel": launches}
+            "device_ms_by_kernel": by, "device_launches_by_kernel": launches,
+            "top_kernels": [{"name": k, "ms": v[0], "launches": v[1]}
+                            for k, v in sorted(names.items(),
+                                               key=lambda kv: -kv[1][0])[:15]]}
 
 
 def _logit_errs(logits_of, shape):
@@ -1287,7 +1317,11 @@ def run_ssm_f32(cfg, tokens, prompts):
                 torch.no_grad():
             return model32.forward(params32, toks)[0][:, -1].float()
 
+    zero_routes()
     fwd = _logit_errs(last_logits, (1, cfg.vocab_size))
+    ssd_routes = read_routes()["ssd_chunk_diag"]
+    if ssd_routes != {"simt": 0, "mma": cfg.num_layers}:
+        fail(f"ssm f32 forward SSD off the mma route: {ssd_routes}")
     if not fwd["err"] <= F32_LOGIT_TOL:
         fail(f"ssm f32 forward logits differ: {fwd} > {F32_LOGIT_TOL}")
 
@@ -1307,6 +1341,7 @@ def run_ssm_f32(cfg, tokens, prompts):
              f"{DECODE_VS_FORWARD_TOL}")
     emit({"phase": "ssm-float32", "forward_last_position": fwd,
           "bar": F32_LOGIT_TOL, "forward_batch": 1,
+          "ssd_routes": ssd_routes,
           "forward_seq": SSM_F32_FWD_SEQ,
           "decode_vs_forward": {
               "err": dvf, "bar": DECODE_VS_FORWARD_TOL,
@@ -1326,7 +1361,7 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.gemm import gemm, gemm_batched, gemm_route
     from repro_torch.kernels.ref import (attention_ref, gemm_batched_ref,
-                                         gemm_ref, ssd_chunk_diag_ref)
+                                         gemm_ref)
     from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
     dev = torch.device("cuda")
@@ -1515,48 +1550,14 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
         "TFLOPs": b_flops / t_bk / 1e9}})
     del ws
 
-    # SSD chunk kernel at the 4 x 1024 forward's shape (fp32 operands, the
-    # model's decay): one launch per layer.  Work counted per live pair
-    # (j <= i): 2N FLOPs of scores, 1 of decay, 2P of the product with X.
+    # SSD chunk kernel at the 4 x 1024 forward's shape: one launch per
+    # layer.
     Ls = ssm_cfg.num_layers
-    ps, ns = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state_dim
-    qs = min(ssm_cfg.ssm_chunk, SSM_FWD_SEQ)
-    ncs, bhs = SSM_FWD_SEQ // qs, SSM_FWD_BATCH * ssm_cfg.ssm_num_heads
-    ssd_bytes = 4.0 * bhs * ncs * qs * (2 * ps + 2 * ns + 1)
-    ssd_flops = (bhs * ncs * qs * (qs + 1) // 2) * (2.0 * ns + 2.0 * ps + 1)
-    ins = _rotation(lambda: (
-        randn(bhs, ncs, qs, ps),
-        torch.cumsum(-randn(bhs, ncs, qs).abs() * 0.7, dim=-1),
-        randn(bhs, ncs, qs, ns), randn(bhs, ncs, qs, ns)), ssd_bytes)
-    causal_q = (torch.arange(qs, device=dev)[None, :]
-                <= torch.arange(qs, device=dev)[:, None])
-    zero = torch.zeros((), device=dev)
-
-    def two_bmm(t):
-        """The library yardstick: two fp32 cuBLAS bmm (TF32 off) around a
-        masked exp."""
-        x, dta, b, c = t
-        sc = torch.bmm(c.view(-1, qs, ns), b.view(-1, qs, ns).transpose(1, 2))
-        dd = dta.view(-1, qs)
-        dec = torch.where(causal_q, torch.exp(dd[:, :, None] - dd[:, None, :]),
-                          zero)
-        return torch.bmm(sc * dec, x.view(-1, qs, ps))
-
-    t_sk = _time(lambda t: ssd_chunk_diag(*t), ins, iters=20)
-    t_sp = _time(lambda t: ssd_chunk_diag_ref(*t), ins, iters=10)
-    t_sl = _time(two_bmm, ins, iters=10)
-    emit({"ssd_chunk_diag_shape": {
-        "BH": bhs, "C": ncs, "Q": qs, "P": ps, "N": ns, "dtype": "float32",
-        "launches_per_forward": Ls, "ms": t_sk, "plain_ms": t_sp,
-        "library_ms": t_sl, "library": "2 x torch.bmm fp32 + masked exp",
-        "bound_ms": _bound_ms(ssd_bytes, ssd_flops, "float32"),
-        "bytes_bound_ms": 1e3 * ssd_bytes / HBM_BYTES_PER_S,
-        "flop_bound_ms": 1e3 * ssd_flops / PEAK_FLOPS["float32"],
-        "TFLOPs": ssd_flops / t_sk / 1e9}})
-    del ins
+    ssd = time_ssd(ssd_chunk_diag, ssm_cfg, randn)
+    emit({"ssd_chunk_diag_shape": ssd})
 
     emit({"ssm_forward_gemm_shapes": fwd_shapes["mamba"],
-          "per_forward": {**per_forward["mamba"], "ssd_ms": Ls * t_sk}})
+          "per_forward": {**per_forward["mamba"], "ssd_ms": Ls * ssd["ms"]}})
 
     # The batched GEMM in mamba2-370m's graph-mode forward: z/x and B/C
     # stacked, one launch each per layer.
@@ -1666,14 +1667,18 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
                             if any(r["flash_attention"].values())}},
         {"name": "ssd_chunk_diag", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/ssd_mma.cuh",
          "replaces": "src/repro/kernels/ssd_scan.py:37",
          "launches": launches["ssm-forward"]["ssd_chunk_diag"],
          "path": "ssm-forward", "max_abs_err": max_abs["ssd_chunk_diag"],
-         "ms": Ls * t_sk, "plain_ms": Ls * t_sp,
-         "bound_ms": _bound_ms(Ls * ssd_bytes, Ls * ssd_flops, "float32"),
-         "bound_by": _bound_by(ssd_bytes, ssd_flops, "float32"),
-         "library_ms": Ls * t_sl, "per": "forward",
-         "ms_per_launch": t_sk},
+         "ms": Ls * ssd["ms"], "plain_ms": Ls * ssd["plain_ms"],
+         "bound_ms": Ls * ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "fp32_fma_bound_ms": Ls * ssd["fp32_fma_bound_ms"],
+         "library_ms": Ls * ssd["library_ms"], "per": "forward",
+         "ms_per_launch": ssd["ms"],
+         "route_launches": {path: r["ssd_chunk_diag"]
+                            for path, r in routes.items()
+                            if any(r["ssd_chunk_diag"].values())}},
     ]
 
 
@@ -1717,6 +1722,81 @@ def time_flash_decode(flash_decode, hq, hkv, d, randn):
                     "vs_library": t_k / t_l}
         del kvs
     return out
+
+
+def ssd_work(bh, nc, q, p, n, itemsize=4):
+    """(bytes, tensor FLOPs, CUDA-core ops) of one SSD chunk launch: x,
+    dta, b, c read once and y written once; per live pair (j <= i) 2N
+    FLOPs of scores and 2P of the product with X, on the tensor cores,
+    plus 1 of decay on the CUDA cores."""
+    live = bh * nc * q * (q + 1) // 2
+    nbytes = float(itemsize * bh * nc * q * (2 * p + 2 * n + 1))
+    tensor = live * (2.0 * n + 2.0 * p)
+    return nbytes, tensor, tensor + live
+
+
+def ssd_bounds(nbytes, tensor_flops, ops):
+    """The SSD's bound in ms: the larger of its bytes over the memory rate
+    and its 3xTF32 tensor work (three products a product) over the TF32
+    peak — the least time fp32-accurate work can take on this card — and,
+    beside it, the same work as fp32 FMAs on the CUDA cores."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_tensor = 1e3 * 3 * tensor_flops / PEAK_FLOPS["tf32"]
+    return {"bound_ms": max(t_bytes, t_tensor),
+            "bound_by": "bytes" if t_bytes >= t_tensor else "operations",
+            "bytes_bound_ms": t_bytes, "tensor_3xtf32_bound_ms": t_tensor,
+            "fp32_fma_bound_ms": max(t_bytes,
+                                     1e3 * ops / PEAK_FLOPS["float32"])}
+
+
+def time_ssd(ssd_chunk_diag, ssm_cfg, randn):
+    """``ssd_chunk_diag`` (any tree's wrapper) at mamba2-370m's 4 x 1024
+    forward shape, fp32 operands with the model's decay (log-decays from
+    dt ≈ 0.7), over inputs rotated past L2: kernel, plain version and the
+    library yardstick (two fp32 cuBLAS bmm around a masked exp) in ms per
+    launch, beside the bounds (``ssd_bounds``), with the routes the timed
+    launches took where the tree counts them."""
+    import torch
+
+    from repro_torch.kernels.ref import ssd_chunk_diag_ref
+
+    dev = torch.device("cuda")
+    ps, ns = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state_dim
+    qs = min(ssm_cfg.ssm_chunk, SSM_FWD_SEQ)
+    ncs, bhs = SSM_FWD_SEQ // qs, SSM_FWD_BATCH * ssm_cfg.ssm_num_heads
+    nbytes, tensor, ops = ssd_work(bhs, ncs, qs, ps, ns)
+    ins = _rotation(lambda: (
+        randn(bhs, ncs, qs, ps),
+        torch.cumsum(-randn(bhs, ncs, qs).abs() * 0.7, dim=-1),
+        randn(bhs, ncs, qs, ns), randn(bhs, ncs, qs, ns)), nbytes)
+    causal_q = (torch.arange(qs, device=dev)[None, :]
+                <= torch.arange(qs, device=dev)[:, None])
+    zero = torch.zeros((), device=dev)
+
+    def two_bmm(t):
+        """The library yardstick: two fp32 cuBLAS bmm (TF32 off) around a
+        masked exp."""
+        x, dta, b, c = t
+        sc = torch.bmm(c.view(-1, qs, ns), b.view(-1, qs, ns).transpose(1, 2))
+        dd = dta.view(-1, qs)
+        dec = torch.where(causal_q, torch.exp(dd[:, :, None] - dd[:, None, :]),
+                          zero)
+        return torch.bmm(sc * dec, x.view(-1, qs, ps))
+
+    counts = getattr(ssd_chunk_diag, "route_launches", None)
+    before = dict(counts) if counts is not None else None
+    t_k = _time(lambda t: ssd_chunk_diag(*t), ins, iters=20)
+    routes = ({r: n - before[r] for r, n in counts.items()}
+              if counts is not None else "not counted")
+    t_p = _time(lambda t: ssd_chunk_diag_ref(*t), ins, iters=10)
+    t_l = _time(two_bmm, ins, iters=10)
+    return {"BH": bhs, "C": ncs, "Q": qs, "P": ps, "N": ns,
+            "dtype": "float32", "launches_per_forward": ssm_cfg.num_layers,
+            "routes": routes, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "library": "2 x torch.bmm fp32 + masked exp",
+            **ssd_bounds(nbytes, tensor, ops), "bytes": nbytes,
+            "tensor_GFLOP": tensor / 1e9,
+            "TFLOPs": tensor / t_k / 1e9, "GBps": nbytes / t_k / 1e6}
 
 
 def _card_name_and_power_limit() -> str:

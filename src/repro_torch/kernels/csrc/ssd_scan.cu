@@ -6,53 +6,45 @@
 // (BH, C, Q, N) and the output (BH, C, Q, P), all contiguous.
 //
 // Replaces the reference's Pallas TPU kernel `_ssd_chunk_kernel` via
-// `ssd_chunk_diag` (src/repro/kernels/ssd_scan.py).  There one grid cell
+// `ssd_chunk_diag` (src/repro/kernels/ssd_scan.py:37).  There one grid cell
 // held a whole (bh, chunk) cell in VMEM: C and B (Q x N each), the Q x Q
 // scores, the mask and X.  At mamba2-370m's widths (Q 256, N 128, P 64)
 // C and B alone take 128 KB each in fp32, more than a block's 227 KB of
-// shared memory.  Here:
+// shared memory.
 //
-//  * one block serves one (cell, tile of BQ query rows); a loop inside the
-//    block walks the key tiles j <= the query tile, so key tiles above the
-//    diagonal are never loaded, and nothing carries between blocks;
-//  * for each key tile the scores S = C_tile · B_tileᵀ are summed over the
-//    state dimension in chunks of NC columns staged through shared memory,
-//    kept in registers, decayed, then S · X_tile is accumulated into a
-//    BQ x P fp32 accumulator in registers;
-//  * the decay is exp(dta_i − dta_j) for each pair, never factored as
-//    exp(dta_i) · exp(−dta_j): the cumulative log-decay of a 256-token
-//    chunk reaches about −180 with random weights, and exp(180) overflows
-//    fp32.  Masked pairs (j > i) are selected to 0, not multiplied by a
-//    0/1 mask: their exponent is positive and may be inf, and inf · 0 is
-//    NaN;
-//  * Q need not be a multiple of the tile (a 16-token forward has one
-//    16-row chunk): rows past Q read as 0 in the loads and are never
-//    stored; nothing is padded by copies.
+// Two routes, picked by kernels/ssd_scan.py::ssd_route before the launch:
 //
-// Arithmetic: operands widen to fp32 in shared memory and every product is a
-// true fp32 FMA on the CUDA cores (no TF32, no tensor cores): the
-// reference's bar for this kernel is 1e-4, which TF32 misses.
+//  * "mma" (ssd_mma.cuh): 3xTF32 mma.sync tiles on the tensor cores, the
+//    causal triangle balanced across blocks.  f32 and bf16 whose rows are
+//    whole 16-byte chunks, P <= 128, shared memory within a block's.  Its
+//    note gives the design, the bound and the precision argument.  Every
+//    SSD launch of the models' forwards takes it.
+//  * "simt" (below): the rest (P up to 256, rows not whole 16-byte
+//    chunks).  One block serves one (cell, tile of BQ query rows); a loop
+//    inside the block walks the key tiles j <= the query tile, so key
+//    tiles above the diagonal are never loaded; for each key tile the
+//    scores S = C_tile · B_tileᵀ are summed over the state dimension in
+//    chunks of NC columns staged through shared memory, kept in registers,
+//    decayed, then S · X_tile is accumulated into a BQ x P fp32
+//    accumulator in registers.  Every product is a true fp32 FMA on the
+//    CUDA cores (no TF32).  The decay is exp(dta_i − dta_j) for each pair,
+//    never factored (exp(180) overflows fp32), and masked pairs are
+//    selected to 0, not multiplied by a 0/1 mask (inf · 0 is NaN).  Rows
+//    past Q read as 0 and are never stored.
 //
-// What bounds it on an H100: per live (i, j) pair the work is 2·N FLOPs of
-// scores and 2·P of the product with X, against a cell's Q·(2N + P + 1)
-// inputs read once; at mamba2-370m's widths (Q 256, N 128, P 64) that is
-// about 12.6 MFLOP against 394 KB per cell, so the kernel is
-// operations-bound at the CUDA cores' fp32 rate (67 TFLOP/s on the data
-// sheet).  This first kernel reads about two shared-memory words per FMA
-// and sits well below that; `mma.sync` / `wgmma` tiles with 3xTF32 error
-// compensation are the later step.
-//
-// Thread layout: 256 threads as a 16 x 16 grid (ty, tx).  Thread (ty, tx)
-// owns query rows ty + 16 i (i < 4) of the 64-row tile; for the scores it
-// owns key columns tx + 16 j (j < 4), for the output head-dim columns
-// tx + 16 j (j < NJ).  Shared rows are padded by one float so column walks
-// are free of bank conflicts.
+// simt thread layout: 256 threads as a 16 x 16 grid (ty, tx).  Thread
+// (ty, tx) owns query rows ty + 16 i (i < 4) of the 64-row tile; for the
+// scores it owns key columns tx + 16 j (j < 4), for the output head-dim
+// columns tx + 16 j (j < NJ).  Shared rows are padded by one float so
+// column walks are free of bank conflicts.
 //
 // Plain C interface for ctypes (see ../_build.py); returns cudaGetLastError().
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "ssd_mma.cuh"
 
 namespace {
 
@@ -226,17 +218,27 @@ int dispatch_p(const void* x, const void* dta, const void* b, const void* c,
 
 // x: (cells, Q, P), dta: (cells, Q), b / c: (cells, Q, N), out: (cells, Q, P),
 // all contiguous and of one dtype (0 = float32, 1 = bfloat16); cells = BH·C.
-// 1 <= P <= 256, N >= 1 and cells < 2^31 are checked here and by the caller.
+// route 0 = simt, 1 = mma; tiles and pairs are the mma route's plan
+// (kernels/ssd_scan.py::ssd_plan: ceil(Q / 64) query tiles, paired t with
+// tiles − 1 − t into ceil(tiles / 2) blocks a cell).  1 <= P <= 256,
+// N >= 1 and cells < 2^31 are checked here and by the caller; the mma
+// route checks its own limits.
 extern "C" int repro_ssd_chunk_diag(const void* x, const void* dta,
                                     const void* b, const void* c, void* out,
                                     long long cells, int Q, int P, int N,
-                                    int dtype, void* stream) {
+                                    int dtype, int route, int tiles, int pairs,
+                                    void* stream) {
   if (cells <= 0 || Q <= 0) return 0;
-  if (cells > INT_MAX || P <= 0 || P > 256 || N <= 0)
+  if (cells > INT_MAX || P <= 0 || P > 256 || N <= 0 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype == 0)
+      return ssd_mma::dispatch<float>(x, dta, b, c, out, cells, Q, P, N, tiles, pairs, s);
+    return ssd_mma::dispatch<__nv_bfloat16>(x, dta, b, c, out, cells, Q, P, N, tiles,
+                                            pairs, s);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return dispatch_p<float>(x, dta, b, c, out, cells, Q, P, N, s);
-  if (dtype == 1)
-    return dispatch_p<__nv_bfloat16>(x, dta, b, c, out, cells, Q, P, N, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_p<__nv_bfloat16>(x, dta, b, c, out, cells, Q, P, N, s);
 }

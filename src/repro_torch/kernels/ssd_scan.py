@@ -4,30 +4,123 @@ Replaces the reference's Pallas TPU kernel ``_ssd_chunk_kernel`` via
 ``ssd_chunk_diag`` (``src/repro/kernels/ssd_scan.py``): the Mamba-2
 within-chunk (diagonal-block) term ``Y = (L ∘ C Bᵀ) X`` for every
 (batch·head, chunk) cell, ``L[i, j] = exp(dta_i − dta_j)·[j ≤ i]``.  The
-kernel's design and its bound are described in the CUDA source.
+kernels' designs and their bound are described in the CUDA sources.
+
+The source holds two kernels, and :func:`ssd_route` names the one a call
+runs, from dtype, widths and alignment, before the launch:
+
+* ``"mma"`` (``csrc/ssd_mma.cuh``) — f32 or bf16 whose rows are whole
+  16-byte chunks (P and N multiples of 4 in f32, of 8 in bf16), P ≤ 128,
+  16-byte-aligned operands and a block's shared memory within the card's:
+  3xTF32 ``mma.sync`` tiles on the tensor cores, fp32 accumulation, the
+  causal triangle balanced across blocks by :func:`ssd_plan`.  Every SSD
+  launch of the models' forwards takes it;
+* ``"simt"`` — the rest (P up to 256, other row widths): fp32 FMAs on the
+  CUDA cores.
+
+The route is not a fallback: a launch that fails raises, and is never
+retried on the other kernel.
 
 :func:`ssd_chunk_diag` launches the kernel for CUDA tensors and takes the
 plain version, :func:`repro_torch.kernels.ref.ssd_chunk_diag_ref`, only for
-CPU tensors.  There is no fallback: a CUDA tensor the kernel does not take
-raises.  ``ssd_chunk_diag.launches`` counts kernel launches.
+CPU tensors.  ``ssd_chunk_diag.launches`` counts kernel launches and
+``ssd_chunk_diag.route_launches[route]`` the launches of each route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_chunk_diag_ref
 
-__all__ = ["ssd_chunk_diag", "ssd_chunk_diag_ref"]
+__all__ = ["ROUTES", "SsdPlan", "mma_smem_bytes", "ssd_chunk_diag",
+           "ssd_chunk_diag_ref", "ssd_plan", "ssd_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's widest head dim P (16 accumulator columns per thread).
+ROUTES = ("simt", "mma")         # index = the C side's route code
+# The CUDA-core kernel's widest head dim P (16 accumulator columns a thread).
 _MAX_P = 256
 _MAX_CELLS = 2 ** 31 - 1
+_MAX_SMEM = 232_448              # what one block may use on an H100
+# csrc/ssd_mma.cuh's geometry: query tiles of 64 rows, key steps of 32,
+# two query tiles' C resident, a two-stage ring of B / X tiles, every tile
+# stored as TMA boxes of 128-byte rows; head dims up to 128 (16 n-tiles of
+# 8); three 8-byte mbarriers.
+_BQ, _BK, _STAGES, _MMA_MAX_P, _GROUP = 64, 32, 2, 128, 128
+
+
+def _groups(cols: int, itemsize: int) -> int:
+    """Mirrors ``ssd_mma::groups``: 128-byte column groups of a row."""
+    return -(-cols * itemsize // _GROUP)
+
+
+def _np_of(p: int) -> int:
+    """Mirrors ``ssd_mma::np_of``: head-dim n-tiles of 8 a warp holds."""
+    return 2 if p <= 16 else 4 if p <= 32 else 8 if p <= 64 else 16
+
+
+def mma_smem_bytes(n: int, p: int, itemsize: int) -> int:
+    """Dynamic shared memory of one ``mma`` block: C of two query tiles,
+    two ring stages of a key step's B and X, and the mbarriers
+    (``ssd_mma::smem_bytes``)."""
+    gn, gp = _groups(n, itemsize), _groups(8 * _np_of(p), itemsize)
+    return (2 * _BQ * gn + _STAGES * _BK * (gn + gp)) * _GROUP + 64
+
+
+def ssd_route(dtype: torch.dtype, p: int, n: int, ptrs) -> str:
+    """The kernel that runs the SSD chunk term on these operands:
+    ``"mma"`` for f32 / bf16 with P ≤ 128, P and N rows of whole 16-byte
+    chunks, every address in ``ptrs`` (x, dt_a, b, c, out) a multiple of
+    16 bytes except dt_a's, which is read by element, and the block's
+    shared memory within the card's; else ``"simt"``."""
+    if dtype not in _DTYPE_CODE:
+        return "simt"
+    e = dtype.itemsize
+    x, _, b, c, out = ptrs
+    if p <= _MMA_MAX_P and (p * e) % 16 == 0 and (n * e) % 16 == 0 \
+            and all(a % 16 == 0 for a in (x, b, c, out)) \
+            and mma_smem_bytes(n, p, e) <= _MAX_SMEM:
+        return "mma"
+    return "simt"
+
+
+class SsdPlan(NamedTuple):
+    """Launch plan of the ``mma`` route for chunks of ``q`` rows (see
+    :func:`ssd_plan`)."""
+
+    tiles: int                          # query tiles of 64 rows
+    blocks: Tuple[Tuple[int, ...], ...]  # query tiles of each block a cell
+
+    def key_steps(self, tile: int, q: int) -> int:
+        """Key steps of 32 keys query tile ``tile`` walks: those up to its
+        last row (nothing above the diagonal)."""
+        return (min(tile * _BQ + _BQ - 1, q - 1)) // _BK + 1
+
+    def work(self, q: int) -> Tuple[int, ...]:
+        """(query tile, key step) pairs each block computes."""
+        return tuple(sum(self.key_steps(t, q) for t in blk)
+                     for blk in self.blocks)
+
+
+def ssd_plan(q: int) -> SsdPlan:
+    """How the ``mma`` route splits one cell's causal triangle into
+    blocks: ``ceil(q / 64)`` query tiles, tile t paired with tile
+    ``tiles − 1 − t`` in one block, so every block walks ``tiles + 1``
+    tiles' worth of keys (with an odd count, the middle tile has a block
+    of its own, with half of that).  The kernel maps block ``p`` of a cell
+    to tiles ``(p, tiles − 1 − p)``; the wrapper passes ``tiles`` and the
+    number of blocks, and the kernel refuses any other split."""
+    if q < 1:
+        raise ValueError(f"ssd_plan: chunk length {q} < 1")
+    tiles = -(-q // _BQ)
+    blocks = tuple(tuple(sorted({t, tiles - 1 - t}))
+                   for t in range(-(-tiles // 2)))
+    return SsdPlan(tiles, blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,7 +130,7 @@ def _fn():
     fn.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_longlong]
-        + [ctypes.c_int] * 4
+        + [ctypes.c_int] * 7
         + [ctypes.c_void_p]
     )
     return fn
@@ -81,17 +174,22 @@ def ssd_chunk_diag(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    route = ssd_route(x.dtype, p, n, [t.data_ptr() for t in (*ops, out)])
+    plan = ssd_plan(q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(
             x.data_ptr(), dt_a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            out.data_ptr(), bh * nc, q, p, n, _DTYPE_CODE[x.dtype], stream,
+            out.data_ptr(), bh * nc, q, p, n, _DTYPE_CODE[x.dtype],
+            ROUTES.index(route), plan.tiles, len(plan.blocks), stream,
         )
     if err:
-        raise RuntimeError(f"ssd_chunk_diag kernel launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"ssd_chunk_diag kernel ({route}) launch failed: "
+                           f"cudaError {err}")
     ssd_chunk_diag.launches += 1
+    ssd_chunk_diag.route_launches[route] += 1
     return out
 
 
 ssd_chunk_diag.launches = 0
+ssd_chunk_diag.route_launches = dict.fromkeys(ROUTES, 0)

@@ -24,10 +24,11 @@ from repro_torch.kernels.gemm import gemm, gemm_batched
 from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                      gemm_batched_ref, gemm_ref,
                                      ssd_chunk_diag_ref)
-from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_route
 
 import flash_decode_pallas_ref
 import gemm_pallas_ref
+import ssd_pallas_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -789,10 +790,13 @@ def test_hnp_batches_same_shape_gemms_on_the_card(card):
 
 # tests/test_kernels.py::test_ssd_chunk_diag's shapes (BH, C, Q, P, N), then
 # mamba2-370m's at 4 x 1024 tokens (BH 128, 4 chunks of 256, P 64, N 128),
-# a 16-token forward (one 16-row chunk) and a ragged shape.
+# a 16-token forward (one 16-row chunk) and a ragged shape: all on the
+# tensor-core route (``mma``).  SSD_SIMT_SHAPES: widths that route does not
+# take (P > 128, rows not whole 16-byte chunks), on the CUDA cores.
 SSD_SHAPES = [(4, 2, 32, 16, 8), (2, 8, 64, 32, 16), (1, 1, 8, 8, 8),
               (128, 4, 256, 64, 128), (32, 1, 16, 64, 128),
               (3, 2, 100, 80, 40)]
+SSD_SIMT_SHAPES = [(2, 2, 100, 200, 16), (2, 1, 70, 64, 6), (1, 2, 33, 12, 10)]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -805,16 +809,62 @@ def _ssd_inputs(gen, bh, nc, q, p, n, decay=0.1, dtype=torch.float32):
             torch.randn(bh, nc, q, n, generator=gen, device="cuda").to(dtype)]
 
 
+def _ssd_on_route(ins, route):
+    """One launch, checked to have taken ``route`` (the wrapper's pick)."""
+    before = dict(ssd_chunk_diag.route_launches)
+    got = ssd_chunk_diag(*ins)
+    torch.cuda.synchronize()
+    assert ssd_route(ins[0].dtype, ins[0].shape[3], ins[2].shape[3],
+                     [t.data_ptr() for t in (*ins, got)]) == route
+    moved = {r: n - before[r] for r, n in ssd_chunk_diag.route_launches.items()}
+    assert moved == {r: int(r == route) for r in moved}
+    return got
+
+
 @pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_chunk_diag_kernel(card, shape, dtype):
     ins = _ssd_inputs(card, *shape, dtype=getattr(torch, dtype))
     before = ssd_chunk_diag.launches
-    got = ssd_chunk_diag(*ins)
-    torch.cuda.synchronize()
+    got = _ssd_on_route(ins, "mma")
     assert ssd_chunk_diag.launches == before + 1
     assert got.dtype == ins[0].dtype and got.shape == ins[0].shape
     assert _row_err(got, ssd_chunk_diag_ref(*ins)) <= SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", SSD_SIMT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_diag_kernel_simt_route(card, shape, dtype):
+    ins = _ssd_inputs(card, *shape, dtype=getattr(torch, dtype))
+    got = _ssd_on_route(ins, "simt")
+    assert _row_err(got, ssd_chunk_diag_ref(*ins)) <= SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_diag_kernel_forward_shape_repeats_bit_for_bit(card, dtype):
+    """mamba2-370m's forward shape with the model's decay, on the mma
+    route: within the bar, finite, and a second launch gives the same
+    bits (no atomics, no workspace)."""
+    ins = _ssd_inputs(card, 128, 4, 256, 64, 128, decay=0.7,
+                      dtype=getattr(torch, dtype))
+    got = _ssd_on_route(ins, "mma")
+    assert torch.isfinite(got).all()
+    assert _row_err(got, ssd_chunk_diag_ref(*ins)) <= SSD_TOL[dtype]
+    assert torch.equal(got, _ssd_on_route(ins, "mma"))
+
+
+@pytest.mark.parametrize("dtype", ssd_pallas_ref.DTYPES)
+def test_ssd_chunk_diag_matches_pallas_reference(card, dtype):
+    """The deep-decay ragged case (Q 200, P 64, N 128, two chunks) against
+    the reference Pallas kernel's outputs kept in
+    ``tests/data/ssd_pallas.npz`` (this machine has no JAX; see
+    ``tests/ssd_pallas_ref.py``), per output row."""
+    dt = getattr(torch, dtype)
+    ins = [torch.from_numpy(a).to("cuda", dt) for a in ssd_pallas_ref.inputs()]
+    want = torch.from_numpy(ssd_pallas_ref.load()[dtype]).cuda()
+    got = _ssd_on_route(ins, "mma")
+    assert _row_err(got, want) <= SSD_TOL[dtype]
 
 
 def test_ssd_chunk_diag_kernel_deep_decay_and_causality(card):
@@ -823,8 +873,7 @@ def test_ssd_chunk_diag_kernel_deep_decay_and_causality(card):
     tests/test_kernels.py's causality case holds on the kernel."""
     ins = _ssd_inputs(card, 16, 2, 256, 64, 128, decay=0.7)
     assert ins[1][..., -1].max().item() < -100
-    got = ssd_chunk_diag(*ins)
-    torch.cuda.synchronize()
+    got = _ssd_on_route(ins, "mma")
     assert torch.isfinite(got).all()
     assert _row_err(got, ssd_chunk_diag_ref(*ins)) <= SSD_TOL["float32"]
     x, dta, b, c = _ssd_inputs(card, 1, 1, 16, 8, 4)
@@ -864,6 +913,7 @@ def test_mamba_forward_reduced_on_kernels(card, mode):
     tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=card,
                            device="cuda")
     gemm.launches = gemm_batched.launches = ssd_chunk_diag.launches = 0
+    ssd_routes = dict(ssd_chunk_diag.route_launches)
     with offload_policy(mode="device", use_kernels=True), torch.no_grad():
         got, _ = model.forward(params, tokens)
     torch.cuda.synchronize()
@@ -871,6 +921,7 @@ def test_mamba_forward_reduced_on_kernels(card, mode):
     want_counts = ((6 * L + 1, 0) if mode == "eager" else (2 * L + 1, 2 * L))
     assert (gemm.launches, gemm_batched.launches) == want_counts
     assert ssd_chunk_diag.launches == L
+    assert ssd_chunk_diag.route_launches["mma"] - ssd_routes["mma"] == L
     with offload_policy(mode="device", use_kernels=False), torch.no_grad():
         want, _ = model.forward(params, tokens)
     assert _err(got, want) <= 1e-4
