@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out-dir DIR]
+
+Files too long for standard output (the cluster run's Chrome trace, the
+Fig. 3 rows) go to ``DIR`` (default ``artifacts/``, git-ignored).
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -45,12 +48,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               from the seeded generator (yi-6b's published context), so
               flash decode runs split across clusters, kernels against
               the plain path;
+5a. serve-cluster — ``serve_cluster`` on the same yi-6b weights: 4 request
+              batches of the phase-3 shape over 4 modeled devices, (a)
+              cost-aware with pinned KV caches, (b) round-robin with caches
+              drained to host; every batch's greedy tokens must equal
+              ``serve_batch``'s, (a) must decode where its caches live (no
+              d2d, no re-stage), (b) must re-stage, every launch of (a) on
+              ``skinny`` / ``mma`` (161 and 32 a step), every record on its
+              batch's lane; wall seconds, the card's busy time (profiled run
+              (b)) and the modeled makespan;
+5b. trace-export — run (a) again under a ``SpanTracer``: its Chrome trace
+              must validate, every ticket of the run (kept by the flight
+              recorder) must have its span; written gzipped to
+              ``DIR/serve_cluster_trace.json.gz``;
 6. float32  — first-step decode logits and last-position forward logits of
               the same model with f32 weights, kernels against plain, and
               the long-cache decode step of phase 5 with these weights;
 7. hnp      — the paper's path: the reference quickstart's graph, then one
               wave of two same-shape GEMMs at yi-6b width stacked into one
               batched-GEMM launch;
+7a. paper-fig3 — the paper's Fig. 3 on the card
+              (``tools/paper_fig3_h100.py``): host numpy against
+              ``blas.gemm`` offloaded, n 16 to 128, f64 / f32 / bf16, copy /
+              launch / compute split, each result within its bar of numpy's
+              f64 product and on its backend and route (f64 the plain
+              ``device`` path, f32 ``skinny`` / ``tiled``, bf16 ``skinny`` /
+              ``wgmma``), and the crossover n; written to
+              ``DIR/paper_fig3.json``;
 8. ssm-forward — the SSM path: ``Model.forward`` of mamba2-370m at full
               width (bf16, random weights) on 4 x 1024 tokens, eager and
               graph mode, on the kernels (48 SSD launches per forward) and
@@ -90,7 +114,10 @@ reference package.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gzip
+import importlib.util
 import json
 import math
 import pathlib
@@ -100,6 +127,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
+OUT_DIR = ROOT / "artifacts"
 
 # yi-6b serve cell (configs/yi_6b.py at full width).
 ARCH = "yi-6b"
@@ -111,6 +139,9 @@ SEED = 0
 # Long-cache decode (phases 5 and 6): yi-6b's published 4096-token
 # context, one step at cache index 4000 (slots [0, 4001) valid).
 LONG_CACHE, LONG_INDEX = 4096, 4000
+# Cluster serving (phase 5a): CLUSTER_BATCHES request batches of the serve
+# cell's shape over CLUSTER_DEVICES modeled devices.
+CLUSTER_DEVICES, CLUSTER_BATCHES = 4, 4
 # yi-6b forward (prefill) cell: 2 sequences of 512 tokens; the f32 check
 # runs 1 sequence of 128 tokens.
 FWD_BATCH, FWD_SEQ = 2, 512
@@ -367,6 +398,12 @@ def attn_work(b, hq, hkv, sq, skv, d, causal, window, itemsize):
 
 
 def main() -> None:
+    global OUT_DIR
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one H100.")
+    ap.add_argument("--out-dir", type=pathlib.Path, default=OUT_DIR,
+                    help="where the long outputs go (default: artifacts/)")
+    OUT_DIR = ap.parse_args().out_dir.resolve()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     import numpy as np
@@ -464,6 +501,10 @@ def main() -> None:
                                   read_counts)
     launches["long-decode"] = long_decode["launches"]
     routes["long-decode"] = long_decode["routes"]
+    cluster = run_serve_cluster(cfg, params, prompts, serve["tokens"],
+                                zero_counts, read_counts)
+    launches["serve-cluster"] = cluster["launches"]
+    routes["serve-cluster"] = cluster["routes"]
     del params
     torch.cuda.empty_cache()
 
@@ -478,6 +519,9 @@ def main() -> None:
     max_abs["gemm_batched"] = max(max_abs["gemm_batched"],
                                   hnp_phase["wave"]["max_abs_err_vs_plain"])
     emit({"phase": "hnp", **hnp_phase})
+    fig3 = run_paper_fig3(zero_counts, read_counts)
+    launches["paper-fig3"] = fig3["launches"]
+    routes["paper-fig3"] = fig3["routes"]
 
     # ---- 8.-10. the SSM path: mamba2-370m at full width -------------------
     ssm_model = build_model(ssm_cfg)
@@ -944,9 +988,9 @@ KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
                    "ssd_chunk_diag": ("ssd_chunk_kernel", "ssd_mma_kernel")}
 
 
-def _profile(fn):
-    """Run ``fn`` once under torch.profiler (CPU and CUDA activity) after a
-    synchronize.  Returns the host-clock wall time of the profiled run,
+def _profile(fn, cuda_only=False):
+    """Run ``fn`` once under torch.profiler (CPU and CUDA activity, or the
+    card's alone for a long run) after a synchronize.  Returns the host-clock wall time of the profiled run,
     the device time of its kernels by family (the port's kernels by name,
     everything else as "other": torch's elementwise kernels, cuBLAS), and
     the device's idle share 1 - busy / wall, and the top 15 device kernels
@@ -956,8 +1000,10 @@ def _profile(fn):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1293,6 +1339,213 @@ def run_hnp(cfg, randn, zero_counts, read_counts):
         k: quick_counts[k] + wave_counts[k] for k in quick_counts}}
 
 
+def run_serve_cluster(cfg, params, prompts, tokens0, zero_counts,
+                      read_counts):
+    """Phases 5a and 5b: ``serve_cluster`` on the serve phase's weights,
+    CLUSTER_BATCHES batches (the first the serve phase's prompts) over
+    CLUSTER_DEVICES modeled devices, run (a) cost-aware with pinned caches
+    (counted) and run (b) round-robin with caches drained to host
+    (profiled); then run (a) again traced (``run_trace_export``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.accounting import offload_trace
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.launch.serve import serve_batch, serve_cluster
+
+    dev = torch.device("cuda")
+    extra = np.random.default_rng(SEED + 1)
+    batches = [prompts] + [
+        [[int(t) for t in extra.integers(1, cfg.vocab_size, size=PROMPT_LEN)]
+         for _ in range(BATCH)] for _ in range(CLUSTER_BATCHES - 1)]
+    kw = dict(smoke=False, cache_len=CACHE_LEN, max_new_tokens=MAX_NEW,
+              params=params, device=dev)
+    want = [np.asarray(tokens0)]
+    with offload_policy(**KERNEL_POLICY), torch.no_grad():
+        want += [serve_batch(cfg.name, b, **kw).tokens for b in batches[1:]]
+
+    def cluster_run(scheduler, pin, label):
+        pol = dict(KERNEL_POLICY, num_devices=CLUSTER_DEVICES,
+                   scheduler=scheduler)
+        t0 = time.perf_counter()
+        with offload_policy(**pol), offload_trace() as trace:
+            res = serve_cluster(cfg.name, batches, pin_caches=pin, **kw)
+        wall = time.perf_counter() - t0
+        for i, (r, w) in enumerate(zip(res.results, want, strict=True)):
+            if not np.array_equal(r.tokens, w):
+                fail(f"serve-cluster {label}: batch {i} greedy tokens differ "
+                     "from serve_batch's")
+        return res, wall, trace
+
+    def summary(res, wall):
+        return {"prefill_placements": res.prefill_placements,
+                "placements": res.placements,
+                "cache_devices": res.cache_devices, "wall_s": wall,
+                "tokens": res.total_tokens,
+                "decode_tokens_per_s_by_batch": [r.tokens_per_s
+                                                 for r in res.results],
+                "prefill_s_by_batch": [r.prefill_s for r in res.results],
+                "modeled": {"makespan_s": res.makespan_s,
+                            "tokens_per_s": res.tokens_per_s,
+                            "per_device_s": res.per_device_s,
+                            "d2d_s": res.d2d_s,
+                            "restage_s": res.restage_s}}
+
+    zero_counts()
+    res_a, wall_a, trace_a = cluster_run("cost-aware", True, "(a)")
+    launches, routes = read_counts(), read_routes()
+    per_step, ops = expected(cfg, "serve", "eager")
+    steps = PROMPT_LEN + MAX_NEW
+    want_launches = {k: CLUSTER_BATCHES * steps * v
+                     for k, v in per_step.items()}
+    if launches != want_launches:
+        fail(f"serve-cluster kernel launches {launches}, want "
+             f"{want_launches}")
+    require_route("serve-cluster", routes, "skinny",
+                  decode=decode_route_of(cfg.dtype))
+    backends = _backends(trace_a, ops)
+    if res_a.placements != res_a.cache_devices or res_a.d2d_s != 0.0 or \
+            res_a.restage_s != 0.0:
+        fail(f"serve-cluster (a) moved a pinned cache: {summary(res_a, 0)}")
+    # Every seam record lies on its batch's lane: prefill steps on the
+    # prefill placement, decode steps on the decode placement.
+    per_step_records = sum(1 for r in trace_a.records if r.op in ops) // (
+        CLUSTER_BATCHES * steps)
+    lanes = [r.device_id for r in trace_a.records if r.op in ops]
+    want_lanes = []
+    for i in range(CLUSTER_BATCHES):
+        want_lanes += [res_a.prefill_placements[i]] * (
+            PROMPT_LEN * per_step_records)
+    for i in range(CLUSTER_BATCHES):
+        want_lanes += [res_a.placements[i]] * (MAX_NEW * per_step_records)
+    if lanes != want_lanes:
+        fail("serve-cluster (a): seam records off their batches' lanes")
+    if len(set(res_a.placements)) != CLUSTER_DEVICES:
+        fail(f"serve-cluster (a) left a lane idle: {res_a.placements}")
+
+    out_b = {}
+
+    def run_b():
+        out_b["res"], out_b["wall"], _ = cluster_run("round-robin", False,
+                                                     "(b)")
+
+    profile_b = _profile(run_b, cuda_only=True)
+    res_b = out_b["res"]
+    if not res_b.restage_s > 0.0 or res_b.cache_devices != \
+            [-1] * CLUSTER_BATCHES:
+        fail(f"serve-cluster (b) paid no host re-stage: "
+             f"{summary(res_b, 0)}")
+    emit({"phase": "serve-cluster", "arch": cfg.name, "dtype": cfg.dtype,
+          "devices": CLUSTER_DEVICES, "batches": CLUSTER_BATCHES,
+          "batch": BATCH, "prompt_len": PROMPT_LEN, "max_new": MAX_NEW,
+          "cache_len": CACHE_LEN, "launches": launches, "routes": routes,
+          "trace_backends": backends, "greedy_tokens_equal_serve_batch": True,
+          "records_per_step": per_step_records,
+          "a_cost_aware_pinned": summary(res_a, wall_a),
+          "b_round_robin_unpinned": {**summary(res_b, out_b["wall"]),
+                                     "profiled": profile_b}})
+    run_trace_export(cfg, batches, want, kw)
+    return {"launches": launches, "routes": routes}
+
+
+def run_trace_export(cfg, batches, want, kw):
+    """Phase 5b: run (a) of ``run_serve_cluster`` under a ``SpanTracer``
+    with a flight recorder that keeps every ticket; the Chrome trace must
+    validate and every ticket must have its span (``ticket_spans`` of the
+    recorded tickets against the tracer's ticket spans)."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.launch.serve import serve_cluster
+    from repro_torch.obs import flight, metrics, spans, trace_export
+
+    def tickets_issued():
+        return sum(v for k, v in metrics.snapshot().items()
+                   if k.startswith("stream.tickets{"))
+
+    pol = dict(KERNEL_POLICY, num_devices=CLUSTER_DEVICES,
+               scheduler="cost-aware")
+    flight.configure(1 << 22)
+    issued = tickets_issued()
+    t0 = time.perf_counter()
+    with offload_policy(**pol), spans.span_trace("serve-cluster") as tr:
+        res = serve_cluster(cfg.name, batches, pin_caches=True, **kw)
+    wall = time.perf_counter() - t0
+    issued = tickets_issued() - issued
+    recorded = flight.capture()["tickets"]
+    flight.configure(flight.DEFAULT_CAPACITY)
+    for i, (r, w) in enumerate(zip(res.results, want, strict=True)):
+        if not np.array_equal(r.tokens, w):
+            fail(f"trace-export: batch {i} greedy tokens differ")
+    streams = {int(d): [types.SimpleNamespace(**t) for t in ts]
+               for d, ts in recorded.items()}
+    n_tickets = sum(len(v) for v in streams.values())
+    if n_tickets != issued:
+        fail(f"trace-export: the flight recorder kept {n_tickets} of "
+             f"{issued} tickets")
+    t_spans = trace_export.ticket_spans(streams)
+
+    def key(attrs, dev):
+        return (dev, attrs["kind"], attrs["op"], attrs["shape_key"],
+                attrs["issue_s"], attrs["complete_s"])
+
+    compute = [s for s in t_spans if s.lane.endswith("/compute")]
+    if len(compute) != n_tickets:
+        fail(f"trace-export: ticket_spans gave {len(compute)} compute "
+             f"windows for {n_tickets} tickets")
+    traced = {key(s.attrs, s.device_id) for s in tr.spans
+              if s.attrs.get("ticket")}
+    missing = {key(s.attrs, s.attrs["device_id"]) for s in compute} - traced
+    if missing:
+        fail(f"trace-export: {len(missing)} tickets have no traced span, "
+             f"e.g. {sorted(missing)[:3]}")
+    trace = trace_export.chrome_trace(tr, meta={"otherData": {
+        "arch": cfg.name, "devices": CLUSTER_DEVICES,
+        "scheduler": "cost-aware", "time": "modeled"}})
+    errors = trace_export.validate_chrome_trace(trace)
+    if errors:
+        fail(f"trace-export: invalid Chrome trace: {errors[:5]}")
+    path = OUT_DIR / "serve_cluster_trace.json.gz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        json.dump(trace, f)
+    summary = trace_export.summarize(tr.spans, top=2).splitlines()
+    emit({"phase": "trace-export", "events": len(trace["traceEvents"]),
+          "spans": len(tr.spans), "tickets": n_tickets,
+          "tickets_with_span": n_tickets, "validator_errors": 0,
+          "lanes": sorted(set(tr.lanes())), "wall_s": wall,
+          "file": str(path), "file_bytes": path.stat().st_size,
+          "modeled_self_time_top_by_lane": summary})
+
+
+def run_paper_fig3(zero_counts, read_counts):
+    """Phase 7a: the paper's Fig. 3 through ``tools/paper_fig3_h100.py``
+    (whose ``run`` raises if a row misses its bar or its backend and
+    route); its launches counted, every GEMM route reached."""
+    spec = importlib.util.spec_from_file_location(
+        "paper_fig3_h100", ROOT / "tools" / "paper_fig3_h100.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    zero_counts()
+    result = tool.run()
+    launches, routes = read_counts(), read_routes()
+    used = {k for k, v in routes["gemm"].items() if v}
+    if used != {"skinny", "tiled", "wgmma"} or launches["gemm"] == 0 or \
+            any(launches[k] for k in launches if k != "gemm"):
+        fail(f"paper-fig3 launches {launches} routes {routes}")
+    path = OUT_DIR / "paper_fig3.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(result, indent=1))
+    print(tool.table(result), flush=True)
+    emit({"phase": "paper-fig3", "rows": result["rows"],
+          "crossover": result["crossover"],
+          "host_blas": result["host_blas"], "launches": launches,
+          "routes": routes, "file": str(path)})
+    return {"launches": launches, "routes": routes}
+
+
 def run_ssm_f32(cfg, tokens, prompts):
     """Phase 10: mamba2-370m with f32 weights at full width.  Last-position
     forward logits at 1 x 512 (two chunks, so the inter-chunk recurrence
@@ -1609,6 +1862,8 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "ssm_forward_plain_ms": per_forward["mamba"]["plain_ms"],
          "ssm_forward_library_ms": per_forward["mamba"]["library_ms"],
          "ssm_forward_bound_ms": per_forward["mamba"]["bound_ms"],
+         "serve_cluster_launches": launches["serve-cluster"]["gemm"],
+         "paper_fig3_launches": launches["paper-fig3"]["gemm"],
          "ssm_serve_launches": launches["ssm-serve"]["gemm"],
          "ssm_serve_max_abs_err": max_abs["gemm:ssm-serve"],
          "ssm_serve_ms": ssm_step["ms"],
@@ -1626,6 +1881,7 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "bound_by": d_serve["bound_by"],
          "library_ms": L * d_serve["library_ms"], "per": per,
          "long_cache_launches": launches["long-decode"]["flash_decode"],
+         "serve_cluster_launches": launches["serve-cluster"]["flash_decode"],
          "long_cache_per_launch": {tag: {key: dec[tag][key] for key in (
              "B", "S", "valid", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_share")} for tag in ("long", "long-b1")},

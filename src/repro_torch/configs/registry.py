@@ -36,6 +36,6 @@ def _load_all() -> None:
     if _LOADED:
         return
     # import for side effect of register()
-    from repro_torch.configs import mamba2_370m, yi_6b  # noqa: F401
+    from repro_torch.configs import mamba2_370m, paper_gemm, yi_6b  # noqa: F401
 
     _LOADED = True

@@ -112,16 +112,19 @@ def host_k_split(parts: int):
 
 def _accum_mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     """``torch.matmul(a, b)`` ((..., k) @ (k, n), (Z, m, k) @ (Z, k, n) or
-    (m, k) @ (k,)) with fp32 accumulation and one rounding."""
+    (m, k) @ (k,)) with fp32 accumulation (f64 operands: f64, the paper's
+    dtype) and one rounding."""
+    acc_t = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                                torch.float32)
     if _HOST_K_PARTS == 1:
-        return torch.matmul(a.float(), b.float()).to(out_dtype)
+        return torch.matmul(a.to(acc_t), b.to(acc_t)).to(out_dtype)
     k_axis = b.ndim - 2 if b.ndim > 1 else 0
     k = b.shape[k_axis]
     cuts = [k * i // _HOST_K_PARTS for i in range(_HOST_K_PARTS + 1)]
     acc = None
     for lo, hi in zip(cuts[:-1], cuts[1:]):
-        part = torch.matmul(a[..., lo:hi].float(),
-                            b.narrow(k_axis, lo, hi - lo).float())
+        part = torch.matmul(a[..., lo:hi].to(acc_t),
+                            b.narrow(k_axis, lo, hi - lo).to(acc_t))
         acc = part if acc is None else acc + part
     return acc.to(out_dtype)
 

@@ -13,7 +13,7 @@ device keeps what the paper's runtime kept per PMCA:
 * **boot state** — the PMCA boot + L2 image copy happens lazily on the
   first offload routed to the device, exactly as in HeroSDK;
 * an **in-flight launch queue** — modeled outstanding work, which is what
-  the schedulers balance.
+  the schedulers balance and what fault tolerance reschedules on loss.
 
 Every offload goes through :func:`HeroCluster.launch`, which scores the
 call with the cost model, picks a device through the pluggable scheduler
@@ -78,8 +78,9 @@ class DeviceHandle:
     The handle *is* the placement contract: as long as it is valid, the
     named buffer lives in ``device_id``'s DRAM, launches keyed on it skip
     the copy region there, and the ``cost-aware`` scheduler is drawn to
-    that device.  Releasing the handle sets ``device_id`` to the host
-    sentinel.
+    that device.  Migration (:meth:`HeroCluster.migrate_handle`) moves the
+    buffer over the device-to-device link; device loss invalidates the
+    handle (``device_id`` becomes the host sentinel) until it is re-staged.
     """
 
     name: str
@@ -368,6 +369,32 @@ class VirtualDevice:
                        float(len(self.inflight)), device_id=self.device_id)
         return ticket
 
+    def requeue(self, ticket: LaunchTicket) -> LaunchTicket:
+        """Re-issue an orphaned ticket on this device (failure/resize
+        rescheduling): its staging was charged where it first ran, so only
+        the modeled completion occupies this device's compute stream."""
+        start = max(self.compute_free_s, self.dma_free_s)
+        self.compute_free_s = start + ticket.offload_s
+        moved = dataclasses.replace(
+            ticket,
+            issue_s=start,
+            copy_ready_s=start,
+            copy_done_s=start,
+            complete_s=self.compute_free_s,
+            compute_start_s=start,
+            kind="requeue",
+            device_id=self.device_id,
+        )
+        self.enqueue(moved)
+        _flight.note_ticket(moved)
+        _metrics.counter("stream.tickets", kind="requeue").inc()
+        tr = _spans.current_tracer()
+        if tr is not None:
+            _trace_ticket(tr, moved, None)
+            tr.counter(f"dev{self.device_id}/inflight", moved.issue_s,
+                       float(len(self.inflight)), device_id=self.device_id)
+        return moved
+
     def breakdown_for(
         self, cost: OpCost, policy: OffloadPolicy, shape_key: str
     ) -> RegionBreakdown:
@@ -391,6 +418,16 @@ class VirtualDevice:
         self.completed_launches += n
         self.inflight.clear()
         return n
+
+    def fail(self) -> List[LaunchTicket]:
+        """Device loss: mark dead, drop residency, surrender in-flight work."""
+        self.alive = False
+        self._booted = False
+        self._l2_image_loaded = False
+        self._resident.clear()
+        orphans = list(self.inflight)
+        self.inflight.clear()
+        return orphans
 
 
 # Cap on per-chunk child spans under one pipelined staging span: keeps the
@@ -509,9 +546,10 @@ class HeroCluster:
         self.policy = OffloadPolicy()
         self._scheduler_name = ""
         self._select: Optional[Callable] = None
+        self._pinned: Optional[VirtualDevice] = None
         self.devices: List[VirtualDevice] = []
         self._handles: Dict[str, DeviceHandle] = {}
-        self._rebuild(num_devices)
+        self.resize(num_devices)
         self.set_scheduler(scheduler)
 
     # ---- topology ---------------------------------------------------------
@@ -528,6 +566,92 @@ class HeroCluster:
             VirtualDevice(i, self.platform) for i in range(num_devices)
         ]
         self._handles.clear()       # fresh devices hold nothing yet
+
+    def resize(self, num_devices: int) -> List[Tuple[str, int]]:
+        """Elastically grow/shrink the cluster (checkpoint-boundary replan).
+
+        Grow appends cold devices; existing devices keep their queues,
+        residency and pinned handles.  Shrink drains the removed devices
+        first: their in-flight launches reschedule onto the keepers through
+        the active scheduler, and every pinned handle homed on a removed
+        device is re-staged onto a keeper (full host->device copy, recorded
+        on the new lane — the same path the
+        :class:`~repro_torch.runtime.fault_tolerance.ClusterSupervisor`
+        takes on device loss).  Returns ``[(handle name, new device), ...]``
+        for the re-staged handles (empty on grow).
+        """
+        if num_devices < 1:
+            raise ValueError(f"cluster needs >= 1 device, got {num_devices}")
+        cur = len(self.devices)
+        if num_devices == cur:
+            return []
+        if not self.devices:        # first build (from __init__)
+            self._rebuild(num_devices)
+            return []
+        if num_devices > cur:
+            self.devices = self.devices + [
+                VirtualDevice(i, self.platform)
+                for i in range(cur, num_devices)
+            ]
+            return []
+        if not any(d.alive for d in self.devices[:num_devices]):
+            raise RuntimeError(
+                "cannot shrink: no alive device among the keepers"
+            )
+        # Drain removed lanes: mark failed (evicts residency, surrenders
+        # queues), truncate, then restage handles / reschedule orphans onto
+        # the survivors via the active scheduler.
+        orphans: List[LaunchTicket] = []
+        for d in self.devices[num_devices:]:
+            orphans.extend(d.fail())
+        lost = [
+            h for h in self._handles.values() if h.device_id >= num_devices
+        ]
+        self.devices = self.devices[:num_devices]
+        moves: List[Tuple[str, int]] = []
+        for h in lost:
+            h.device_id = HOST_DEVICE_ID   # bytes live only in host DRAM now
+            self.restage_handle(h)
+            moves.append((h.name, h.device_id))
+        for t in orphans:
+            cost = OpCost(
+                op=t.op, flops=0.0, staged_bytes=0.0, touched_bytes=0.0
+            )
+            target = self._pick(cost, t.shape_key)
+            if not target.booted:
+                target.boot()
+            old_dev = t.device_id
+            target.requeue(t)
+            self._record_requeue(t, old_dev, target.device_id)
+        return moves
+
+    def _record_requeue(self, ticket: LaunchTicket, old_dev: int,
+                        new_dev: int) -> None:
+        """Account a rescheduled orphan on its surviving device.
+
+        The original launch record keeps the aborted attempt on the lost
+        lane; the re-execution charges its compute once, on the survivor —
+        with no copy/fork-join regions, matching ``VirtualDevice.requeue``
+        which occupies only the compute stream, so the busy-time rollups
+        (``OffloadTrace.summary()`` / ``device_timelines()``) keep it.
+        """
+        accounting.record(
+            accounting.OffloadRecord(
+                op=ticket.op,
+                shape_key=ticket.shape_key,
+                dtype="",
+                backend="device",
+                cost=OpCost(op=ticket.op, flops=0.0, staged_bytes=0.0,
+                            touched_bytes=0.0),
+                regions=RegionBreakdown(
+                    copy_s=0.0, fork_join_s=0.0,
+                    compute_s=ticket.offload_s, host_s=0.0,
+                ),
+                zero_copy=self.policy.zero_copy,
+                note=f"requeue {old_dev}->{new_dev}",
+                device_id=new_dev,
+            )
+        )
 
     def set_scheduler(self, name: str) -> None:
         if name not in SCHEDULERS:
@@ -640,9 +764,9 @@ class HeroCluster:
         """Drain a pinned buffer back to host DRAM, keeping the handle known.
 
         The unstaged handle stays in the ledger (``valid`` becomes False);
-        a later re-stage pays the host->device copy to bring it back.  This
-        is the "don't pin" serving baseline and the state a handle enters
-        when its device is lost.
+        a later :meth:`restage_handle` pays the host->device copy to bring
+        it back.  This is the "don't pin" serving baseline and the state a
+        handle enters when its device is lost.
         """
         if self._handles.get(handle.name) is not handle:
             raise KeyError(f"unknown handle {handle.name!r}")
@@ -674,7 +798,7 @@ class HeroCluster:
             raise KeyError(f"unknown handle {handle.name!r}")
         if not handle.valid:
             raise RuntimeError(
-                f"handle {handle.name!r} is unstaged; re-stage it first"
+                f"handle {handle.name!r} is unstaged; use restage_handle()"
             )
         if device_id == handle.device_id:
             return RegionBreakdown(0.0, 0.0, 0.0, 0.0)
@@ -712,6 +836,49 @@ class HeroCluster:
         handle.device_id = device_id
         self._note_resident_bytes(old_dev)
         self._note_resident_bytes(device_id)
+        return bd
+
+    def restage_handle(
+        self, handle: DeviceHandle, device_id: Optional[int] = None
+    ) -> RegionBreakdown:
+        """Re-stage an unstaged handle from host memory onto a device.
+
+        Used after device loss: the dead device's buffers exist only in
+        host DRAM again, so the survivor pays the full host->device copy
+        region (the d2d path needs a live source).
+        """
+        if self._handles.get(handle.name) is not handle:
+            raise KeyError(f"unknown handle {handle.name!r}")
+        cost = d2d_cost(handle.nbytes, op="restage")
+        if device_id is not None:
+            dev = self.devices[device_id]
+            if not dev.alive:
+                raise RuntimeError(
+                    f"cannot restage to failed device {device_id}"
+                )
+        else:
+            dev = self._pick(cost, handle.name)
+        bd = RegionBreakdown(
+            copy_s=self.platform.t_copy(handle.nbytes,
+                                        zero_copy=self.policy.zero_copy),
+            fork_join_s=self.platform.t_fork_join(),
+            compute_s=0.0,
+            host_s=0.0,
+        )
+        if not dev.booted:
+            dev.boot()
+        dev.mark_resident(handle.name)
+        dev.issue(cost, bd, handle.name, kind="restage")
+        accounting.record(
+            accounting.OffloadRecord(
+                op=cost.op, shape_key=handle.name, dtype="",
+                backend="device", cost=cost, regions=bd,
+                zero_copy=self.policy.zero_copy,
+                note="host re-stage after device loss",
+                device_id=dev.device_id,
+            )
+        )
+        handle.device_id = dev.device_id
         return bd
 
     def prefetch_stage(
@@ -771,12 +938,73 @@ class HeroCluster:
             for name in [n for n in self._handles if n not in before]:
                 self.release_handle(self._handles[name])
 
+    # ---- fault tolerance --------------------------------------------------
+    def fail_device(self, device_id: int) -> List[Tuple[LaunchTicket, int]]:
+        """Device loss: evict + reschedule its in-flight work.
+
+        Returns ``[(ticket, new_device_id), ...]`` — each orphaned launch
+        re-placed on a surviving device through the active scheduler (never
+        through a pin).  Handles homed on the lost device become unstaged
+        (their bytes only exist in host memory now); re-placing them is the
+        supervisor's call (:meth:`restage_handle`), since it costs a full
+        host copy.
+        """
+        survivors = [
+            d for d in self.alive_devices() if d.device_id != device_id
+        ]
+        if not survivors:
+            raise RuntimeError("all devices failed; no reschedule target")
+        orphans = self.devices[device_id].fail()
+        for h in self.handles_on(device_id):
+            h.device_id = HOST_DEVICE_ID
+        moved: List[Tuple[LaunchTicket, int]] = []
+        for t in orphans:
+            cost = OpCost(op=t.op, flops=0.0, staged_bytes=0.0, touched_bytes=0.0)
+            target = self._select(survivors, cost, self.policy, t.shape_key)
+            if not target.booted:
+                target.boot()
+            target.requeue(t)
+            self._record_requeue(t, device_id, target.device_id)
+            moved.append((t, target.device_id))
+        return moved
+
+    def restore_device(self, device_id: int) -> None:
+        """Bring a failed device back (cold: empty ledger, unbooted)."""
+        self.devices[device_id].reset()
+
     # ---- placement --------------------------------------------------------
+    @contextlib.contextmanager
+    def pin_device(self, device_id: int) -> Iterator[VirtualDevice]:
+        """Force every launch in the scope onto one device.
+
+        Batch-level consumers place a unit of work with :meth:`assign` and
+        then execute it under this pin, so the fine-grained launches the
+        work issues land on — and are traced against — its assigned lane.
+        The pin only affects *placement* of new launches; failure
+        rescheduling (:meth:`fail_device`) always goes through the real
+        scheduler over the survivors.
+        """
+        dev = self.devices[device_id]
+        if not dev.alive:
+            raise RuntimeError(f"device {device_id} is failed")
+        saved = self._pinned
+        self._pinned = dev
+        try:
+            yield dev
+        finally:
+            self._pinned = saved
+
     def _pick(
         self, cost: OpCost, shape_key: str
     ) -> VirtualDevice:
-        """Placement for one new launch: the scheduler's choice over the
-        alive devices."""
+        """Placement for one new launch: the pinned device if any, else the
+        scheduler's choice over the alive devices."""
+        if self._pinned is not None:
+            if not self._pinned.alive:
+                raise RuntimeError(
+                    f"pinned device {self._pinned.device_id} failed mid-scope"
+                )
+            return self._pinned
         alive = self.alive_devices()
         if not alive:
             raise RuntimeError("no alive devices in cluster")

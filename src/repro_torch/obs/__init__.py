@@ -1,9 +1,11 @@
 """repro_torch.obs — observability over the modeled runtime.
 
-Three pieces, all on modeled time (never wall clock):
+Four pieces, all on modeled time (never wall clock):
 
 * :mod:`repro_torch.obs.spans` — zero-cost-when-disabled span tracer
   (``span_trace()`` / ``current_tracer()`` / ``@traced``).
+* :mod:`repro_torch.obs.trace_export` — Chrome trace-event JSON export
+  (Perfetto-loadable) of spans + raw ticket streams.
 * :mod:`repro_torch.obs.metrics` — process-local counters/gauges/histograms
   with labeled flat rollups (``obs.counter("dispatch.offloaded").inc()``).
 * :mod:`repro_torch.obs.flight` — bounded last-K-per-device flight recorder.
@@ -21,16 +23,30 @@ from repro_torch.obs.spans import (
     span_trace,
     traced,
 )
+from repro_torch.obs.trace_export import (
+    chrome_trace,
+    self_time,
+    summarize,
+    ticket_spans,
+    validate_chrome_trace,
+    write_trace,
+)
 
 __all__ = [
     "SpanTracer",
+    "chrome_trace",
     "collect",
     "counter",
     "current_tracer",
     "gauge",
     "histogram",
     "modeled_now",
+    "self_time",
     "snapshot",
     "span_trace",
+    "summarize",
+    "ticket_spans",
     "traced",
+    "validate_chrome_trace",
+    "write_trace",
 ]

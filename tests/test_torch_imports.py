@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not ``tools/flash_decode_times.py`` (both run on the
-card's machine) imports JAX or the JAX reference package, and importing
-the port's serve path loads neither (nor triton, which is imported only
-inside the functions that launch a Triton kernel)."""
+``chip_smoke.py`` and not the tools that run on the card's machine
+(``tools/flash_decode_times.py``, ``tools/ssd_times.py``,
+``tools/paper_fig3_h100.py``) imports JAX or the JAX reference package, and
+importing the port's modules loads neither (nor triton, which is imported
+only inside the functions that launch a Triton kernel)."""
 
 import ast
 import os
@@ -18,8 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "flash_decode_times.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py"] + [ROOT / "tools" / name for name in (
+            "flash_decode_times.py", "ssd_times.py", "paper_fig3_h100.py")]
 
 
 def _imported_roots(path):
@@ -45,7 +47,9 @@ def test_port_import_loads_no_jax_reference_or_triton():
         "import sys, repro_torch, repro_torch.launch.serve, "
         "repro_torch.convert, repro_torch.kernels.ops, repro_torch.hnp, "
         "repro_torch.frontend, repro_torch.models.forward, "
-        "repro_torch.kernels.flash_attention\n"
+        "repro_torch.kernels.flash_attention, repro_torch.runtime, "
+        "repro_torch.launch.costing, repro_torch.obs.trace_export, "
+        "repro_torch.configs.paper_gemm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"

@@ -716,6 +716,31 @@ def test_serve_reduced_runs_on_kernels(card):
     np.testing.assert_array_equal(got.tokens, want.tokens)
 
 
+def test_serve_cluster_reduced_matches_serve_batch_on_kernels(card):
+    """Reduced yi-6b served by ``serve_cluster`` on the card, three batches
+    over two modeled devices (round-robin: one cache migrates): every step
+    launches both kernels, and each batch's greedy tokens equal
+    ``serve_batch``'s on the same prompts (f32, 2 layers)."""
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.launch.serve import serve_batch, serve_cluster
+
+    rng = np.random.default_rng(2)
+    batches = [[list(map(int, rng.integers(1, 200, size=4)))
+                for _ in range(8)] for _ in range(3)]
+    gemm.launches = flash_decode.launches = 0
+    with offload_policy(mode="device", use_kernels=True, num_devices=2,
+                        scheduler="round-robin"):
+        res = serve_cluster("yi-6b", batches, max_new_tokens=4)
+    steps = 3 * (4 + 4)
+    assert gemm.launches == steps * (5 * 2 + 1)
+    assert flash_decode.launches == steps * 2
+    assert res.placements == [1, 0, 1] and res.d2d_s > 0.0
+    with offload_policy(mode="device", use_kernels=True):
+        for got, prompts in zip(res.results, batches, strict=True):
+            want = serve_batch("yi-6b", prompts, max_new_tokens=4)
+            np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
 def test_graph_serve_reduced_matches_eager_on_kernels(card):
     """Reduced yi-6b served in graph mode on the kernels (each decode
     step's FFN an hnp graph, the residual fused into it): the same launch
