@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               4099-slot caches split across a cluster, each launch
               repeated bit for bit; the SSD chunk kernel on its
               tensor-core route (``mma``) at every case, the forward's
-              shape repeated bit for bit;
+              shape repeated bit for bit; the batched GEMM at qwen3-moe's
+              four expert shapes (128 experts, m 64 / 128, 2048 -> 768 and
+              768 -> 2048) in bf16 and f32 against ``moe_gemm_ref``, and
+              one 128-expert launch bit for bit against its single
+              launches; the GEMM at qwen3-moe's other shapes (qkv, wo,
+              the router written f32, the head) on ``skinny`` at m = 8 and
+              16 and on ``wgmma`` at the forward's m = 1024;
 3. serve    — yi-6b at full width (bf16, random weights from a seeded
               generator), 8 requests, through the offload seam with the
               kernels on; launch counters and trace backends prove the path
@@ -87,6 +93,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               logits at 1 x 512 (two chunks), kernels against plain; and the
               decode recurrence against the chunked SSD on the kernels (the
               serve prefill's last logits against the forward's);
+10a. moe-serve — qwen3-moe-30b-a3b at full width (bf16, 30,531,911,680
+              parameters built on the card from a seeded generator), 8
+              requests of 16 + 16 tokens, kernels against the plain path:
+              a decode step launches the batched GEMM 144 times (gate, up,
+              down of 128 experts a layer, m = 64: ``wgmma``), the GEMM 145
+              times (qkv, wo, router a layer and the head: ``skinny``) and
+              flash decode 48 times (``mma``); the first step profiled, also
+              with the MoE books' host read-back turned off (idle share and
+              the host's wait in runtime syncs, each profile); the MoE books
+              (routed, dropped, drop rate);
+10b. moe-serve-graph — the same serve with ``forward_mode="graph"``: its
+              greedy tokens must equal 10a's;
+10c. moe-forward — ``Model.forward`` on 2 x 512 tokens, eager and graph,
+              kernels against plain: 144 batched GEMMs (m = 128) and 48
+              flash attention launches, all ``wgmma``; the drop rate;
+10f. moe-layer — layer 0's expert FFN at full width, kernels against plain
+              on identical inputs (no routing decision can differ), 2e-2 x
+              max |plain|: ``blas.moe_expert_ffn`` on a full expert buffer
+              at the decode step's and the forward's groups, and the
+              grouped dispatch with one shared routing at 8 and 1024
+              tokens;
+10e. moe-placed — one qwen3 MoE layer at full width with an
+              ``ExpertPlacementPolicy`` over 4 modeled lanes fed a Zipf(1.2)
+              histogram stream: ``moe_ffn_placed`` must equal
+              ``moe_ffn(moe_dispatch="grouped")`` bit for bit on the
+              kernels (run before 10d, on 10a's weights);
+10d. moe-float32 — 2 layers at published widths in f32 (the depth cut):
+              first decode step and last-position logits of a 1 x 128
+              forward, kernels against plain, 1e-4 x max |logit|, and the
+              count of routing decisions the two paths make differently;
 11. time    — each kernel at its path's shapes beside its bound, its plain
               version and one library call (CUDA events); the decode GEMMs
               of both models over rotated weights with GB/s, the bound's
@@ -96,7 +132,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               is_causal; flash decode at the serve step's cache and at a
               4096-slot cache (B 8 and B 1) beside SDPA; the SSD chunk
               kernel beside its bytes / 3xTF32 bound and the CUDA cores'
-              fp32 bound.
+              fp32 bound; the batched GEMM at qwen3-moe's four expert
+              shapes beside torch.bmm and its bound; qwen3-moe's decode
+              GEMMs outside the experts (qkv, wo, router, head).
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
@@ -171,6 +209,17 @@ TEST_SSD_CASES = [(4, 2, 32, 16, 8, "test"), (2, 8, 64, 32, 16, "test"),
                   (SSM_FWD_BATCH * 32, SSM_FWD_SEQ // 256, 256, 64, 128,
                    "forward"),
                   (BATCH * 32, 1, PROMPT_LEN, 64, 128, "16-token")]
+
+# qwen3-moe-30b-a3b (configs/qwen3_moe_30b_a3b.py at full width): served
+# with the yi-6b cell's requests, forward on FWD_BATCH x FWD_SEQ tokens; the
+# f32 check cuts the depth to MOE_F32_LAYERS (the f32 model at 48 layers
+# would not fit the card) and runs a 1 x F32_FWD_SEQ forward; the placed
+# layer runs MOE_PLACED_STEPS Zipf(MOE_PLACED_ZIPF) histograms over
+# MOE_PLACED_LANES modeled lanes before its step.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PARAMS = 30_531_911_680
+MOE_F32_LAYERS = 2
+MOE_PLACED_LANES, MOE_PLACED_ZIPF, MOE_PLACED_STEPS = 4, 1.2, 16
 
 # H100 SXM data-sheet peaks (dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -291,6 +340,18 @@ def ssm_serve_gemm_shapes(ssm_cfg):
             ("head", BATCH, d, ssm_cfg.vocab_size, 1, "k", "bfloat16")]
 
 
+def moe_serve_gemm_shapes(moe_cfg, m=BATCH):
+    """(name, m, k, n, launches per decode step or forward, B layout, out
+    dtype) of qwen3-moe's GEMMs outside the experts: qkv, wo and the router
+    (written f32) a layer, and the untied head."""
+    d, hd, L = moe_cfg.d_model, moe_cfg.head_dim, moe_cfg.num_layers
+    qkv_n = (moe_cfg.num_heads + 2 * moe_cfg.num_kv_heads) * hd
+    return [("qkv_project", m, d, qkv_n, L, "mn", "bfloat16"),
+            ("wo", m, moe_cfg.num_heads * hd, d, L, "mn", "bfloat16"),
+            ("router", m, d, moe_cfg.num_experts, L, "mn", "float32"),
+            ("head", m, d, moe_cfg.vocab_size, 1, "mn", "bfloat16")]
+
+
 def forward_gemm_shapes(cfg, ssm_cfg):
     """(tag, m, k, n, launches per forward, B layout) of every GEMM of the
     yi-6b forward (m = 2 x 512) and of the mamba2-370m forward (m = 4 x
@@ -319,6 +380,31 @@ def graph_stack_shapes(cfg, ssm_cfg):
             ("mamba-graph:B/C", 2, ms, d, gn, Ls),
             ("hnp-wave", 2, HNP_ROWS, cfg.d_model,
              cfg.num_kv_heads * cfg.head_dim, 1)]
+
+
+def moe_groups(moe_cfg):
+    """{path: (groups, capacity)} of the MoE dispatch for a decode step of
+    BATCH tokens and a FWD_BATCH x FWD_SEQ forward (``models/moe.py``'s
+    arithmetic)."""
+    from repro_torch.models.moe import _dispatch_groups, expert_capacity
+
+    out = {}
+    for path, t in (("decode", BATCH), ("forward", FWD_BATCH * FWD_SEQ)):
+        g = _dispatch_groups(t, moe_cfg)
+        out[path] = (g, expert_capacity(t // g, moe_cfg))
+    return out
+
+
+def moe_expert_shapes(moe_cfg):
+    """(tag, E, m, k, n, launches per decode step or forward) of the expert
+    GEMMs, m = groups x capacity: gate and up (d -> f), down (f -> d)."""
+    e, d, f = moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.moe_d_ff
+    L = moe_cfg.num_layers
+    out = []
+    for path, (g, cap) in moe_groups(moe_cfg).items():
+        out += [(f"{path}:gate/up", e, g * cap, d, f, 2 * L),
+                (f"{path}:down", e, g * cap, f, d, L)]
+    return out
 
 
 def b_operand(randn, k, n, layout, dtype, batch=None):
@@ -353,12 +439,13 @@ def read_routes():
     return {k: dict(fn.route_launches) for k, fn in _routed().items()}
 
 
-def require_route(label, routes, route, decode=None):
+def require_route(label, routes, route, decode=None, batched=None):
     """Fail unless every GEMM and flash-attention launch in ``routes`` took
-    ``route``, every flash-decode launch ``decode`` and every SSD chunk
-    launch ``mma`` (a path that launches no attention or SSD passes on the
-    GEMMs)."""
-    want = {"flash_decode": decode, "ssd_chunk_diag": "mma"}
+    ``route``, every flash-decode launch ``decode``, every SSD chunk launch
+    ``mma`` and every batched GEMM launch ``batched`` (default ``route``;
+    a path that launches no attention or SSD passes on the GEMMs)."""
+    want = {"flash_decode": decode, "ssd_chunk_diag": "mma",
+            "gemm_batched": batched or route}
     stray = {k: {r: n for r, n in v.items() if r != want.get(k, route) and n}
              for k, v in routes.items()}
     if any(stray.values()):
@@ -457,7 +544,8 @@ def main() -> None:
 
     cfg = get_arch(ARCH)
     ssm_cfg = get_arch(SSM_ARCH)
-    max_abs = check_kernels(cfg, ssm_cfg, randn)
+    moe_cfg = get_arch(MOE_ARCH)
+    max_abs = check_kernels(cfg, ssm_cfg, moe_cfg, randn)
 
     # ---- 3.-5. serve, forward, serve in graph mode (bf16) ---------------
     from repro_torch.models import build_model
@@ -554,8 +642,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_ssm_f32(ssm_cfg, ssm_tokens, ssm_prompts)
 
+    # ---- 10a.-10f. MoE: qwen3-moe-30b-a3b at full width --------------------
+    run_moe(moe_cfg, rng, zero_counts, read_counts, launches, routes)
+
     # ---- 11. times --------------------------------------------------------
-    kernels = run_times(cfg, ssm_cfg, randn, launches, routes, max_abs)
+    kernels = run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes,
+                        max_abs)
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
 
@@ -582,7 +674,7 @@ def _row_rel_err(got, want):
     return (diff[live] / scale[live]).max().item(), diff.max().item()
 
 
-def check_kernels(cfg, ssm_cfg, randn):
+def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
     """Phase 2: every kernel against its plain version; returns the max
     abs errors at the main paths' shapes (bf16)."""
     import torch
@@ -593,7 +685,7 @@ def check_kernels(cfg, ssm_cfg, randn):
     from repro_torch.kernels.gemm import gemm, gemm_batched
     from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                          gemm_batched_ref, gemm_ref,
-                                         ssd_chunk_diag_ref)
+                                         moe_gemm_ref, ssd_chunk_diag_ref)
     from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_route
 
     dev = torch.device("cuda")
@@ -601,7 +693,8 @@ def check_kernels(cfg, ssm_cfg, randn):
     max_abs = {"gemm": 0.0, "flash_decode": 0.0, "gemm_batched": 0.0,
                "flash_attention": 0.0, "ssd_chunk_diag": 0.0,
                "gemm:forward": 0.0, "gemm_batched:forward": 0.0,
-               "gemm:ssm-serve": 0.0}
+               "gemm:ssm-serve": 0.0, "gemm:moe": 0.0,
+               "gemm_batched:moe": 0.0}
     checks = []
 
     def record(kernel, case, dt, err, abs_err, main_shape, scale="max",
@@ -638,14 +731,18 @@ def check_kernels(cfg, ssm_cfg, randn):
             torch.cuda.synchronize()
             record("gemm", f"{tag} {m}x{k}@{k}x{n}", dt,
                    *_rel_err(got, gemm_ref(a, b)), tag != "test")
-    # The skinny route (m <= 16): every decode GEMM of both models (the
-    # mamba2-370m head's B K-major, its dt projection written f32) at the
-    # serving batch and at m = 16, each launch on ``skinny``; then a
-    # graph-mode stack at m = 8 against its single launches, bit for bit.
+    # The skinny route (m <= 16): every decode GEMM of the three models
+    # (the mamba2-370m head's B K-major, its dt projection and qwen3-moe's
+    # router written f32) at the serving batch and at m = 16, each launch
+    # on ``skinny``; then a graph-mode stack at m = 8 against its single
+    # launches, bit for bit.
     sk_cases = [(name, k, n, "mn", "bfloat16")
                 for name, _, k, n, _ in serve_gemm_shapes(cfg)]
     sk_cases += [("mamba:" + name, k, n, lay, out)
                  for name, _, k, n, _, lay, out in ssm_serve_gemm_shapes(ssm_cfg)]
+    sk_cases += [("moe:" + name, k, n, lay, out)
+                 for name, _, k, n, _, lay, out in moe_serve_gemm_shapes(moe_cfg)]
+    path_key = {"mamba": "gemm:ssm-serve", "moe": "gemm:moe"}
     for name, k, n, lay, out in sk_cases:
         for m in (BATCH, 16):
             ot = getattr(torch, out)
@@ -655,8 +752,9 @@ def check_kernels(cfg, ssm_cfg, randn):
                                                   out_dtype=torch.float32))
             record("gemm", f"skinny serve:{name} {m}x{k}@{k}x{n} B "
                    f"{lay}-major out {out}", bf16, err, abs_err, m == BATCH,
-                   tol={"bfloat16": TOL[out]}, key="gemm:ssm-serve"
-                   if name.startswith("mamba:") else None)
+                   tol={"bfloat16": TOL[out]},
+                   key=path_key.get(name.split(":")[0]) if ":" in name
+                   else None)
             del a, b, got
     d, di = ssm_cfg.d_model, ssm_cfg.d_inner
     a = randn(2, BATCH, d, dtype=bf16)
@@ -680,22 +778,29 @@ def check_kernels(cfg, ssm_cfg, randn):
     checks.append({"kernel": "gemm", "case": "bf16 fp32-accumulation k=4096",
                    "err": err, "tol": 0.02})
 
-    # The tensor-core route: every forward GEMM shape of both models, then
-    # ragged shapes with both B layouts and both output dtypes.
-    wg_cases = [(m, n, k, lay, tag, bf16) for tag, m, k, n, _, lay
+    # The tensor-core route: every forward GEMM shape of the three models
+    # (qwen3-moe's outside the experts: its router written f32, held to the
+    # f32 bar), then ragged shapes with both B layouts and both output
+    # dtypes.
+    wg_cases = [(m, n, k, lay, tag, bf16, "bfloat16") for tag, m, k, n, _, lay
                 in forward_gemm_shapes(cfg, ssm_cfg)]
-    wg_cases += [(m, n, k, lay, "ragged", out) for m, n, k in WGMMA_RAGGED
+    wg_cases += [(m, n, k, lay, "moe:" + name, getattr(torch, out), out)
+                 for name, m, k, n, _, lay, out
+                 in moe_serve_gemm_shapes(moe_cfg, FWD_BATCH * FWD_SEQ)]
+    wg_cases += [(m, n, k, lay, "ragged", out, "bfloat16")
+                 for m, n, k in WGMMA_RAGGED
                  for lay in ("mn", "k") for out in (bf16, torch.float32)]
     # An odd n (unaligned C rows: scalar stores) needs a K-major B.
-    wg_cases += [(100, 33, 1016, "k", "ragged", out)
+    wg_cases += [(100, 33, 1016, "k", "ragged", out, "bfloat16")
                  for out in (bf16, torch.float32)]
-    for m, n, k, lay, tag, out in wg_cases:
+    for m, n, k, lay, tag, out, bar in wg_cases:
         a, b = randn(m, k, dtype=bf16), b_operand(randn, k, n, lay, bf16)
         got = on_route(gemm, "wgmma", lambda: gemm(a, b, out_dtype=out))
         err, abs_err = _rel_err(got, gemm_ref(a, b, out_dtype=torch.float32))
         record("gemm", f"wgmma {tag} {m}x{k}@{k}x{n} B {lay}-major "
                f"out {str(out)[6:]}", bf16, err, abs_err, tag != "ragged",
-               key="gemm:forward")
+               tol={"bfloat16": TOL[bar]},
+               key="gemm:moe" if tag.startswith("moe:") else "gemm:forward")
         del a, b, got
     # fp32 accumulation on the tensor cores, at m = 128.
     k = 4096
@@ -738,6 +843,32 @@ def check_kernels(cfg, ssm_cfg, randn):
                        f"{z}x{m}x{k}@{z}x{k}x{n} B {lay}-major == single "
                        "launches", "err": 0.0, "tol": 0.0})
         del a, b, got, singles
+
+    # The expert GEMMs of qwen3-moe (the moe_gemm row): bf16 on the tensor
+    # cores, f32 on the CUDA cores, against moe_gemm_ref; weights scaled as
+    # the model draws them.  Then the decode step's gate GEMM in one launch
+    # against its 128 single launches, bit for bit.
+    for tag, e, m, k, n, _ in moe_expert_shapes(moe_cfg):
+        for dt in (torch.float32, bf16):
+            a = randn(e, m, k, dtype=dt)
+            b = (randn(e, k, n) * k ** -0.5).to(dt)
+            route = "wgmma" if dt == bf16 else "tiled"
+            got = on_route(gemm_batched, route, lambda: gemm_batched(a, b))
+            record("gemm_batched", f"moe {tag} {e}x{m}x{k}@{e}x{k}x{n} "
+                   f"{route}", dt, *_rel_err(got, moe_gemm_ref(a, b)), True,
+                   key="gemm_batched:moe")
+            del a, b, got
+    tag, e, m, k, n, _ = moe_expert_shapes(moe_cfg)[0]
+    a, b = randn(e, m, k, dtype=bf16), randn(e, k, n, dtype=bf16)
+    got = on_route(gemm_batched, "wgmma", lambda: gemm_batched(a, b))
+    singles = torch.stack([gemm(a[i], b[i]) for i in range(e)])
+    torch.cuda.synchronize()
+    if not torch.equal(got, singles):
+        fail(f"gemm_batched moe {tag} differs from its single launches")
+    checks.append({"kernel": "gemm_batched", "case": f"wgmma moe {tag} "
+                   f"{e}x{m}x{k}@{e}x{k}x{n} == single launches",
+                   "err": 0.0, "tol": 0.0})
+    del a, b, got, singles
 
     for case in TEST_DECODE_CASES:
         b = len(case["bounds"])
@@ -863,10 +994,18 @@ def expected(cfg, path, mode):
     mamba2-370m: per layer six GEMMs (z, x, B, C, dt, out) and, in a
     forward, one SSD chunk launch; graph mode stacks z/x and B/C into one
     batched launch each; decode is the one-step recurrence (no SSD
-    launch).  Both: plus the head GEMM."""
+    launch).  qwen3-moe: per layer qkv, wo and the router on the GEMM,
+    the expert FFN's gate, up and down on the batched GEMM (experts the
+    batch), one attention launch; graph mode runs the MoE FFN eagerly, so
+    its counts are eager mode's.  All: plus the head GEMM."""
     L = cfg.num_layers
     counts = dict.fromkeys(("gemm", "gemm_batched", "flash_decode",
                             "flash_attention", "ssd_chunk_diag"), 0)
+    if cfg.num_experts:
+        attn = "flash_decode" if path == "serve" else "flash_attention"
+        return ({**counts, "gemm": 3 * L + 1, "gemm_batched": 3 * L,
+                 attn: L},
+                {"gemm", "qkv_project", "attention", "moe_expert_ffn"})
     if cfg.family == "ssm":
         if path == "serve":
             return {**counts, "gemm": 6 * L + 1}, {"gemm"}
@@ -881,11 +1020,14 @@ def expected(cfg, path, mode):
 
 
 def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
-              read_counts):
-    """Phases 3, 5 and 9: serve the prompts on the kernels (counted) and on
+              read_counts, books=None):
+    """Phases 3, 5, 9, 10a and 10b: serve the prompts on the kernels
+    (counted; its metrics into the registry ``books`` when given) and on
     the plain path, and compare first-step bf16 logits: in eager mode the
     kernels' against the plain path's, in graph mode the graph model's
     against the eager model's, both on the kernels."""
+    import contextlib
+
     import torch
 
     from repro_torch.core import blas
@@ -893,6 +1035,7 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
     from repro_torch.core.hero import offload_policy
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model
+    from repro_torch.obs import metrics
 
     dev = torch.device("cuda")
     arch = cfg.name
@@ -903,7 +1046,9 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
     with offload_policy(**KERNEL_POLICY), torch.no_grad():
         serve_batch(arch, prompts, max_new_tokens=1, **kw)
     zero_counts()
-    with offload_policy(**KERNEL_POLICY), offload_trace() as trace:
+    with offload_policy(**KERNEL_POLICY), offload_trace() as trace, \
+            (metrics.collect(books) if books is not None
+             else contextlib.nullcontext()):
         res_k = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
     launches = read_counts()
     routes = read_routes()
@@ -912,8 +1057,10 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
     if launches != want:
         fail(f"{arch} serve ({forward_mode}) kernel launches {launches}, "
              f"want {want}")
+    # The expert GEMMs have m = groups x capacity (64), not the batch.
     require_route(f"{arch} serve ({forward_mode})", routes, "skinny",
-                  decode=decode_route_of(cfg.dtype))
+                  decode=decode_route_of(cfg.dtype),
+                  batched="wgmma" if cfg.num_experts else None)
     backends = _backends(trace, ops)
     with offload_policy(**PLAIN_POLICY):
         res_p = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
@@ -988,6 +1135,13 @@ KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
                    "ssd_chunk_diag": ("ssd_chunk_kernel", "ssd_mma_kernel")}
 
 
+# CUDA runtime calls in which the host can wait for the card; the
+# profiler records them as host events.  A read-back to the host is a
+# cudaMemcpyAsync and a cudaStreamSynchronize.
+HOST_WAITS = ("cudaStreamSynchronize", "cudaMemcpyAsync",
+              "cudaDeviceSynchronize")
+
+
 def _profile(fn, cuda_only=False):
     """Run ``fn`` once under torch.profiler (CPU and CUDA activity, or the
     card's alone for a long run) after a synchronize.  Returns the host-clock wall time of the profiled run,
@@ -995,7 +1149,10 @@ def _profile(fn, cuda_only=False):
     everything else as "other": torch's elementwise kernels, cuBLAS), and
     the device's idle share 1 - busy / wall, and the top 15 device kernels
     by name (ms, launches); "not measured" when the profiler records no
-    device activity."""
+    device activity.  With CPU activity also the host's ms and calls in
+    each of HOST_WAITS, and the read-backs' share of them
+    (``host_sync_wait_ms``: stream syncs and copies; the closing device
+    synchronize apart)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1010,24 +1167,40 @@ def _profile(fn, cuda_only=False):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by = {name: 0.0 for name in (*KERNEL_FAMILIES, "other")}
     launches = dict.fromkeys(by, 0)
+    gemm_tiles = dict.fromkeys(KERNEL_FAMILIES["gemm"], 0.0)
     names = {}
+    waits = {name: {"ms": 0.0, "calls": 0} for name in HOST_WAITS}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name in waits:
+                waits[ev.name]["ms"] += ev.time_range.elapsed_us() / 1e3
+                waits[ev.name]["calls"] += 1
             continue
         fam = next((f for f, keys in KERNEL_FAMILIES.items()
                     if any(k in ev.name for k in keys)), "other")
         ms = ev.time_range.elapsed_us() / 1e3
         by[fam] += ms
         launches[fam] += 1
+        for tile in gemm_tiles:
+            if tile in ev.name:
+                gemm_tiles[tile] += ms
         row = names.setdefault(ev.name[:160], [0.0, 0])
         row[0] += ms
         row[1] += 1
     busy = sum(by.values())
     if busy == 0.0:
         return {"wall_ms": wall_ms, "device": "not measured"}
+    extra = {}
+    if not cuda_only:
+        extra["host_waits"] = waits
+        extra["host_sync_wait_ms"] = (
+            waits["cudaStreamSynchronize"]["ms"]
+            + waits["cudaMemcpyAsync"]["ms"]
+            if any(w["calls"] for w in waits.values()) else "not measured")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_idle_share": 1.0 - busy / wall_ms, **extra,
             "device_ms_by_kernel": by, "device_launches_by_kernel": launches,
+            "gemm_device_ms_by_tile": gemm_tiles,
             "top_kernels": [{"name": k, "ms": v[0], "launches": v[1]}
                             for k, v in sorted(names.items(),
                                                key=lambda kv: -kv[1][0])[:15]]}
@@ -1096,10 +1269,14 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
                  f"{want}")
         out["trace_backends"][mode] = _backends(trace, ops)
         want_shape = (bsz, seq, cfg.vocab_size)
+        # The aux loss is the MoE routers' (a positive sum), else 0.
+        aux_ok = (math.isfinite(float(aux)) and float(aux) > 0
+                  if cfg.num_experts else float(aux) == 0.0)
         if tuple(logits.shape) != want_shape or \
-                not torch.isfinite(logits).all() or float(aux) != 0.0:
+                not torch.isfinite(logits).all() or not aux_ok:
             fail(f"{arch} forward ({mode}) logits not finite of shape "
-                 f"{want_shape}")
+                 f"{want_shape}, or aux loss {float(aux)} wrong")
+        out.setdefault("aux_loss", {})[mode] = float(aux)
         last[mode] = logits[:, -1].float()
         del logits
 
@@ -1605,7 +1782,369 @@ def run_ssm_f32(cfg, tokens, prompts):
     torch.cuda.empty_cache()
 
 
-def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
+def run_moe(cfg, rng, zero_counts, read_counts, launches, routes):
+    """Phases 10a-10f: qwen3-moe-30b-a3b at full width on the card."""
+    import torch
+
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.obs import metrics
+
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    # ArchConfig.param_count() counts no norm scales (2 a layer, 1 final).
+    n_norm = (2 * cfg.num_layers + 1) * cfg.d_model
+    if not n_params - n_norm == cfg.param_count() == MOE_PARAMS:
+        fail(f"{cfg.name} built {n_params} parameters ({n_norm} in norm "
+             f"scales), want {MOE_PARAMS} and the norm scales")
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             size=PROMPT_LEN)]
+               for _ in range(BATCH)]
+
+    # ---- 10a. serve (eager) ---------------------------------------------
+    books = metrics.MetricsRegistry()
+    serve = run_serve(cfg, model, params, prompts, "eager", zero_counts,
+                      read_counts, books=books)
+    roll = books.rollup()
+    routed = roll.get("moe.tokens_routed", 0.0)
+    dropped = sum(v for k, v in roll.items()
+                  if k.startswith("moe.tokens_dropped"))
+    steps = PROMPT_LEN + MAX_NEW
+    if routed != steps * cfg.num_layers * BATCH * cfg.experts_per_token:
+        fail(f"{cfg.name} serve routed {routed} token copies")
+    serve.update(init_s=init_s, params=n_params - n_norm,
+                 norm_scale_params=n_norm,
+                 max_memory_allocated_GB=torch.cuda.max_memory_allocated()
+                 / 1e9,
+                 moe_books={"tokens_routed": routed, "tokens_dropped": dropped,
+                            "drop_rate": dropped / routed,
+                            "experts_dropping": sum(
+                                1 for k in roll
+                                if k.startswith("moe.tokens_dropped"))})
+    prof = serve["profile_first_step"]
+    if "gemm_device_ms_by_tile" in prof:
+        # In a decode step only the expert GEMMs take the tensor-core tile
+        # (every other GEMM is skinny at m = 8).
+        serve["expert_gemms_first_step"] = {
+            "device_ms": prof["gemm_device_ms_by_tile"]["gemm_wgmma"],
+            "launches": serve["launches"]["gemm_batched"] // steps,
+            "bound_ms": _moe_bound_ms(cfg, "decode")}
+    on = serve["profile_first_step"]
+    off = serve["profile_first_step_books_off"] = _moe_books_off_profile(
+        model, params, prompts)
+    waits = [p_.get("host_sync_wait_ms") for p_ in (on, off)]
+    serve["books_host_sync_wait_ms"] = (
+        waits[0] - waits[1] if all(isinstance(w, float) for w in waits)
+        else "not measured")
+    launches["moe-serve"] = serve["launches"]
+    routes["moe-serve"] = serve["routes"]
+    emit({"phase": "moe-serve", **serve})
+
+    # ---- 10b. serve (graph) ---------------------------------------------
+    serve_g = run_serve(cfg, model, params, prompts, "graph", zero_counts,
+                        read_counts)
+    serve_g["eager_tokens_per_s"] = serve["kernel"]["tokens_per_s"]
+    if serve_g.pop("tokens") != serve["tokens"]:
+        fail(f"{cfg.name} graph-mode serving gave other greedy tokens than "
+             "eager mode")
+    serve_g["greedy_tokens_equal_eager"] = True
+    routes["moe-serve-graph"] = serve_g["routes"]
+    emit({"phase": "moe-serve-graph", **serve_g})
+
+    # ---- 10c. forward (eager, graph) ------------------------------------
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(FWD_BATCH, FWD_SEQ))).to(dev)
+    fwd = run_forward(cfg, model, params, tokens, zero_counts, read_counts)
+    M._MOE_STEPS.clear()
+    with offload_policy(**KERNEL_POLICY), torch.no_grad():
+        model.forward(params, tokens)
+    layers = M.moe_step_trace()
+    if len(layers) != cfg.num_layers:
+        fail(f"{cfg.name} forward kept {len(layers)} MoE books, want "
+             f"{cfg.num_layers}")
+    f_routed = sum(t.tokens_routed for t in layers)
+    f_dropped = sum(t.tokens_dropped for t in layers)
+    fwd["moe_books"] = {
+        "capacity": layers[0].capacity, "tokens_routed": f_routed,
+        "tokens_dropped": f_dropped, "drop_rate": f_dropped / f_routed,
+        "drop_rate_by_layer": [t.drop_rate for t in layers]}
+    launches["moe-forward"] = fwd["launches"]["eager"]
+    routes["moe-forward"] = fwd["routes"]["eager"]
+    routes["moe-forward-graph"] = fwd["routes"]["graph"]
+    emit({"phase": "moe-forward", **fwd})
+
+    # ---- 10f. layer 0's expert FFN, kernels against plain -----------------
+    run_moe_layer(cfg, params["stack"][0]["ffn"], zero_counts, read_counts)
+
+    # ---- 10e. one MoE layer placed over modeled lanes ---------------------
+    placed = run_moe_placed(cfg, params["stack"][0]["ffn"], zero_counts,
+                            read_counts)
+    routes["moe-placed"] = placed["routes"]
+    emit({"phase": "moe-placed", **placed})
+    del params, model
+    torch.cuda.empty_cache()
+
+    # ---- 10d. float32 at two layers -------------------------------------
+    routes["moe-float32"] = run_moe_f32(cfg, prompts, tokens)
+
+
+def _moe_bound_ms(moe_cfg, path):
+    """The bytes / FLOPs bound of one decode step's or forward's expert
+    GEMMs, summed over their launches (``moe_expert_shapes``)."""
+    nbytes = flops = 0.0
+    for tag, e, m, k, n, count in moe_expert_shapes(moe_cfg):
+        if tag.startswith(path):
+            nbytes += count * 2.0 * e * (m * k + k * n + m * n)
+            flops += count * 2.0 * e * m * n * k
+    return _bound_ms(nbytes, flops, "bfloat16")
+
+
+def _moe_books_off_profile(model, params, prompts):
+    """The first decode step profiled as 10a profiles it, with
+    ``_note_moe_step`` a no-op (for this measurement only): its idle share
+    and its host waits in CUDA runtime syncs beside 10a's, the books'
+    read-backs being the difference."""
+    import torch
+
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    first = torch.tensor([[p[0]] for p in prompts], device=dev)
+
+    def step():
+        cache = model.init_decode_cache(BATCH, CACHE_LEN, device=dev)
+        with offload_policy(**KERNEL_POLICY), torch.no_grad():
+            return model.decode_step(params, cache, first, 0)[0].float()
+
+    note = M._note_moe_step
+    M._note_moe_step = lambda counts, cap: None
+    try:
+        return _profile(step)
+    finally:
+        M._note_moe_step = note
+
+
+def run_moe_layer(cfg, layer, zero_counts, read_counts):
+    """Phase 10f: layer 0's expert FFN at full width in bf16, kernels against
+    the plain path on identical inputs, so that no routing decision can
+    differ between them: (a) ``blas.moe_expert_ffn`` on a full (E, G, C, d)
+    buffer, handed over as the grouped dispatch hands it (a transposed
+    view), at the decode step's and the forward's groups; (b)
+    ``_moe_grouped`` with one routing (the plain path's router) shared by
+    both paths, at BATCH and at FWD_BATCH x FWD_SEQ tokens: pack, the three
+    expert GEMMs, the SiLU·up product and the fixed-order unpack.  Each
+    within TOL["bfloat16"] x max |plain|, its three batched GEMMs on
+    ``wgmma``."""
+    import torch
+
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    e, d = cfg.num_experts, cfg.d_model
+    w = (layer["we_gate"], layer["we_up"], layer["we_down"])
+    bar = TOL["bfloat16"]
+    out = {"bar": bar, "expert_ffn": {}, "grouped": {}}
+
+    def kernel_and_plain(kind, tag, fn):
+        zero_counts()
+        with offload_policy(**KERNEL_POLICY), torch.no_grad():
+            got = fn()
+        torch.cuda.synchronize()
+        counts, routes = read_counts(), read_routes()
+        with offload_policy(**PLAIN_POLICY), torch.no_grad():
+            want = fn()
+        if counts != {**dict.fromkeys(counts, 0), "gemm_batched": 3} or \
+                routes["gemm_batched"]["wgmma"] != 3:
+            fail(f"qwen3-moe layer {kind} {tag}: launches {counts}, "
+                 f"routes {routes}")
+        if not torch.isfinite(got).all():
+            fail(f"qwen3-moe layer {kind} {tag}: output not finite")
+        err, abs_err = _rel_err(got, want)
+        if not err <= bar:
+            fail(f"qwen3-moe layer {kind} {tag}: err {err} > {bar}")
+        out[kind][tag] = {"err": err, "max_abs_err": abs_err}
+        return out[kind][tag]
+
+    for path, (g, cap) in moe_groups(cfg).items():
+        buf = torch.randn(g, e * cap, d, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        ebuf = buf.reshape(g, e, cap, d).transpose(0, 1)
+        kernel_and_plain("expert_ffn", f"{path}: E {e} x G {g} x C {cap} x "
+                         f"d {d}", lambda: blas.moe_expert_ffn(ebuf, *w))
+    for path, t in (("decode", BATCH), ("forward", FWD_BATCH * FWD_SEQ)):
+        xf = torch.randn(t, d, generator=gen, device=dev).to(torch.bfloat16)
+        with offload_policy(**PLAIN_POLICY), torch.no_grad():
+            gates, idx, _ = M._router(layer, xf, cfg)
+        row = kernel_and_plain("grouped", f"{path}: T {t}",
+                               lambda: M._moe_grouped(layer, xf, gates, idx,
+                                                      cfg))
+        row["drop_rate"] = M.last_moe_step().drop_rate
+    emit({"phase": "moe-layer", **out})
+    return out
+
+
+def run_moe_placed(cfg, layer, zero_counts, read_counts):
+    """Phase 10e: one MoE layer at full width, FWD_BATCH x FWD_SEQ hidden
+    states, with an ``ExpertPlacementPolicy`` attached over
+    MOE_PLACED_LANES modeled lanes and fed MOE_PLACED_STEPS Zipf
+    histograms first: ``moe_ffn_placed`` must equal the grouped
+    ``moe_ffn`` bit for bit, its expert FFN three ``wgmma`` launches of the
+    batched GEMM, its books fanned out over more than one lane."""
+    import random
+
+    import torch
+
+    from repro_torch.core.accounting import offload_trace
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.core.placement import (ExpertPlacementPolicy,
+                                            PlacementConfig, zipf_histogram)
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    gcfg = dataclasses.replace(cfg, moe_dispatch="grouped")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(FWD_BATCH, FWD_SEQ, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    copies = FWD_BATCH * FWD_SEQ * cfg.experts_per_token
+    with offload_policy(**KERNEL_POLICY, num_devices=MOE_PLACED_LANES) \
+            as cluster, torch.no_grad():
+        want, want_aux = M.moe_ffn(layer, x, gcfg)
+        pol = ExpertPlacementPolicy(PlacementConfig(
+            num_experts=cfg.num_experts, d_model=cfg.d_model,
+            d_ff=cfg.moe_d_ff), cluster)
+        pol.attach()
+        stream = random.Random(SEED)
+        for _ in range(MOE_PLACED_STEPS):
+            pol.step(zipf_histogram(stream, cfg.num_experts, MOE_PLACED_ZIPF,
+                                    copies))
+        zero_counts()
+        with offload_trace() as trace:
+            got, aux = M.moe_ffn_placed(layer, x, gcfg, policy=pol)
+        torch.cuda.synchronize()
+        counts, routes = read_counts(), read_routes()
+        lanes = sorted({r.device_id for r in trace.records
+                        if r.note.startswith("expert-placed")})
+        backends = sorted({r.backend for r in trace.records
+                           if r.op == "moe_expert_ffn"})
+    if not (torch.equal(got, want) and torch.equal(aux, want_aux)):
+        fail("moe_ffn_placed differs from the grouped moe_ffn on the card")
+    if counts["gemm_batched"] != 3 or routes["gemm_batched"]["wgmma"] != 3:
+        fail(f"placed expert FFN launches {counts}, routes {routes}")
+    if len(lanes) < 2 or backends != ["device-kernel"]:
+        fail(f"placed expert FFN fanned out over lanes {lanes}, backends "
+             f"{backends}")
+    return {"arch": cfg.name, "tokens": FWD_BATCH * FWD_SEQ,
+            "lanes": MOE_PLACED_LANES, "zipf_s": MOE_PLACED_ZIPF,
+            "warm_steps": MOE_PLACED_STEPS, "bit_equal_unplaced": True,
+            "launches": counts, "routes": routes, "fanout_lanes": lanes,
+            "counters": pol.counters(),
+            "decisions": [list(d.key) for d in pol.decisions],
+            "home_lanes": {str(lane): pol.home.count(lane)
+                           for lane in pol.lanes}}
+
+
+def run_moe_f32(cfg, prompts, tokens):
+    """Phase 10d: qwen3-moe at published widths, MOE_F32_LAYERS layers, f32
+    weights: first decode step and last-position logits of a 1 x
+    F32_FWD_SEQ forward, kernels against plain, under F32_LOGIT_TOL x max
+    |logit|; and the routing decisions (token, top-k slot) each path took,
+    counted where they differ, with the plain path's gap between the k-th
+    and the next expert's probability at each.  Returns the phase's
+    routes."""
+    import torch
+
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    cfg32 = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS,
+                                dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    first = torch.tensor([[p[0]] for p in prompts], device=dev)
+    toks = tokens[:F32_FWD_BATCH, :F32_FWD_SEQ]
+    picks = {}
+    top_k = M._top_k_gates
+
+    def spied(name, pol, k_parts, run):
+        calls = []
+
+        def spy(logits, k):
+            gates, idx = top_k(logits, k)
+            calls.append((idx, torch.softmax(logits.float(), dim=-1)))
+            return gates, idx
+
+        M._top_k_gates = spy
+        try:
+            with offload_policy(**pol), blas.host_k_split(k_parts), \
+                    torch.no_grad():
+                out = run()
+        finally:
+            M._top_k_gates = top_k
+        picks[(name, pol is KERNEL_POLICY, k_parts)] = calls
+        return out
+
+    def first_logits(pol, k_parts=1):
+        cache = model32.init_decode_cache(BATCH, CACHE_LEN, device=dev)
+        return spied("decode", pol, k_parts, lambda: model32.decode_step(
+            params32, cache, first, 0)[0].float())
+
+    def last_logits(pol, k_parts=1):
+        return spied("forward", pol, k_parts, lambda: model32.forward(
+            params32, toks)[0][:, -1].float())
+
+    zero_routes()
+    out = {"layers": MOE_F32_LAYERS, "bar": F32_LOGIT_TOL,
+           "forward_batch": F32_FWD_BATCH, "forward_seq": F32_FWD_SEQ,
+           "decode_first_step": _logit_errs(first_logits,
+                                            (BATCH, cfg.vocab_size)),
+           "forward_last_position": _logit_errs(
+               last_logits, (F32_FWD_BATCH, cfg.vocab_size)),
+           "routes": read_routes()}
+    k = cfg.experts_per_token
+    for name in ("decode", "forward"):
+        flips, gaps, decisions = 0, [], 0
+        for (ik, _), (ip, probs) in zip(picks[(name, True, 1)],
+                                        picks[(name, False, 1)], strict=True):
+            decisions += ip.numel()
+            diff = (ik != ip).any(dim=-1)
+            flips += int((ik != ip).sum())
+            if diff.any():
+                srt = probs[diff].sort(dim=-1, descending=True).values
+                gaps += (srt[:, k - 1] - srt[:, k]).tolist()
+        out[f"{name}_routing"] = {"decisions": decisions, "differ": flips,
+                                  "gaps_at_differing_tokens": gaps}
+    if out["routes"]["gemm_batched"]["tiled"] == 0 or any(
+            n for r, n in out["routes"]["gemm_batched"].items()
+            if r != "tiled"):
+        fail(f"f32 expert GEMMs off the tiled route: {out['routes']}")
+    for name in ("decode_first_step", "forward_last_position"):
+        if not out[name]["err"] <= F32_LOGIT_TOL:
+            fail(f"qwen3-moe f32 {name} logits differ: {out[name]} > "
+                 f"{F32_LOGIT_TOL} (routing: {out['decode_routing']}, "
+                 f"{out['forward_routing']})")
+    emit({"phase": "moe-float32", **out})
+    del params32
+    torch.cuda.empty_cache()
+    return out["routes"]
+
+
+def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
     """Phase 11: each kernel at its path's shapes; returns the kernels
     line."""
     import torch
@@ -1665,6 +2204,8 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
     emit({"gemm_shapes": per_shape, "per_step": per_step})
     ssm_shapes, ssm_step, _ = time_serve_gemms(ssm_serve_gemm_shapes(ssm_cfg))
     emit({"ssm_gemm_shapes": ssm_shapes, "per_step": ssm_step})
+    moe_gemms, moe_step, _ = time_serve_gemms(moe_serve_gemm_shapes(moe_cfg))
+    emit({"moe_gemm_shapes": moe_gemms, "per_step": moe_step})
 
     # The skinny kernel's time against k at yi-6b's qkv width, beside
     # torch.matmul's: the step from k/2 to k is B's streaming rate, what is
@@ -1840,6 +2381,17 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
         del ws
     emit({"ssm_graph_gemm_batched_shapes": g_shapes})
 
+    moe_shapes, moe_tot = time_moe_gemms(gemm_batched, moe_cfg, randn)
+    emit({"moe_gemm_batched_shapes": moe_shapes, "per_path": moe_tot})
+    per_moe = {}
+    for path, key in (("decode", "moe-serve"), ("forward", "moe-forward")):
+        t = moe_tot[path]
+        per_moe[path] = {
+            "launches": launches[key]["gemm_batched"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"]}
+
     per = "decode_step"
     return [
         {"name": "gemm", "route": "cuda",
@@ -1870,6 +2422,13 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "ssm_serve_plain_ms": ssm_step["plain_ms"],
          "ssm_serve_library_ms": ssm_step["library_ms"],
          "ssm_serve_bound_ms": ssm_step["bound_ms"],
+         "moe_serve_launches": launches["moe-serve"]["gemm"],
+         "moe_serve_max_abs_err": max_abs["gemm:moe"],
+         "moe_serve_ms": moe_step["ms"],
+         "moe_serve_plain_ms": moe_step["plain_ms"],
+         "moe_serve_library_ms": moe_step["library_ms"],
+         "moe_serve_bound_ms": moe_step["bound_ms"],
+         "moe_forward_launches": launches["moe-forward"]["gemm"],
          "route_launches": {path: r["gemm"] for path, r in routes.items()}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -1882,6 +2441,7 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "library_ms": L * d_serve["library_ms"], "per": per,
          "long_cache_launches": launches["long-decode"]["flash_decode"],
          "serve_cluster_launches": launches["serve-cluster"]["flash_decode"],
+         "moe_serve_launches": launches["moe-serve"]["flash_decode"],
          "long_cache_per_launch": {tag: {key: dec[tag][key] for key in (
              "B", "S", "valid", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_share")} for tag in ("long", "long-b1")},
@@ -1905,6 +2465,9 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "forward_bound_ms": _bound_ms(g_tot["bytes"], g_tot["flops"],
                                        "bfloat16"),
          "forward_path": "ssm-forward-graph",
+         "moe_max_abs_err": max_abs["gemm_batched:moe"],
+         "moe_decode_step": per_moe["decode"],
+         "moe_forward": per_moe["forward"],
          "route_launches": {path: r["gemm_batched"]
                             for path, r in routes.items()}},
         {"name": "flash_attention", "route": "cuda",
@@ -1917,6 +2480,7 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
          "bound_by": _bound_by(a_bytes, a_flops, "bfloat16"),
          "library_ms": L * t_al, "library_causal_ms": L * t_alc,
          "views_ms": L * t_akv, "per": "forward",
+         "moe_forward_launches": launches["moe-forward"]["flash_attention"],
          "tile_source": "src/repro_torch/kernels/csrc/attn_wgmma.cuh",
          "route_launches": {path: r["flash_attention"]
                             for path, r in routes.items()
@@ -1936,6 +2500,70 @@ def run_times(cfg, ssm_cfg, randn, launches, routes, max_abs):
                             for path, r in routes.items()
                             if any(r["ssd_chunk_diag"].values())}},
     ]
+
+
+def time_moe_gemms(gemm_batched, moe_cfg, randn):
+    """The batched GEMM (any tree's wrapper) at qwen3-moe's four expert
+    shapes (``moe_expert_shapes``), bf16, over expert stacks rotated past
+    L2 (each stack is 0.2-0.4 GB): kernel, plain version
+    (``moe_gemm_ref``) and ``torch.bmm`` in ms per launch beside the bound
+    (A, B read once and C written once; 2·m·n·k FLOPs an expert), GB/s and
+    the bound's share; and per decode step / forward the totals over its
+    launches.  Returns ``(rows, {"decode": {...}, "forward": {...}})``."""
+    import torch
+
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    bf16 = torch.bfloat16
+    rows = []
+    tot = {path: dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes",
+                                "flops", "launches"), 0.0)
+           for path in ("decode", "forward")}
+    for tag, e, m, k, n, count in moe_expert_shapes(moe_cfg):
+        a = randn(e, m, k, dtype=bf16)
+        ws = _rotation(lambda: randn(e, k, n, dtype=bf16), e * k * n * 2)
+        t_k = _time(lambda w: gemm_batched(a, w), ws, iters=20)
+        t_p = _time(lambda w: moe_gemm_ref(a, w), ws, iters=5)
+        t_l = _time(lambda w: torch.bmm(a, w), ws, iters=20)
+        nbytes = 2.0 * e * (m * k + k * n + m * n)
+        flops = 2.0 * e * m * n * k
+        bound = _bound_ms(nbytes, flops, "bfloat16")
+        rows.append({"shape": tag, "experts": e, "m": m, "k": k, "n": n,
+                     "launches": count, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l, "library": "torch.bmm",
+                     "bound_ms": bound,
+                     "bound_by": _bound_by(nbytes, flops, "bfloat16"),
+                     "GBps": nbytes / t_k / 1e6, "bound_share": bound / t_k,
+                     "TFLOPs": flops / t_k / 1e9})
+        t = tot[tag.split(":")[0]]
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("bytes", nbytes), ("flops", flops)):
+            t[key] += count * v
+        t["launches"] += count
+        del ws
+    for t in tot.values():
+        t["bound_ms"] = _bound_ms(t["bytes"], t["flops"], "bfloat16")
+        t["bound_by"] = _bound_by(t["bytes"], t["flops"], "bfloat16")
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["vs_library"] = t["ms"] / t["library_ms"]
+    # The layout copy before the gate / up GEMMs: the packed (G, E·C, d)
+    # buffer transposed to (E, G, C, d) is a view that the expert GEMM's
+    # (E, G·C, d) operand cannot alias, so it is copied once a layer.
+    e, d = moe_cfg.num_experts, moe_cfg.d_model
+    for path, (g, cap) in moe_groups(moe_cfg).items():
+        m = g * cap
+        bufs = _rotation(lambda: randn(g, e * cap + 1, d, dtype=bf16),
+                         g * e * cap * d * 2)
+        views = [b[:, : e * cap].reshape(g, e, cap, d).transpose(0, 1)
+                 for b in bufs]
+        t_c = _time(lambda v: v.reshape(e, m, d), views)
+        nbytes = 2.0 * 2 * e * m * d
+        tot[path]["layout_copy"] = {
+            "ms": t_c, "ms_per_pass": moe_cfg.num_layers * t_c,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "GBps": nbytes / t_c / 1e6}
+        del bufs, views
+    return rows, tot
 
 
 def time_flash_decode(flash_decode, hq, hkv, d, randn):

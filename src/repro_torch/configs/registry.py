@@ -36,6 +36,12 @@ def _load_all() -> None:
     if _LOADED:
         return
     # import for side effect of register()
-    from repro_torch.configs import mamba2_370m, paper_gemm, yi_6b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        arctic_480b,
+        mamba2_370m,
+        paper_gemm,
+        qwen3_moe_30b_a3b,
+        yi_6b,
+    )
 
     _LOADED = True

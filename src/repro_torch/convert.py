@@ -3,7 +3,9 @@
 The reference's ``Model.init_params`` returns a pytree whose ``"stack"``
 leaves carry a leading layer axis (``init_stack`` builds them with
 ``vmap``, ``src/repro/models/transformer.py``).  The port keeps one dict per
-layer, so :func:`params_from_jax` splits that axis.  The caller hands over
+layer, so :func:`params_from_jax` splits that axis — for an MoE layer too:
+its router ((d, E), f32), expert stacks ((E, d, f) gate / up, (E, f, d)
+down) and arctic's dense FFN (``"dense"``) keep their names and dtypes.  The caller hands over
 numpy arrays (``jax.tree.map(np.asarray, params)``); nothing here imports
 JAX.
 

@@ -24,9 +24,9 @@ Kernel path  : the hand-written CUDA kernels of :mod:`repro_torch.kernels`
                takes its plain version only for CPU tensors.
 
 The descriptors carry no tensor-parallel ``plan`` yet (the reference's
-shard_map forms): the distributed layer is ported last.  Ops of the
-reference not yet here (``expert_matmul``, ``moe_expert_ffn``) arrive with
-the MoE slice and are listed in ROADMAP.md.
+shard_map forms, ``moe_expert_ffn``'s expert-parallel plan among them):
+the distributed layer is ported last, and without a mesh the reference
+takes none either.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import cost_model as cm
-from repro_torch.core.dispatch import OffloadOp, dispatch, register
+from repro_torch.core.dispatch import (OffloadOp, dispatch, dispatch_placed,
+                                       register)
 from repro_torch.core.hero import DeviceHandle, engine  # noqa: F401 (re-export seam)
 
 __all__ = [
@@ -52,6 +53,9 @@ __all__ = [
     "attention_math",
     "decode_attention",
     "ssd_scan",
+    "moe_expert_ffn",
+    "moe_expert_ffn_placed",
+    "expert_matmul",
     "syrk",
     "gemv",
     "dot",
@@ -422,6 +426,124 @@ register(OffloadOp(
     host=_gemm_batched_host,
     kernel=_gemm_batched_kernel,
     eligible=_gemm_batched_eligible,
+))
+
+
+# ---------------------------------------------------------------------------
+# expert_matmul — (E, ..., d) @ (E, d, f), experts the batch.
+# ---------------------------------------------------------------------------
+
+def _expert_dims(x, w):
+    if w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
+        raise ValueError(
+            f"expert_matmul: bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    e = x.shape[0]
+    m = 1
+    for dim in x.shape[1:-1]:
+        m *= dim
+    return e, m, w.shape[1], w.shape[2]
+
+
+def _expert_cost(x, w, *, out_dtype=None):
+    e, m, k, n = _expert_dims(x, w)
+    return cm.gemm_cost(m, n, k, x.element_size(), batch=e, op="moe_gemm")
+
+
+def _expert_eligible(x, w, *, out_dtype=None):
+    e, m, k, n = _expert_dims(x, w)
+    return _kernel_gemm_eligible(m, n, k, x.dtype)
+
+
+def _expert_host(x, w, *, out_dtype=None):
+    e, m, k, n = _expert_dims(x, w)
+    y = _accum_mm(x.reshape(e, m, k), w, _result_dtype(x, w, out_dtype))
+    return y.reshape(*x.shape[:-1], n)
+
+
+def _expert_kernel(x, w, *, out_dtype=None):
+    e, m, k, n = _expert_dims(x, w)
+    # The free dims fold into the GEMM's m: a copy where they are a view
+    # that does not fold (the grouped MoE's transposed (E, G, C, d) buffer).
+    out = _kops().kernel_lowering("moe_gemm")(
+        x.reshape(e, m, k), w, out_dtype=out_dtype or x.dtype)
+    return out.reshape(*x.shape[:-1], n)
+
+
+register(OffloadOp(
+    name="expert_matmul",
+    cost=_expert_cost,
+    host=_expert_host,
+    kernel=_expert_kernel,
+    eligible=_expert_eligible,
+))
+
+
+# ---------------------------------------------------------------------------
+# moe_expert_ffn — the whole grouped expert FFN (gate/up/silu/down) behind
+# one descriptor: the cost model sees the expert block at once.  (The
+# reference's expert-parallel shard_map plan arrives with the distributed
+# layer.)
+# ---------------------------------------------------------------------------
+
+def _moe_ffn_dims(x, wg, wu, wd):
+    if x.ndim < 3 or wg.ndim != 3 or wu.ndim != 3 or wd.ndim != 3:
+        raise ValueError(
+            f"moe_expert_ffn: bad ranks {tuple(x.shape)} {tuple(wg.shape)} "
+            f"{tuple(wu.shape)} {tuple(wd.shape)}")
+    e, d = x.shape[0], x.shape[-1]
+    f = wg.shape[2]
+    if tuple(wg.shape[:2]) != (e, d) or wu.shape != wg.shape:
+        raise ValueError(
+            f"moe_expert_ffn: bad gate/up {tuple(wg.shape)} {tuple(wu.shape)}")
+    if tuple(wd.shape) != (e, f, d):
+        raise ValueError(
+            f"moe_expert_ffn: bad down {tuple(wd.shape)}, want {(e, f, d)}")
+    m = 1
+    for dim in x.shape[1:-1]:
+        m *= dim
+    return e, m, d, f
+
+
+def _moe_ffn_cost(x, wg, wu, wd):
+    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
+    return cm.gemm_cost(m, 3 * f, d, x.element_size(), batch=e,
+                        op="moe_expert_ffn")
+
+
+def _moe_ffn_eligible(x, wg, wu, wd):
+    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
+    return _kernel_gemm_eligible(m, f, d, x.dtype)
+
+
+def _moe_ffn_host(x, wg, wu, wd):
+    """The expert FFN math itself, fp32 accumulation, with the reference's
+    cast points (``_moe_ffn_local``)."""
+    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
+    xe = x.reshape(e, m, d)
+    g = _accum_mm(xe, wg, x.dtype)
+    u = _accum_mm(xe, wu, x.dtype)
+    y = _accum_mm(_swiglu_glue(g, u, x.dtype), wd, x.dtype)
+    return y.reshape(x.shape)
+
+
+def _moe_ffn_kernel(x, wg, wu, wd):
+    """Three launches of the batched GEMM kernel (gate, up, down), the
+    SiLU·up product between them."""
+    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
+    mm = _kops().kernel_lowering("moe_expert_ffn")
+    xe = x.reshape(e, m, d)   # copies a transposed (E, G, C, d) view
+    g = mm(xe, wg, out_dtype=x.dtype)
+    u = mm(xe, wu, out_dtype=x.dtype)
+    y = mm(_swiglu_glue(g, u, x.dtype), wd, out_dtype=x.dtype)
+    return y.reshape(x.shape)
+
+
+register(OffloadOp(
+    name="moe_expert_ffn",
+    cost=_moe_ffn_cost,
+    host=_moe_ffn_host,
+    kernel=_moe_ffn_kernel,
+    eligible=_moe_ffn_eligible,
 ))
 
 
@@ -953,6 +1075,54 @@ def ssd_scan(
     return dispatch(
         "ssd_scan", xh, dt, a, bh, ch, d_skip, chunk=chunk, handle=handle
     )
+
+
+def moe_expert_ffn(
+    x: torch.Tensor,
+    wg: torch.Tensor,
+    wu: torch.Tensor,
+    wd: torch.Tensor,
+    *,
+    handle: Optional[DeviceHandle] = None,
+) -> torch.Tensor:
+    """Whole grouped expert FFN (E, ..., d) -> (E, ..., d) through the seam.
+
+    One dispatch for gate/up/silu/down across all experts (wg, wu: (E, d,
+    f); wd: (E, f, d)); the kernel path runs the three GEMMs on the
+    batched GEMM kernel, experts as the batch.  Keeps all free dims."""
+    return dispatch("moe_expert_ffn", x, wg, wu, wd, handle=handle)
+
+
+def moe_expert_ffn_placed(
+    x: torch.Tensor,
+    wg: torch.Tensor,
+    wu: torch.Tensor,
+    wd: torch.Tensor,
+    *,
+    placement,
+):
+    """Grouped expert FFN with per-expert placed accounting.
+
+    Same op, same math, same single dispatch as :func:`moe_expert_ffn`,
+    but ``placement`` (a
+    :class:`~repro_torch.core.placement.ExpertDispatchPlan`) fans the
+    accounting out into one handle-affine sub-launch per expert copy,
+    charged on the lane its weights live on.  Returns ``(out, launch)`` so
+    callers can read the busiest lane back."""
+    return dispatch_placed("moe_expert_ffn", x, wg, wu, wd,
+                           placement=placement)
+
+
+def expert_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    out_dtype=None,
+    handle: Optional[DeviceHandle] = None,
+) -> torch.Tensor:
+    """(E, ..., d) @ (E, d, f) -> (E, ..., f) — expert-batched contraction
+    (all free dims kept); the kernel path is one batched GEMM launch."""
+    return dispatch("expert_matmul", x, w, out_dtype=out_dtype, handle=handle)
 
 
 def syrk(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:

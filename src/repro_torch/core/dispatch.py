@@ -204,15 +204,16 @@ def dispatch_placed(
     placement back, so the produced intermediate is pinned where it lives
     and its consumers are routed (or d2d-migrated) to the data.
 
-    ``placement`` (the reference's per-expert fan-out plan) arrives with
-    the MoE slice and raises ``NotImplementedError``; so does
-    ``validate=True`` (the reference's pre-dispatch graph checks), which
-    waits for the port of ``analysis/``.
+    ``placement`` (an
+    :class:`~repro_torch.core.placement.ExpertDispatchPlan`) fans the
+    accounting out into one pre-placed sub-launch per expert copy
+    (:meth:`~repro_torch.core.hero.HeroCluster.launch_fanout`) under this
+    one dispatch; the lowering is the unplaced call's — the kernel when the
+    policy enables it and the op is eligible — so the placed result equals
+    the unplaced one bit for bit.  ``validate=True`` (the reference's
+    pre-dispatch graph checks) raises ``NotImplementedError``: it waits
+    for the port of ``analysis/``.
     """
-    if placement is not None:
-        raise NotImplementedError(
-            "dispatch_placed(placement=...) (per-expert fan-out) arrives "
-            "with the MoE slice")
     if validate:
         raise NotImplementedError(
             "dispatch(validate=True) needs repro_torch.analysis, which is "
@@ -221,10 +222,10 @@ def dispatch_placed(
     tr = _spans.current_tracer()
     if tr is None:
         return _dispatch_impl(name, args, kwargs, handle, resident_fraction,
-                              None)
+                              None, placement)
     with tr.span(f"dispatch:{name}", cat="dispatch", lane="host"):
         return _dispatch_impl(name, args, kwargs, handle, resident_fraction,
-                              tr)
+                              tr, placement)
 
 
 def _dispatch_impl(
@@ -234,6 +235,7 @@ def _dispatch_impl(
     handle: Optional[DeviceHandle],
     resident_fraction: Optional[float],
     tr: Optional["_spans.SpanTracer"],
+    placement: Optional[Any] = None,
 ):
     """The cost -> plan -> launch -> lower pipeline, with optional phase
     markers (``tr`` is the active tracer or None — never looked up here,
@@ -266,16 +268,33 @@ def _dispatch_impl(
                    t=_spans.modeled_now(),
                    attrs={"op": name, "planned": plan is not None,
                           "kernel_eligible": eligible})
-    launch = engine().launch(
-        cost,
-        dtype=dtype_name(arrays[0].dtype) if arrays else "",
-        shape_key=shape_key(*arrays),
-        kernel_eligible=eligible,
-        force_host=op.host_only,
-        note="tp-plan" if plan is not None else op.note,
-        handle=handle,
-        resident_fraction=resident_fraction,
+    fanout = (
+        placement is not None
+        and getattr(placement, "sub_launches", ())
+        and not op.host_only
+        and engine().policy.mode != "host"
     )
+    if fanout:
+        # Per-expert sub-launch fan-out under this one dispatch: the plan
+        # pre-placed each expert's token block on its handle's lane;
+        # accounting fans out, the lowering below stays the unplaced one.
+        launch = engine().launch_fanout(
+            placement.sub_launches,
+            dtype=dtype_name(arrays[0].dtype) if arrays else "",
+            note=f"expert-placed:{name}",
+            kernel_eligible=eligible,
+        )
+    else:
+        launch = engine().launch(
+            cost,
+            dtype=dtype_name(arrays[0].dtype) if arrays else "",
+            shape_key=shape_key(*arrays),
+            kernel_eligible=eligible,
+            force_host=op.host_only,
+            note="tp-plan" if plan is not None else op.note,
+            handle=handle,
+            resident_fraction=resident_fraction,
+        )
     if tr is not None:
         tr.instant("launch", cat="dispatch", lane="host",
                    t=_spans.modeled_now(),

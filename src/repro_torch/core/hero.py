@@ -86,10 +86,19 @@ class DeviceHandle:
     name: str
     device_id: int
     nbytes: float
+    # Replica handles (second copies of a hot buffer on another lane) name
+    # the primary they were cloned from; primaries carry None.  A replica
+    # is a full first-class handle — it can be released or migrated on its
+    # own — but schedulers treat it as the same logical bytes.
+    replica_of: Optional[str] = None
 
     @property
     def valid(self) -> bool:
         return self.device_id != HOST_DEVICE_ID
+
+    @property
+    def is_replica(self) -> bool:
+        return self.replica_of is not None
 
 
 @dataclasses.dataclass
@@ -838,6 +847,75 @@ class HeroCluster:
         self._note_resident_bytes(device_id)
         return bd
 
+    def replicate_handle(
+        self, handle: DeviceHandle, device_id: int
+    ) -> DeviceHandle:
+        """Clone a pinned buffer onto a second device over the d2d link.
+
+        Unlike :meth:`migrate_handle` the source stays pinned and valid —
+        replication is how a persistently-hot buffer (e.g. a popular
+        expert's weights) serves launches from two lanes at once.  The d2d
+        copy is charged on the *replica* lane's DMA stream (its engine
+        receives the bytes) and recorded on the active trace.  Returns the
+        replica handle (``replica_of`` names the primary); re-replicating
+        onto a lane that already holds the replica returns it unchanged.
+        """
+        if self._handles.get(handle.name) is not handle:
+            raise KeyError(f"unknown handle {handle.name!r}")
+        if not handle.valid:
+            raise RuntimeError(
+                f"handle {handle.name!r} is unstaged; use restage_handle()"
+            )
+        if device_id == handle.device_id:
+            raise ValueError(
+                f"handle {handle.name!r} already lives on device {device_id}"
+            )
+        name = f"{handle.name}@dev{device_id}"
+        existing = self._handles.get(name)
+        if existing is not None and existing.device_id == device_id:
+            return existing
+        dst = self.devices[device_id]
+        if not dst.alive:
+            raise RuntimeError(
+                f"cannot replicate to failed device {device_id}")
+        bd = d2d_breakdown(handle.nbytes, self.platform)
+        if not dst.booted:
+            dst.boot()
+        dst.mark_resident(name)
+        cost = d2d_cost(handle.nbytes)
+        ticket = dst.issue(cost, bd, name, kind="d2d")
+        tr = _spans.current_tracer()
+        if tr is not None:
+            tr.flow(f"d2d:{name}", cat="stream",
+                    src_lane=f"dev{handle.device_id}/compute",
+                    src_t=ticket.issue_s,
+                    dst_lane=f"dev{device_id}/dma",
+                    dst_t=ticket.copy_done_s,
+                    attrs={"nbytes": handle.nbytes,
+                           "src": handle.device_id, "dst": device_id})
+        accounting.record(
+            accounting.OffloadRecord(
+                op=cost.op, shape_key=name, dtype="",
+                backend="device", cost=cost, regions=bd,
+                zero_copy=self.policy.zero_copy,
+                note=f"handle replication {handle.device_id}->{device_id}",
+                device_id=device_id,
+            )
+        )
+        replica = DeviceHandle(name=name, device_id=device_id,
+                               nbytes=handle.nbytes,
+                               replica_of=handle.name)
+        self._handles[name] = replica
+        self._note_resident_bytes(device_id)
+        return replica
+
+    def replicas_of(self, name: str) -> List[DeviceHandle]:
+        """All live replica handles cloned from the named primary."""
+        return [
+            h for h in self._handles.values()
+            if h.replica_of == name and h.valid
+        ]
+
     def restage_handle(
         self, handle: DeviceHandle, device_id: Optional[int] = None
     ) -> RegionBreakdown:
@@ -1186,6 +1264,64 @@ class HeroCluster:
             )
         )
         return LaunchResult(backend, device_id)
+
+    def launch_fanout(
+        self,
+        subs,
+        *,
+        dtype: str = "",
+        note: str = "expert-placed",
+        ready_s: float = 0.0,
+        kernel_eligible: bool = False,
+    ) -> LaunchResult:
+        """Issue one pre-placed sub-launch per entry (handle-affine fan-out).
+
+        ``subs`` is a sequence of placed sub-launch records (duck-typed:
+        ``cost``, ``device_id``, ``shape_key``, ``resident_fraction`` — see
+        :class:`repro_torch.core.placement.PlacedSubLaunch`).  Each entry is
+        charged on its assigned lane's stream clocks and written to the
+        trace exactly like a scheduler-placed launch, so a grouped op whose
+        placement policy fans it out per expert produces per-lane rollups.
+        Returns a :class:`LaunchResult` naming the busiest lane of the
+        fan-out (the one that bounds the step's makespan).
+
+        The backend is ``"device-kernel"`` when the policy enables the
+        kernels and the op is ``kernel_eligible`` (the dispatcher passes
+        its eligibility), else ``"device"`` — the reference's fan-out
+        always names ``"device"`` and lowers on its plain form; the port's
+        placed math runs where the unplaced call's does.
+        """
+        pol = self.policy
+        pol.validate()
+        backend = ("device-kernel" if kernel_eligible and pol.use_kernels
+                   else "device")
+        busiest_id, busiest_s = HOST_DEVICE_ID, -1.0
+        for s in subs:
+            dev = self.devices[s.device_id]
+            if not dev.alive:
+                raise RuntimeError(
+                    f"cannot fan out to failed device {s.device_id}")
+            if not dev.booted:
+                dev.boot()
+            if ready_s > 0.0:
+                dev.advance_clocks(ready_s)
+            rf = min(max(float(s.resident_fraction), 0.0), 1.0)
+            bd = pol.score(s.cost, dev.platform, resident_fraction=rf)
+            dev.issue(s.cost, bd, s.shape_key, resident_fraction=rf)
+            _metrics.counter("dispatch.calls", op=s.cost.op).inc()
+            _metrics.counter("dispatch.offloaded", op=s.cost.op).inc()
+            accounting.record(
+                accounting.OffloadRecord(
+                    op=s.cost.op, shape_key=s.shape_key, dtype=dtype,
+                    backend=backend, cost=s.cost, regions=bd,
+                    zero_copy=pol.zero_copy, note=note,
+                    device_id=dev.device_id, resident_fraction=rf,
+                )
+            )
+            if bd.offload_s > busiest_s:
+                busiest_id, busiest_s = dev.device_id, bd.offload_s
+        return LaunchResult(backend, busiest_id)
+
 
 # Singleton cluster — the process's host-side orchestrator.
 _ENGINE = HeroCluster()

@@ -3,10 +3,12 @@
 The device half of the declarative registry (``repro_torch.core.dispatch``):
 an :class:`~repro_torch.core.dispatch.OffloadOp` descriptor's ``kernel``
 adapter fetches its kernel here by name, so the op table and the kernel
-table stay in one-to-one view.  It has one row for each name whose kernel
-exists in the port; the reference's other two rows (``moe_gemm`` and
-``moe_expert_ffn``, wrappers over the batched GEMM that arrive with the
-MoE slice) are listed in ROADMAP.md.
+table stay in one-to-one view.  It has every row of the reference's table
+(``src/repro/kernels/ops.py``).  ``moe_gemm`` and ``moe_expert_ffn`` (the
+capacity-grouped expert GEMM and the grouped expert FFN's three GEMMs)
+are the batched GEMM itself, experts as the batch, as the reference maps
+both to ``pallas_gemm_batched``: their launches count in
+``gemm_batched.launches`` and ``gemm_batched.route_launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ KERNEL_LOWERINGS = {
     "decode_attention": flash_decode,
     "ssd_chunk_diag": ssd_chunk_diag,
     "ssd_scan": ssd_chunk_diag,      # within-chunk quadratic term
+    "moe_gemm": gemm_batched,        # (E, C, d) @ (E, d, f), experts the batch
+    "moe_expert_ffn": gemm_batched,  # gate/up/down grouped expert GEMMs
 }
 
 

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["gemm_ref", "gemm_batched_ref", "attention_ref",
+__all__ = ["gemm_ref", "gemm_batched_ref", "moe_gemm_ref", "attention_ref",
            "decode_attention_ref", "ssd_chunk_diag_ref"]
 
 _NEG_INF = -1e30
@@ -35,6 +35,14 @@ def gemm_batched_ref(a: torch.Tensor, b: torch.Tensor, *,
             f"gemm_batched_ref: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     return torch.bmm(a.float(), b.float()).to(out_dtype)
+
+
+def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(E, C, d) @ (E, d, f) — the capacity-grouped expert GEMM (the
+    reference's ``moe_gemm_ref``): the batched GEMM with experts as the
+    batch."""
+    return gemm_batched_ref(x, w, out_dtype=out_dtype)
 
 
 def attention_ref(

@@ -1,5 +1,7 @@
 """Batched serving loop: prefill + decode with a KV cache (or, for an
 SSM stack such as mamba2-370m, a per-layer SSM and conv state cache).
+MoE archs (qwen3-moe-30b-a3b, arctic-480b) serve through the same loop,
+their expert FFNs on the batched GEMM kernel.
 
 A deliberately small but real serving loop: requests arrive with prompts,
 are padded into a batch, prefilled token by token through the decode step
@@ -32,6 +34,7 @@ CLI does, with every eligible op on the kernels:
 
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 [--forward-mode graph]
     python -m repro_torch.launch.serve --arch mamba2-370m
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b [--device cpu]
     python -m repro_torch.launch.serve --arch yi-6b --devices 4 \
         --num-batches 4 --scheduler cost-aware [--no-pin-caches]
 """

@@ -1,5 +1,5 @@
-"""Graph-captured block forwards — dense and Mamba blocks on lazy ``hnp``
-graphs.
+"""Graph-captured block forwards — dense, MoE and Mamba blocks on lazy
+``hnp`` graphs.
 
 ``cfg.forward_mode = "graph"`` routes every transformer block through this
 module instead of the eager per-op seam calls.  Each block's forward is
@@ -25,7 +25,9 @@ between forces; the region shares residency across those forces.
 
 The reference traces one block under ``lax.scan`` and so writes one
 ``GraphReport`` per forward; the port's eager layer loop captures one per
-layer.  MoE FFNs arrive with the MoE slice.
+layer.  An MoE FFN's sort and scatter are no lazy graph: the block forces
+its input and runs ``moe_ffn`` eagerly, then adds the residual as a graph
+node, as the reference does.
 """
 
 from __future__ import annotations
@@ -150,8 +152,14 @@ def _graph_mamba(p, h, shape, cfg, out_dtype):
     return hnp.matmul(yn, p["wo"])
 
 
-def _graph_moe(*args, **kwargs):
-    raise NotImplementedError("graph-mode MoE FFNs arrive with the MoE slice")
+def _graph_moe(p, h, cfg):
+    """MoE FFN: the sort/scatter routing is not expressible as a lazy graph,
+    so it runs eagerly on the forced activations — its router matmul and
+    the whole grouped expert FFN still dispatch through their registered
+    descriptors, so the trace stays uniform."""
+    from repro_torch.models import moe as M
+
+    return M.moe_ffn(p, _force(h), cfg)
 
 
 def graph_block(
@@ -171,8 +179,6 @@ def graph_block(
     math); returns ``(x, aux_loss)``.  An SSM stack's block is the Mamba
     mixer alone (no second norm, no FFN).
     """
-    if is_moe:
-        _graph_moe()
     hnp = _hnp()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     with hnp.offload_region(f"{kind}-block") as region:
@@ -189,6 +195,9 @@ def graph_block(
         if cfg.family == "ssm":
             return _force(xres), aux
         h2 = _graph_norm(xres, p["norm2"], cfg, cfg.norm_kind)
+        if is_moe:
+            f, aux = _graph_moe(p["ffn"], h2, cfg)
+            return _force(xres + hnp.array(f)), aux
         f = hnp.mlp_block(
             h2, p["ffn"]["w_up"], p["ffn"]["w_down"],
             gate=p["ffn"].get("w_gate"),

@@ -1,8 +1,9 @@
 """Stack assembly: pre-norm residual blocks, looped over layers.
 
 **Uniform** stacks only: every layer has the same structure — a dense
-decoder (attention + FFN) or a Mamba-2 SSM stack (``family == "ssm"``:
-mixer only, no second norm and no FFN).
+decoder (attention + FFN), an MoE decoder (attention + the MoE FFN of
+``models/moe.py``, arctic's dense residual FFN beside it) or a Mamba-2
+SSM stack (``family == "ssm"``: mixer only, no second norm and no FFN).
 Parameters are a list of per-layer dicts (the reference stacks them on a
 leading (L, …) axis for ``lax.scan``; :func:`repro_torch.convert.params_from_jax`
 splits that axis).  Per-layer data (attention window, RoPE theta) is a
@@ -14,10 +15,13 @@ record per op with ``count = num_layers``.  Count-weighted totals agree.
 
 ``cfg.forward_mode = "graph"`` captures each block of the forward as an
 ``hnp`` graph (``models/forward.py``), and in decode the dense FFN with the
-residual fused into its launch.  The decode caches (k/v, or the SSM and
-conv states) are written in place, layer by layer.  MoE FFNs and hybrid
-stacks (jamba: Mamba layers beside attention and MoE layers) raise
-``NotImplementedError`` naming the MoE slice that brings them.
+residual fused into its launch; an MoE FFN runs eagerly in both modes
+(its sort and scatter are no graph), as in the reference.  An MoE stack's
+forward returns the sum of its layers' router aux losses, as the
+reference's scan carries it.  The decode caches (k/v, or the SSM and conv
+states) are written in place, layer by layer.  Hybrid stacks (jamba:
+Mamba layers beside attention and MoE layers, in period-8 super-blocks)
+raise ``NotImplementedError`` naming the jamba slice that brings them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, GLOBAL_WINDOW
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 __all__ = [
@@ -45,10 +50,8 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise ValueError(f"unknown forward_mode {cfg.forward_mode!r}")
     if not cfg.uniform_stack:
         raise NotImplementedError(
-            f"{cfg.family} stacks (Mamba beside attention and MoE layers) "
-            f"arrive with the MoE slice")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE FFNs arrive with the MoE slice")
+            f"{cfg.family} stacks (Mamba beside attention and MoE layers in "
+            f"super-blocks) arrive with the jamba slice")
 
 
 # ---------------------------------------------------------------------------
@@ -66,15 +69,20 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, dtype, *, device):
     if cfg.family != "ssm":
         p["norm2"] = L.init_norm(cfg.d_model, dtype, device=device,
                                  kind=cfg.norm_kind)
-        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, cfg.mlp_kind,
-                              device=device)
+        if cfg.layer_is_moe(0):
+            p["ffn"] = M.init_moe(gen, cfg, dtype, device=device)
+        else:
+            p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                  cfg.mlp_kind, device=device)
     return p
 
 
 def _apply_block(p, x, cfg: ArchConfig, *, positions, window, rope_theta):
-    """One pre-norm residual block (training / prefill): attention + FFN,
-    or the Mamba mixer alone for an SSM stack."""
+    """One pre-norm residual block (training / prefill): attention + FFN
+    (dense or MoE), or the Mamba mixer alone for an SSM stack.  Returns
+    ``(x, aux_loss)``: the MoE router's loss, else 0."""
     kind = cfg.layer_kind(0)
+    is_moe = cfg.layer_is_moe(0)
     if cfg.forward_mode == "graph":
         # Whole-block graph capture: the hnp scheduler fuses elementwise
         # epilogues, batches independent projections and threads residency
@@ -82,19 +90,24 @@ def _apply_block(p, x, cfg: ArchConfig, *, positions, window, rope_theta):
         from repro_torch.models import forward as F
 
         return F.graph_block(
-            p, x, cfg, kind, False,
+            p, x, cfg, kind, is_moe,
             positions=positions, window=window, rope_theta=rope_theta,
-        )[0]
+        )
     h = L.apply_norm(x, p["norm1"], cfg.norm_eps, cfg.norm_kind)
     if kind == "attn":
         x = x + A.attention_block(p["mixer"], h, cfg, positions=positions,
                                   window=window, rope_theta=rope_theta)
     else:
         x = x + S.mamba_block(p["mixer"], h, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        return x
+        return x, aux
     h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
-    return x + L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    if is_moe:
+        f, aux = M.moe_ffn(p["ffn"], h, cfg)
+    else:
+        f = L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    return x + f, aux
 
 
 # ---------------------------------------------------------------------------
@@ -128,14 +141,17 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, *,
 
 def apply_stack(params, x, cfg: ArchConfig, *, positions):
     """x: (B, S, D); positions: (B, S) int.  Loops the layers, each with its
-    window and RoPE theta; returns ``(x, aux_loss)`` — the aux loss is 0
-    for the dense stack (MoE brings a router loss)."""
+    window and RoPE theta; returns ``(x, aux_loss)`` — the sum of the
+    layers' MoE router losses in layer order (0 for a dense or SSM
+    stack)."""
     _check_supported(cfg)
     windows, thetas = _layer_data(cfg, x.shape[1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params):
-        x = _apply_block(lp, x, cfg, positions=positions, window=windows[i],
-                         rope_theta=thetas[i])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = _apply_block(lp, x, cfg, positions=positions,
+                            window=windows[i], rope_theta=thetas[i])
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +195,10 @@ def _decode_block(p, x, cache_slices, cache_index, cfg, *, window, rope_theta):
     )
     x = x + mix
     h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
+    if cfg.layer_is_moe(0):
+        # Eager in both modes, as the reference decodes an MoE layer.
+        f, _ = M.moe_ffn(p["ffn"], h, cfg)
+        return x + f, {"k": k_new, "v": v_new}
     if cfg.forward_mode == "graph":
         # Decode's graph half: the attention mutates the cache eagerly, the
         # dense FFN is captured (residual fused into its launch).

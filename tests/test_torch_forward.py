@@ -254,15 +254,28 @@ def test_cli_forward_mode_graph(capsys):
 
 def test_graph_mamba_and_moe_wait_for_their_slices():
     """Mamba blocks run in graph mode since the SSM slice
-    (tests/test_torch_ssm.py); stacks that put Mamba layers beside attention
-    and MoE layers (jamba), and MoE FFNs, wait for the MoE slice."""
+    (tests/test_torch_ssm.py) and MoE blocks since the MoE slice: a graph
+    MoE block equals its eager twin.  Stacks that put Mamba layers beside
+    attention and MoE layers (jamba) still raise, naming the jamba
+    slice."""
     from repro_torch.models import transformer as T
 
     hybrid = dataclasses.replace(tget_arch("mamba2-370m").reduced(),
                                  family="hybrid", attn_layer_period=2,
                                  forward_mode="graph")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
+    with pytest.raises(NotImplementedError, match="jamba slice"):
         T.apply_stack([], torch.zeros(1, 1, 4), hybrid, positions=None)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tforward.graph_block({}, torch.zeros(1, 1, 4), None, "attn", True,
-                             positions=None)
+    moe = tget_arch("qwen3-moe-30b-a3b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    p = T.init_stack(gen, moe, torch.float32, device="cpu")[0]
+    x = torch.randn(2, 8, moe.d_model, generator=gen)
+    pos = torch.arange(8).expand(2, 8)
+    with _port_policy(), torch.no_grad():
+        got, aux = tforward.graph_block(p, x, moe, "attn", True,
+                                        positions=pos, window=1 << 30)
+        want, want_aux = T._apply_block(p, x, moe, positions=pos,
+                                        window=1 << 30,
+                                        rope_theta=moe.rope_theta)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+    assert float(aux) > 0

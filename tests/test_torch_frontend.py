@@ -581,11 +581,16 @@ def test_leaves_land_on_the_card_unless_told():
 
 
 def test_validate_and_placement_wait_for_their_slices():
+    """``validate=True`` waits for ``analysis/``; placement came with the
+    MoE slice: a plan with no sub-launches (here an object without any)
+    launches as the unplaced call does, as in the reference
+    (tests/test_torch_placement.py holds the fan-out itself)."""
     from repro_torch.core.dispatch import dispatch_placed
 
     a = torch.ones(8, 8)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        dispatch_placed("gemm", a, a, placement=object())
+    placed, placed_launch = dispatch_placed("gemm", a, a, placement=object())
+    assert torch.equal(placed, a @ a)
+    assert placed_launch.backend in ("host", "device")
     with pytest.raises(NotImplementedError, match="analysis"):
         with thnp.offload_region("v", validate=True):
             thnp.asnumpy(thnp.array(a) @ a)

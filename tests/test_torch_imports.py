@@ -49,7 +49,9 @@ def test_port_import_loads_no_jax_reference_or_triton():
         "repro_torch.frontend, repro_torch.models.forward, "
         "repro_torch.kernels.flash_attention, repro_torch.runtime, "
         "repro_torch.launch.costing, repro_torch.obs.trace_export, "
-        "repro_torch.configs.paper_gemm\n"
+        "repro_torch.configs.paper_gemm, repro_torch.models.moe, "
+        "repro_torch.core.placement, repro_torch.configs.qwen3_moe_30b_a3b, "
+        "repro_torch.configs.arctic_480b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"

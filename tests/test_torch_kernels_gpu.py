@@ -970,3 +970,123 @@ def test_mamba_serve_reduced_on_kernels(card):
     with offload_policy(mode="device", use_kernels=False):
         want = serve_batch("mamba2-370m", prompts, max_new_tokens=4)
     np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+# qwen3-moe-30b-a3b's expert GEMMs: E 128 experts, m = groups x capacity
+# (64 in a decode step of 8 tokens, 128 in a 2 x 512 forward), gate / up
+# 2048 -> 768 and down 768 -> 2048 (the ``moe_gemm`` lowering row).
+MOE_EXPERT_SHAPES = [(m, k, n) for m in (64, 128)
+                     for k, n in ((2048, 768), (768, 2048))]
+
+
+@pytest.mark.parametrize("m,k,n", MOE_EXPERT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_batched_moe_expert_shapes(card, m, k, n, dtype):
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    dt = getattr(torch, dtype)
+    a = torch.randn(128, m, k, generator=card, device="cuda").to(dt)
+    b = (torch.randn(128, k, n, generator=card, device="cuda")
+         * k ** -0.5).to(dt)
+    _, batched = _route_counts()
+    got = gemm_batched(a, b)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == "bfloat16" else "tiled"
+    assert gemm_batched.route_launches == {**batched,
+                                           route: batched[route] + 1}
+    assert _err(got, moe_gemm_ref(a, b)) <= TOL[dtype]
+
+
+def test_gemm_batched_moe_stack_equals_single_launches(card):
+    """The decode step's gate GEMM over 128 experts in one launch equals the
+    128 single launches bit for bit."""
+    a = torch.randn(128, 64, 2048, generator=card, device="cuda").to(
+        torch.bfloat16)
+    b = torch.randn(128, 2048, 768, generator=card, device="cuda").to(
+        torch.bfloat16)
+    got = gemm_batched(a, b)
+    want = torch.stack([gemm(a[i], b[i]) for i in range(128)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _moe_layer(card, dtype=torch.bfloat16):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").reduced(),
+                              moe_dispatch="grouped")
+    p = M.init_moe(card, cfg, dtype, device="cuda")
+    x = torch.randn(4, 16, cfg.d_model, generator=card, device="cuda").to(
+        dtype)
+    return cfg, p, x
+
+
+def test_moe_ffn_on_kernels_repeats_and_matches_plain(card):
+    """The grouped MoE layer on the card: the kernel path launches the
+    batched GEMM three times, repeats bit for bit (the unpack sums in a
+    fixed order, no atomics) and matches the plain path (bf16 bar)."""
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models import moe as M
+
+    cfg, p, x = _moe_layer(card)
+    before = gemm_batched.launches
+    with offload_policy(mode="device", use_kernels=True), torch.no_grad():
+        a, aux = M.moe_ffn(p, x, cfg)
+        b, _ = M.moe_ffn(p, x, cfg)
+    torch.cuda.synchronize()
+    assert gemm_batched.launches == before + 6
+    assert torch.equal(a, b)
+    with offload_policy(mode="device", use_kernels=False), torch.no_grad():
+        want, want_aux = M.moe_ffn(p, x, cfg)
+    assert _err(a, want) <= TOL["bfloat16"]
+    assert float(aux) == pytest.approx(float(want_aux), rel=2e-2)
+
+
+def test_moe_placed_equals_unplaced_on_the_card(card):
+    """``moe_ffn_placed`` with a live placement policy over 4 modeled lanes
+    equals the unplaced grouped layer bit for bit on the kernels."""
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.core.placement import (ExpertPlacementPolicy,
+                                            PlacementConfig)
+    from repro_torch.models import moe as M
+
+    cfg, p, x = _moe_layer(card)
+    with offload_policy(mode="device", use_kernels=True,
+                        num_devices=4) as cluster, torch.no_grad():
+        want, _ = M.moe_ffn(p, x, cfg)
+        pol = ExpertPlacementPolicy(
+            PlacementConfig(num_experts=cfg.num_experts), cluster)
+        pol.attach()
+        before = gemm_batched.launches
+        got, _ = M.moe_ffn_placed(p, x, cfg, policy=pol)
+    torch.cuda.synchronize()
+    assert gemm_batched.launches == before + 3
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+def test_moe_serve_reduced_on_kernels(card, mode):
+    """Reduced qwen3-moe (f32, 2 layers) served on the card: each decode
+    step launches the GEMM kernel for qkv and wo (the reduced router's 4
+    experts are under the kernel gate) and the head, the batched GEMM
+    three times a layer, flash decode once a layer; greedy tokens equal
+    the plain path's."""
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.launch.serve import serve_batch
+
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(1, 200, size=4))) for _ in range(8)]
+    gemm.launches = gemm_batched.launches = flash_decode.launches = 0
+    with offload_policy(mode="device", use_kernels=True):
+        got = serve_batch("qwen3-moe-30b-a3b", prompts, max_new_tokens=4,
+                          forward_mode=mode)
+    steps, layers = 4 + 4, 2
+    assert gemm.launches == steps * (2 * layers + 1)
+    assert gemm_batched.launches == steps * 3 * layers
+    assert flash_decode.launches == steps * layers
+    with offload_policy(mode="device", use_kernels=False):
+        want = serve_batch("qwen3-moe-30b-a3b", prompts, max_new_tokens=4)
+    np.testing.assert_array_equal(got.tokens, want.tokens)

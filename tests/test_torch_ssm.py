@@ -614,10 +614,17 @@ def test_params_from_jax_carries_mamba_params(dtype):
 
 
 def test_hybrid_and_moe_stacks_wait_for_the_moe_slice():
+    """The MoE slice has come: a uniform MoE stack builds a decode cache;
+    a hybrid stack (jamba's Mamba layers beside attention and MoE layers)
+    still raises, naming the jamba slice that brings it."""
     from repro_torch.models import transformer as T
 
     jamba = tget_arch("mamba2-370m")
     hybrid = dataclasses.replace(jamba, family="hybrid", attn_layer_period=8)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
+    with pytest.raises(NotImplementedError, match="jamba slice"):
         T.init_decode_cache(hybrid.reduced(), 1, 4, torch.float32,
                             device="cpu")
+    moe = tget_arch("qwen3-moe-30b-a3b").reduced()
+    cache = T.init_decode_cache(moe, 1, 4, torch.float32, device="cpu")
+    assert tuple(cache["k"].shape) == (moe.num_layers, 1, moe.num_kv_heads,
+                                       4, moe.head_dim)
