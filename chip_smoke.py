@@ -34,11 +34,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               tensor-core route (``mma``) at every case, the forward's
               shape repeated bit for bit; the batched GEMM at qwen3-moe's
               four expert shapes (128 experts, m 64 / 128, 2048 -> 768 and
-              768 -> 2048) in bf16 and f32 against ``moe_gemm_ref``, and
+              768 -> 2048) in bf16 (``wgmma``) and f32 (``tf32x3``)
+              against ``moe_gemm_ref``, and
               one 128-expert launch bit for bit against its single
               launches; the GEMM at qwen3-moe's other shapes (qkv, wo,
               the router written f32, the head) on ``skinny`` at m = 8 and
-              16 and on ``wgmma`` at the forward's m = 1024;
+              16 and on ``wgmma`` at the forward's m = 1024; the f32
+              tensor-core route (``tf32x3``) at Fig. 3's n, ragged shapes
+              with A row- / column-major and B MN- / K-major, a misaligned
+              operand and every GEMM of the yi-6b and mamba2-370m f32
+              forwards (k up to 11008), at the f32 bar, and stacks (128
+              f32 experts, a broadcast A) bit for bit against single
+              launches and a repeat; the CUDA-core ``tiled`` route on the
+              bf16 GEMMs ``wgmma`` cannot take (a column-major A, k % 8);
 3. serve    — yi-6b at full width (bf16, random weights from a seeded
               generator), 8 requests, through the offload seam with the
               kernels on; launch counters and trace backends prove the path
@@ -68,8 +76,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               recorder) must have its span; written gzipped to
               ``DIR/serve_cluster_trace.json.gz``;
 6. float32  — first-step decode logits and last-position forward logits of
-              the same model with f32 weights, kernels against plain, and
-              the long-cache decode step of phase 5 with these weights;
+              the same model with f32 weights, kernels against plain (the
+              forward's GEMMs on ``tf32x3``, the decode step's on
+              ``skinny``), and the long-cache decode step of phase 5 with
+              these weights;
 7. hnp      — the paper's path: the reference quickstart's graph, then one
               wave of two same-shape GEMMs at yi-6b width stacked into one
               batched-GEMM launch;
@@ -78,7 +88,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               ``blas.gemm`` offloaded, n 16 to 128, f64 / f32 / bf16, copy /
               launch / compute split, each result within its bar of numpy's
               f64 product and on its backend and route (f64 the plain
-              ``device`` path, f32 ``skinny`` / ``tiled``, bf16 ``skinny`` /
+              ``device`` path, f32 ``skinny`` / ``tf32x3``, bf16 ``skinny`` /
               ``wgmma``), and the crossover n; written to
               ``DIR/paper_fig3.json``;
 8. ssm-forward — the SSM path: ``Model.forward`` of mamba2-370m at full
@@ -134,7 +144,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               kernel beside its bytes / 3xTF32 bound and the CUDA cores'
               fp32 bound; the batched GEMM at qwen3-moe's four expert
               shapes beside torch.bmm and its bound; qwen3-moe's decode
-              GEMMs outside the experts (qkv, wo, router, head).
+              GEMMs outside the experts (qkv, wo, router, head); the f32
+              GEMM (``tf32x3``) at square n 32-4096 and at the yi-6b (m
+              128) and mamba2-370m (m 512) f32 forwards' shapes beside
+              ``torch.matmul`` (TF32 off) and its bytes / 3xTF32 / CUDA-core
+              fp32 bounds; the f32 attention kernels (``simt``) at the
+              yi-6b f32 forward's and the f32 long-cache step's shapes
+              beside SDPA in f32.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
@@ -142,8 +158,10 @@ too: every bf16 forward and hnp-wave GEMM and every bf16 forward attention
 launch must have taken the tensor-core route (``wgmma``), every serving
 GEMM the skinny one, every bf16 decode attention launch the tensor-core
 one (``mma``), the f32 forward's and decode's attention the CUDA-core
-one (``simt``), and every SSD launch of the phase-2 checks and of the
-forwards (eager, graph, f32) the tensor-core one (``mma``).  The last
+one (``simt``), every f32 GEMM with m > 16 (phases 2, 6, 7a, 10, 10d)
+the f32 tensor-core one (``tf32x3``), and every SSD launch of the phase-2
+checks and of the forwards (eager, graph, f32) the tensor-core one
+(``mma``).  The last
 line of stdout is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that
 lists every kernel.  Imports nothing of JAX or of the JAX
@@ -245,6 +263,14 @@ TEST_GEMM_SHAPES = [(128, 128, 128), (256, 128, 384), (200, 130, 96),
 # (the 64-wide tile), each with B row-major ("mn") and K-major ("k").
 WGMMA_RAGGED = [(17, 72, 104), (100, 32, 1016), (1000, 5128, 8 * 131),
                 (200, 136, 96)]
+# The f32 tensor-core route (tf32x3) at ragged shapes: m, n and k off every
+# block tile (32, 64, 128), k off the 4-float copy unit and the 8-row mma
+# step, n = 1 and a narrow n.
+T3_RAGGED = [(17, 72, 104), (100, 200, 1000), (1000, 5128, 1048),
+             (33, 7, 5), (300, 1, 1001)]
+# Square f32 GEMMs timed in phase 11 (the tf32x3 route): Fig. 3's n 32-128
+# and its crossover sweep's 256-4096.
+F32_SQUARE_NS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 # Batched GEMM: tests/test_kernels.py:51-57 (bsz x 96x64 @ 64x80).
 TEST_GEMM_BATCHED = [1, 3, 8]
 # Flash-decode cases of tests/test_kernels.py:120-123, the serve shape
@@ -370,6 +396,15 @@ def forward_gemm_shapes(cfg, ssm_cfg):
     return yi + ssm
 
 
+def f32_forward_gemm_shapes(cfg, ssm_cfg):
+    """(tag, m, k, n, launches per forward, B layout) of every GEMM of the
+    f32 forward checks: yi-6b at F32_FWD_BATCH x F32_FWD_SEQ rows (m 128)
+    and mamba2-370m at 1 x SSM_F32_FWD_SEQ (m 512), all on tf32x3."""
+    m_yi, m_ssm = F32_FWD_BATCH * F32_FWD_SEQ, SSM_F32_FWD_SEQ
+    return [(tag, m_yi if tag.startswith("yi:") else m_ssm, k, n, count, lay)
+            for tag, _, k, n, count, lay in forward_gemm_shapes(cfg, ssm_cfg)]
+
+
 def graph_stack_shapes(cfg, ssm_cfg):
     """(tag, batch, m, k, n, launches per forward or wave) of the stacked
     GEMMs: mamba2-370m's graph-mode z/x and B/C stacks and the hnp wave."""
@@ -451,6 +486,19 @@ def require_route(label, routes, route, decode=None, batched=None):
     if any(stray.values()):
         fail(f"{label}: kernel launches off the {route} / {decode} / mma "
              f"routes: {routes}")
+
+
+def require_f32_gemm_routes(label, routes):
+    """Fail unless every GEMM launch (single and batched) in ``routes`` of
+    an f32 path took ``skinny`` (m <= 16) or the f32 tensor-core route
+    ``tf32x3`` (m > 16), and ``tf32x3`` ran: no f32 GEMM on the CUDA-core
+    tile."""
+    stray = {fn: {r: n for r, n in routes[fn].items()
+                  if n and r not in ("skinny", "tf32x3")}
+             for fn in ("gemm", "gemm_batched")}
+    if any(stray.values()) or not (routes["gemm"]["tf32x3"]
+                                   + routes["gemm_batched"]["tf32x3"]):
+        fail(f"{label}: f32 GEMMs off the skinny / tf32x3 routes: {routes}")
 
 
 def decode_route_of(dtype):
@@ -640,7 +688,7 @@ def main() -> None:
     emit({"phase": "ssm-serve", **ssm_serve})
     del ssm_params
     torch.cuda.empty_cache()
-    run_ssm_f32(ssm_cfg, ssm_tokens, ssm_prompts)
+    routes["ssm-float32"] = run_ssm_f32(ssm_cfg, ssm_tokens, ssm_prompts)
 
     # ---- 10a.-10f. MoE: qwen3-moe-30b-a3b at full width --------------------
     run_moe(moe_cfg, rng, zero_counts, read_counts, launches, routes)
@@ -694,7 +742,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
                "flash_attention": 0.0, "ssd_chunk_diag": 0.0,
                "gemm:forward": 0.0, "gemm_batched:forward": 0.0,
                "gemm:ssm-serve": 0.0, "gemm:moe": 0.0,
-               "gemm_batched:moe": 0.0}
+               "gemm_batched:moe": 0.0, "gemm:tf32x3": 0.0}
     checks = []
 
     def record(kernel, case, dt, err, abs_err, main_shape, scale="max",
@@ -727,8 +775,12 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
     for m, n, k, tag in gemm_cases:
         for dt in (torch.float32, torch.bfloat16):
             a, b = randn(m, k, dtype=dt), randn(k, n, dtype=dt)
-            got = gemm(a, b)
-            torch.cuda.synchronize()
+            if dt == torch.float32:        # every f32 GEMM: skinny / tf32x3
+                got = on_route(gemm, "skinny" if m <= 16 else "tf32x3",
+                               lambda: gemm(a, b))
+            else:
+                got = gemm(a, b)
+                torch.cuda.synchronize()
             record("gemm", f"{tag} {m}x{k}@{k}x{n}", dt,
                    *_rel_err(got, gemm_ref(a, b)), tag != "test")
     # The skinny route (m <= 16): every decode GEMM of the three models
@@ -820,8 +872,12 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
     for z, m, k, n, tag in batched:
         for dt in (torch.float32, torch.bfloat16):
             a, b = randn(z, m, k, dtype=dt), randn(z, k, n, dtype=dt)
-            got = gemm_batched(a, b)
-            torch.cuda.synchronize()
+            if dt == torch.float32:
+                got = on_route(gemm_batched, "tf32x3",
+                               lambda: gemm_batched(a, b))
+            else:
+                got = gemm_batched(a, b)
+                torch.cuda.synchronize()
             record("gemm_batched", f"{tag} {z}x{m}x{k}@{z}x{k}x{n}", dt,
                    *_rel_err(got, gemm_batched_ref(a, b)), tag != "test",
                    key=None if tag == "hnp-wave" else "gemm_batched:forward")
@@ -845,14 +901,14 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
         del a, b, got, singles
 
     # The expert GEMMs of qwen3-moe (the moe_gemm row): bf16 on the tensor
-    # cores, f32 on the CUDA cores, against moe_gemm_ref; weights scaled as
-    # the model draws them.  Then the decode step's gate GEMM in one launch
+    # cores (wgmma), f32 on them by 3xTF32 (tf32x3), against moe_gemm_ref;
+    # weights scaled as the model draws them.  Then the decode step's gate GEMM in one launch
     # against its 128 single launches, bit for bit.
     for tag, e, m, k, n, _ in moe_expert_shapes(moe_cfg):
         for dt in (torch.float32, bf16):
             a = randn(e, m, k, dtype=dt)
             b = (randn(e, k, n) * k ** -0.5).to(dt)
-            route = "wgmma" if dt == bf16 else "tiled"
+            route = "wgmma" if dt == bf16 else "tf32x3"
             got = on_route(gemm_batched, route, lambda: gemm_batched(a, b))
             record("gemm_batched", f"moe {tag} {e}x{m}x{k}@{e}x{k}x{n} "
                    f"{route}", dt, *_rel_err(got, moe_gemm_ref(a, b)), True,
@@ -869,6 +925,68 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
                    f"{e}x{m}x{k}@{e}x{k}x{n} == single launches",
                    "err": 0.0, "tol": 0.0})
     del a, b, got, singles
+
+    # The f32 tensor-core route (tf32x3, m > 16): Fig. 3's n, ragged shapes
+    # with A row- and column-major and B MN- and K-major, a misaligned
+    # operand (4-byte copies), and every GEMM of the yi-6b (m 128) and
+    # mamba2-370m (m 512) f32 forwards (k up to 11008), each at the f32
+    # bar; then stacks (qwen3-moe's 128 f32 experts; a broadcast A) against
+    # their single launches and a repeat, bit for bit.
+    f32 = torch.float32
+    t3_cases = [(n, n, n, "row", "mn", "fig3") for n in (32, 64, 128)]
+    t3_cases += [(m, n, k, al, bl, "ragged") for m, n, k in T3_RAGGED
+                 for al in ("row", "col") for bl in ("mn", "k")]
+    t3_cases += [(m, n, k, "row", lay, "f32-forward:" + tag)
+                 for tag, m, k, n, _, lay in f32_forward_gemm_shapes(cfg,
+                                                                     ssm_cfg)]
+    for m, n, k, al, bl, tag in t3_cases:
+        a = randn(m, k) if al == "row" else randn(k, m).T
+        b = b_operand(randn, k, n, bl, f32)
+        got = on_route(gemm, "tf32x3", lambda: gemm(a, b))
+        record("gemm", f"tf32x3 {tag} {m}x{k}@{k}x{n} A {al}-major B "
+               f"{bl}-major", f32, *_rel_err(got, gemm_ref(a, b)),
+               tag.startswith("f32-forward"), main_dtype=f32,
+               key="gemm:tf32x3")
+        del a, b, got
+    flat = randn(130 * 518 + 1)
+    a = flat[1:].view(130, 518)[:, :515]       # base 4 bytes off, odd stride
+    b = randn(515, 91)[:, :90]
+    got = on_route(gemm, "tf32x3", lambda: gemm(a, b))
+    record("gemm", "tf32x3 misaligned 130x515@515x90 (4-byte copies)", f32,
+           *_rel_err(got, gemm_ref(a, b)), False)
+    tag, e, m, k, n, _ = moe_expert_shapes(moe_cfg)[0]
+    t3_stacks = [(f"moe {tag}", randn(e, m, k), randn(e, k, n) * k ** -0.5)]
+    m, k, n = F32_FWD_BATCH * F32_FWD_SEQ, cfg.d_model, cfg.d_model
+    t3_stacks.append(("broadcast A yi-wo", randn(m, k).expand(2, m, k),
+                      randn(2, k, n)))
+    for tag, a, b in t3_stacks:
+        z, m, k = a.shape
+        n = b.shape[2]
+        got = on_route(gemm_batched, "tf32x3", lambda: gemm_batched(a, b))
+        again = on_route(gemm_batched, "tf32x3", lambda: gemm_batched(a, b))
+        singles = torch.stack([on_route(gemm, "tf32x3",
+                                        lambda i=i: gemm(a[i], b[i]))
+                               for i in range(z)])
+        if not (torch.equal(got, singles) and torch.equal(got, again)):
+            fail(f"gemm_batched tf32x3 {tag}: stack or repeat differs")
+        record("gemm_batched", f"tf32x3 {tag} {z}x{m}x{k}@{z}x{k}x{n}", f32,
+               *_rel_err(got, gemm_batched_ref(a, b)), False)
+        checks.append({"kernel": "gemm_batched", "case": f"tf32x3 {tag} "
+                       f"{z}x{m}x{k}@{z}x{k}x{n} == single launches, "
+                       "== repeat", "err": 0.0, "tol": 0.0})
+        del a, b, got, again, singles
+    # The CUDA-core tile keeps the bf16 GEMMs wgmma cannot take: a
+    # column-major A, and a k off TMA's 8-element unit read through an odd
+    # row stride.
+    for tag, a, b in (
+            ("col-major A", randn(96, 200, dtype=bf16).T,
+             randn(96, 136, dtype=bf16)),
+            ("k % 8 != 0, odd row stride", randn(200, 141, dtype=bf16)[:, :100],
+             randn(100, 136, dtype=bf16))):
+        got = on_route(gemm, "tiled", lambda: gemm(a, b))
+        record("gemm", f"tiled {tag} {a.shape[0]}x{a.shape[1]}@"
+               f"{b.shape[0]}x{b.shape[1]}", bf16,
+               *_rel_err(got, gemm_ref(a, b)), False)
 
     for case in TEST_DECODE_CASES:
         b = len(case["bounds"])
@@ -1128,7 +1246,8 @@ def _backends(trace, ops):
     return {k: sorted(v) for k, v in backends.items()}
 
 
-KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny"),
+KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny",
+                            "gemm_tf32x3"),
                    "flash_attention": ("flash_attention_kernel",
                                        "attn_wgmma"),
                    "flash_decode": ("flash_decode_",),
@@ -1406,6 +1525,7 @@ def run_f32(cfg, tokens, prompts, zero_counts, read_counts):
     attn = out["routes"]["flash_attention"]
     if attn != {"simt": cfg.num_layers, "wgmma": 0}:
         fail(f"f32 forward attention off the simt route: {attn}")
+    require_f32_gemm_routes("f32 decode / forward", out["routes"])
     dec = out["routes"]["flash_decode"]
     if dec != {"simt": cfg.num_layers, "mma": 0}:
         fail(f"f32 decode attention off the simt route: {dec}")
@@ -1709,7 +1829,7 @@ def run_paper_fig3(zero_counts, read_counts):
     result = tool.run()
     launches, routes = read_counts(), read_routes()
     used = {k for k, v in routes["gemm"].items() if v}
-    if used != {"skinny", "tiled", "wgmma"} or launches["gemm"] == 0 or \
+    if used != {"skinny", "tf32x3", "wgmma"} or launches["gemm"] == 0 or \
             any(launches[k] for k in launches if k != "gemm"):
         fail(f"paper-fig3 launches {launches} routes {routes}")
     path = OUT_DIR / "paper_fig3.json"
@@ -1729,7 +1849,8 @@ def run_ssm_f32(cfg, tokens, prompts):
     runs), kernels against plain, bar 1e-4; and the decode recurrence
     against the chunked SSD on the kernels: the serve prefill's last
     logits (token by token through the decode step) against
-    Model.forward(prompts)[:, -1] (one 16-row chunk)."""
+    Model.forward(prompts)[:, -1] (one 16-row chunk).  Returns the
+    forward's route counts."""
     import torch
 
     from repro_torch.core import blas
@@ -1749,9 +1870,11 @@ def run_ssm_f32(cfg, tokens, prompts):
 
     zero_routes()
     fwd = _logit_errs(last_logits, (1, cfg.vocab_size))
-    ssd_routes = read_routes()["ssd_chunk_diag"]
+    fwd_routes = read_routes()
+    ssd_routes = fwd_routes["ssd_chunk_diag"]
     if ssd_routes != {"simt": 0, "mma": cfg.num_layers}:
         fail(f"ssm f32 forward SSD off the mma route: {ssd_routes}")
+    require_f32_gemm_routes("ssm f32 forward", fwd_routes)
     if not fwd["err"] <= F32_LOGIT_TOL:
         fail(f"ssm f32 forward logits differ: {fwd} > {F32_LOGIT_TOL}")
 
@@ -1772,6 +1895,7 @@ def run_ssm_f32(cfg, tokens, prompts):
     emit({"phase": "ssm-float32", "forward_last_position": fwd,
           "bar": F32_LOGIT_TOL, "forward_batch": 1,
           "ssd_routes": ssd_routes,
+          "gemm_routes": {k: fwd_routes[k] for k in ("gemm", "gemm_batched")},
           "forward_seq": SSM_F32_FWD_SEQ,
           "decode_vs_forward": {
               "err": dvf, "bar": DECODE_VS_FORWARD_TOL,
@@ -1780,6 +1904,7 @@ def run_ssm_f32(cfg, tokens, prompts):
               "batch": BATCH, "prompt_len": PROMPT_LEN}})
     del params32
     torch.cuda.empty_cache()
+    return fwd_routes
 
 
 def run_moe(cfg, rng, zero_counts, read_counts, launches, routes):
@@ -2129,10 +2254,11 @@ def run_moe_f32(cfg, prompts, tokens):
                 gaps += (srt[:, k - 1] - srt[:, k]).tolist()
         out[f"{name}_routing"] = {"decisions": decisions, "differ": flips,
                                   "gaps_at_differing_tokens": gaps}
-    if out["routes"]["gemm_batched"]["tiled"] == 0 or any(
+    if out["routes"]["gemm_batched"]["tf32x3"] == 0 or any(
             n for r, n in out["routes"]["gemm_batched"].items()
-            if r != "tiled"):
-        fail(f"f32 expert GEMMs off the tiled route: {out['routes']}")
+            if r != "tf32x3"):
+        fail(f"f32 expert GEMMs off the tf32x3 route: {out['routes']}")
+    require_f32_gemm_routes("qwen3-moe f32", out["routes"])
     for name in ("decode_first_step", "forward_last_position"):
         if not out[name]["err"] <= F32_LOGIT_TOL:
             fail(f"qwen3-moe f32 {name} logits differ: {out[name]} > "
@@ -2392,6 +2518,23 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"]}
 
+    # The f32 GEMM route (tf32x3) at square n and at the f32 forwards'
+    # shapes; the f32 attention kernels (simt) at the yi-6b f32 forward's
+    # shape and at the f32 long-cache decode step, beside SDPA in f32.
+    f32_rows, f32_tot = time_f32_gemms(gemm, cfg, ssm_cfg, randn)
+    emit({"f32_gemm_shapes": f32_rows, "per_forward": f32_tot})
+    f32_attn = time_f32_attention(flash_attention, cfg, randn)
+    f32_dec = time_flash_decode(
+        flash_decode, hq, hkv, d, randn, "float32",
+        [("long-f32", BATCH, LONG_CACHE, LONG_INDEX + 1)])["long-f32"]
+    emit({"f32_flash_attention_shape": f32_attn,
+          "f32_flash_decode_shape": f32_dec})
+    if any(set(r["routes"]) != {"tf32x3"} for r in f32_rows):
+        fail(f"f32 GEMMs timed off the tf32x3 route: "
+             f"{[(r['shape'], r['routes']) for r in f32_rows]}")
+    t3_launches = {path: r["gemm"]["tf32x3"] + r["gemm_batched"]["tf32x3"]
+                   for path, r in routes.items()}
+
     per = "decode_step"
     return [
         {"name": "gemm", "route": "cuda",
@@ -2430,6 +2573,29 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "moe_serve_bound_ms": moe_step["bound_ms"],
          "moe_forward_launches": launches["moe-forward"]["gemm"],
          "route_launches": {path: r["gemm"] for path, r in routes.items()}},
+        {"name": "gemm_tf32x3", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gemm.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/gemm_tf32x3.cuh",
+         "replaces": "src/repro/kernels/gemm.py:32",
+         "launches": routes["float32"]["gemm"]["tf32x3"], "path": "float32",
+         "max_abs_err": max_abs["gemm:tf32x3"],
+         "ms": f32_tot["yi"]["ms"], "plain_ms": f32_tot["yi"]["plain_ms"],
+         "bound_ms": f32_tot["yi"]["bound_ms"],
+         "bound_by": f32_tot["yi"]["bound_by"],
+         "library_ms": f32_tot["yi"]["library_ms"],
+         "per": "f32 forward (yi-6b, 1 x 128)",
+         "tf32x3_bound_ms": f32_tot["yi"]["tf32x3_bound_ms"],
+         "fp32_fma_bound_ms": f32_tot["yi"]["fp32_fma_bound_ms"],
+         "bytes_bound_ms": f32_tot["yi"]["bytes_bound_ms"],
+         "ssm_forward_ms": f32_tot["mamba"]["ms"],
+         "ssm_forward_library_ms": f32_tot["mamba"]["library_ms"],
+         "ssm_forward_bound_ms": f32_tot["mamba"]["bound_ms"],
+         "square_ms": {r["n"]: r["ms"] for r in f32_rows
+                       if r["shape"].startswith("square:")},
+         "square_library_ms": {r["n"]: r["library_ms"] for r in f32_rows
+                               if r["shape"].startswith("square:")},
+         "route_launches": {path: n for path, n in t3_launches.items()
+                            if n}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:32",
@@ -2445,6 +2611,9 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "long_cache_per_launch": {tag: {key: dec[tag][key] for key in (
              "B", "S", "valid", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_share")} for tag in ("long", "long-b1")},
+         "f32_long_cache_per_launch": {key: f32_dec[key] for key in (
+             "B", "S", "valid", "ms", "plain_ms", "library_ms", "bound_ms",
+             "fp32_fma_bound_ms")},
          "route_launches": {path: r["flash_decode"]
                             for path, r in routes.items()
                             if any(r["flash_decode"].values())}},
@@ -2481,6 +2650,9 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "library_ms": L * t_al, "library_causal_ms": L * t_alc,
          "views_ms": L * t_akv, "per": "forward",
          "moe_forward_launches": launches["moe-forward"]["flash_attention"],
+         "f32_forward_per_launch": {key: f32_attn[key] for key in (
+             "S", "routes", "ms", "plain_ms", "library_ms", "bound_ms",
+             "fp32_fma_bound_ms")},
          "tile_source": "src/repro_torch/kernels/csrc/attn_wgmma.cuh",
          "route_launches": {path: r["flash_attention"]
                             for path, r in routes.items()
@@ -2566,25 +2738,29 @@ def time_moe_gemms(gemm_batched, moe_cfg, randn):
     return rows, tot
 
 
-def time_flash_decode(flash_decode, hq, hkv, d, randn):
-    """Each DECODE_TIME_SHAPES shape in bf16: ``flash_decode`` (any tree's
-    wrapper), its plain version and SDPA (GQA, the same slot mask) in ms
-    per launch over caches rotated past L2, beside the bound (q read and
-    the output written once, the valid K and V slots read once, 4·D FLOPs
-    per q head and slot).  Returns ``{tag: {...}}``."""
+def time_flash_decode(flash_decode, hq, hkv, d, randn, dtype="bfloat16",
+                      shapes=None):
+    """Each shape of ``shapes`` (default DECODE_TIME_SHAPES) in ``dtype``:
+    ``flash_decode`` (any tree's wrapper), its plain version and SDPA (GQA,
+    the same slot mask) in ms per launch over caches rotated past L2,
+    beside the bound (q read and the output written once, the valid K and
+    V slots read once, 4·D FLOPs per q head and slot; f32: the larger of
+    the bytes and 3xTF32 work, the CUDA cores' fp32 bound beside).
+    Returns ``{tag: {...}}``."""
     import torch
 
     from repro_torch.kernels.ref import decode_attention_ref
 
     dev = torch.device("cuda")
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)
+    item = dt.itemsize
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for tag, b, s, valid in DECODE_TIME_SHAPES:
-        q = randn(b, hq, d, dtype=bf16)
-        kvs = _rotation(lambda: (randn(b, hkv, s, d, dtype=bf16),
-                                 randn(b, hkv, s, d, dtype=bf16)),
-                        2 * b * hkv * s * d * 2)
+    for tag, b, s, valid in shapes or DECODE_TIME_SHAPES:
+        q = randn(b, hq, d, dtype=dt)
+        kvs = _rotation(lambda: (randn(b, hkv, s, d, dtype=dt),
+                                 randn(b, hkv, s, d, dtype=dt)),
+                        2 * b * hkv * s * d * item)
         lo = torch.zeros(b, dtype=torch.int32, device=dev)
         hi = torch.full((b,), valid, dtype=torch.int32, device=dev)
         slot_ok = (torch.arange(s, device=dev) < valid)[None, None, None]
@@ -2594,18 +2770,129 @@ def time_flash_decode(flash_decode, hq, hkv, d, randn):
                     kvs, iters=10)
         t_l = _time(lambda kv: sdpa(q4, kv[0], kv[1], attn_mask=slot_ok,
                                     enable_gqa=True), kvs)
-        nbytes = 2.0 * (2 * b * hq * d + 2 * b * hkv * valid * d)
+        nbytes = item * (2.0 * b * hq * d + 2.0 * b * hkv * valid * d)
         flops = 4.0 * b * hq * valid * d
-        bound = _bound_ms(nbytes, flops, "bfloat16")
+        bounds = (f32_bounds(nbytes, flops) if dtype == "float32" else
+                  {"bound_ms": _bound_ms(nbytes, flops, dtype),
+                   "bound_by": _bound_by(nbytes, flops, dtype)})
         out[tag] = {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "S": s,
-                    "valid": valid, "ms": t_k, "plain_ms": t_p,
-                    "library_ms": t_l, "library": "SDPA, GQA, slot mask",
-                    "bound_ms": bound,
-                    "bound_by": _bound_by(nbytes, flops, "bfloat16"),
-                    "bound_share": bound / t_k, "GBps": nbytes / t_k / 1e6,
-                    "vs_library": t_k / t_l}
+                    "valid": valid, "dtype": dtype, "ms": t_k,
+                    "plain_ms": t_p, "library_ms": t_l,
+                    "library": "SDPA, GQA, slot mask", **bounds,
+                    "bound_share": bounds["bound_ms"] / t_k,
+                    "GBps": nbytes / t_k / 1e6, "vs_library": t_k / t_l}
         del kvs
     return out
+
+
+def f32_bounds(nbytes, flops):
+    """An fp32-accurate kernel's bounds in ms: the bytes over the memory
+    rate; its products as 3xTF32 on the tensor cores (three TF32 products
+    a product over the 495 TFLOP/s TF32 peak); and as fp32 FMAs on the
+    CUDA cores (67 TFLOP/s).  ``bound_ms`` is the least time fp32-accurate
+    work can take on this card: the larger of the bytes and the 3xTF32
+    work."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_3x = 1e3 * 3 * flops / PEAK_FLOPS["tf32"]
+    t_fp32 = 1e3 * flops / PEAK_FLOPS["float32"]
+    return {"bound_ms": max(t_bytes, t_3x),
+            "bound_by": "bytes" if t_bytes >= t_3x else "operations",
+            "bytes_bound_ms": t_bytes, "tf32x3_bound_ms": t_3x,
+            "fp32_fma_bound_ms": max(t_bytes, t_fp32)}
+
+
+def time_f32_gemms(gemm, cfg, ssm_cfg, randn):
+    """The GEMM (any tree's wrapper) on f32 operands with m > 16: square n
+    F32_SQUARE_NS (Fig. 3's n and the crossover sweep's) and every GEMM of
+    the yi-6b (m 128) and mamba2-370m (m 512) f32 forwards
+    (``f32_forward_gemm_shapes``), over operands rotated past L2: kernel,
+    plain version and ``torch.matmul`` (TF32 off: cuBLAS fp32) in ms per
+    launch, the route each launch took, the tree's tf32x3 plan where it
+    has one, TFLOP/s, beside ``f32_bounds``; and per forward the totals.
+    Returns ``(rows, {"yi": {...}, "mamba": {...}})``."""
+    import torch
+
+    from repro_torch.kernels.ref import gemm_ref
+
+    f32 = torch.float32
+    mod = sys.modules[gemm.__module__]
+    plan_of = getattr(mod, "tf32x3_plan", None)
+    shapes = [(f"square:{n}", n, n, n, 1, "mn") for n in F32_SQUARE_NS]
+    shapes += f32_forward_gemm_shapes(cfg, ssm_cfg)
+    rows = []
+    tot = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes",
+                               "flops", "launches"), 0.0)
+           for key in ("yi", "mamba")}
+    for tag, m, k, n, count, lay in shapes:
+        ops = _rotation(lambda: (randn(m, k), b_operand(randn, k, n, lay,
+                                                        f32)),
+                        4.0 * (m * k + k * n))
+        iters = 40 if m * n * k <= 2 ** 28 else 10
+        before = dict(gemm.route_launches)
+        t_k = _time(lambda t: gemm(*t), ops, iters)
+        took = {r: c - before[r] for r, c in gemm.route_launches.items()
+                if c != before[r]}
+        t_p = _time(lambda t: gemm_ref(*t), ops, iters)
+        t_l = _time(lambda t: torch.matmul(*t), ops, iters)
+        nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * n * k
+        row = {"shape": tag, "m": m, "k": k, "n": n, "b_major": lay,
+               "launches_per_forward": count, "routes": took, "ms": t_k,
+               "plain_ms": t_p, "library_ms": t_l,
+               "library": "torch.matmul fp32 (TF32 off)",
+               **f32_bounds(nbytes, flops), "TFLOPs": flops / t_k / 1e9,
+               "vs_library": t_k / t_l}
+        if plan_of is not None:
+            a, b = ops[0]
+            row["plan"] = plan_of(m, n, k, f32, (0, *a.stride()),
+                                  (0, *b.stride()), a.data_ptr(),
+                                  b.data_ptr(), mod.tf32x3_capacity(
+                                      a.device.index))._asdict()
+        rows.append(row)
+        key = tag.split(":")[0]
+        if key in tot:
+            t = tot[key]
+            for name, v in (("ms", t_k), ("plain_ms", t_p),
+                            ("library_ms", t_l), ("bytes", nbytes),
+                            ("flops", flops), ("launches", 1)):
+                t[name] += count * v
+        del ops
+    for t in tot.values():
+        t.update(f32_bounds(t["bytes"], t["flops"]))
+        t["TFLOPs"] = t["flops"] / t["ms"] / 1e9
+        t["vs_library"] = t["ms"] / t["library_ms"]
+    return rows, tot
+
+
+def time_f32_attention(flash_attention, cfg, randn):
+    """Flash attention (any tree's wrapper) on f32 operands at the yi-6b
+    f32 forward's shape (F32_FWD_BATCH x F32_FWD_SEQ, causal GQA, D 128:
+    the CUDA-core ``simt`` route): kernel, plain version and SDPA in f32
+    (``is_causal``, GQA; TF32 off) in ms per launch over operands rotated
+    past L2, beside ``f32_bounds``."""
+    import torch
+
+    from repro_torch.kernels.ref import attention_ref
+
+    b, s = F32_FWD_BATCH, F32_FWD_SEQ
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nbytes, flops = attn_work(b, hq, hkv, s, s, d, True, None, 4)
+    ops = _rotation(lambda: attn_operands(randn, b, hq, hkv, s, s, d,
+                                          torch.float32, False), nbytes)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    before = dict(flash_attention.route_launches)
+    t_k = _time(lambda t: flash_attention(*t, causal=True), ops)
+    took = {r: c - before[r] for r, c in flash_attention.route_launches.items()
+            if c != before[r]}
+    t_p = _time(lambda t: attention_ref(*t, causal=True), ops)
+    t_l = _time(lambda t: sdpa(*t, is_causal=True, enable_gqa=True), ops)
+    bounds = f32_bounds(nbytes, flops)
+    return {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True,
+            "dtype": "float32", "routes": took,
+            "launches_per_forward": cfg.num_layers, "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l,
+            "library": "SDPA f32, GQA, is_causal (TF32 off)", **bounds,
+            "bound_share": bounds["bound_ms"] / t_k,
+            "vs_library": t_k / t_l, "TFLOPs": flops / t_k / 1e9}
 
 
 def ssd_work(bh, nc, q, p, n, itemsize=4):

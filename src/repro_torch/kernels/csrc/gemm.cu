@@ -5,11 +5,12 @@
 // (src/repro/kernels/gemm.py).  There the sequential k grid axis carried an
 // fp32 VMEM accumulator from one grid step to the next and operands were
 // zero-padded to 128-tiles.  Here blocks run in parallel in no order, so the
-// k loop lives inside the block and each output element is written once.
-// Ragged edges are masked (or zero-filled by TMA); no operand is padded or
-// copied.
+// k loop lives inside the block (or a cluster's blocks split k and sum in
+// distributed shared memory) and each output element is written once.
+// Ragged edges are masked (or zero-filled by TMA / cp.async); no operand is
+// padded or copied.
 //
-// Three kernels; the caller names which one runs (`route`, chosen in
+// Four kernels; the caller names which one runs (`route`, chosen in
 // kernels/gemm.py::gemm_route by shape, dtype, layout and alignment), and
 // nothing here falls back from one to another:
 //
@@ -17,11 +18,16 @@
 //     graph forward's and hnp's GEMMs.  Tensor cores (`wgmma`) on bf16
 //     tiles staged by TMA through a ring of mbarrier-guarded stages, fp32
 //     accumulators in registers; bound by 989 TFLOP/s of bf16 work.
-//   tiled  — every other m > 16 GEMM: fp32 operands, a column-major A, or
-//     operands TMA cannot address (k % 8 != 0, misaligned).  A 64x64
+//   tf32x3 (gemm_tf32x3.cuh) — f32 operands with m > 16, any layout and
+//     alignment: 3xTF32 `mma.sync` tiles fed by a cp.async ring, the mma
+//     accumulator restarted every 32-deep k tile into an fp32 register sum,
+//     k split across a cluster at small grids (plan from
+//     kernels/gemm.py::tf32x3_plan); fp32-accurate (never a single TF32
+//     product).
+//   tiled  — the bf16 GEMMs with m > 16 that wgmma cannot take: a
+//     column-major A, k % 8 != 0, or operands TMA cannot address.  A 64x64
 //     register tile on the CUDA cores: operands widened to fp32 on load and
-//     every product a true fp32 FMA (no TF32), so an f32 GEMM matches the
-//     fp32 reference to ~1e-6 relative.
+//     every product a true fp32 FMA.
 //   skinny — m <= 16 (serving: m = batch), in gemm_skinny.cuh.  A GEMM
 //     there does 2*m FLOPs per weight element it reads, far below the
 //     card's ~295 FLOP/byte ridge, so the bound is the bytes of B over
@@ -38,7 +44,7 @@
 //     kernel before it ends; all memory access waits for that kernel).
 //     Its own entry point, repro_gemm_skinny, takes the plan.
 //
-// All three take a batch index (blockIdx.z) with batch strides, so a
+// All four take a batch index (blockIdx.z) with batch strides, so a
 // batched GEMM is the same kernel as the single one.
 //
 // Plain C interface, built by nvcc into a shared library and called through
@@ -51,11 +57,11 @@
 #include <stdint.h>
 
 #include "gemm_skinny.cuh"
+#include "gemm_tf32x3.cuh"
 #include "gemm_wgmma.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -71,7 +77,7 @@ struct GemmArgs {
   long long sc_b, sc_m;         // C strides: batch, row (column stride 1)
 };
 
-// ---- register-tiled kernel on the CUDA cores (m > 16, not the wgmma route) --
+// ---- register-tiled kernel on the CUDA cores (bf16 m > 16 off wgmma) ------
 constexpr int TB_M = 64, TB_N = 64, TB_K = 16, TT_M = 4, TT_N = 4;
 constexpr int TB_THREADS = (TB_M / TT_M) * (TB_N / TT_N);   // 256
 
@@ -137,7 +143,7 @@ gemm_tiled(const TI* __restrict__ A, const TI* __restrict__ B,
   }
 }
 
-enum Route { kSkinny = 0, kTiled = 1, kWgmma = 2 };
+enum Route { kSkinny = 0, kTiled = 1, kWgmma = 2, kTf32x3 = 3 };
 
 template <typename TI, typename TO>
 cudaError_t launch(const void* a, const void* b, void* c, const GemmArgs& g,
@@ -157,22 +163,36 @@ cudaError_t launch(const void* a, const void* b, void* c, const GemmArgs& g,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  route: 1 tiled, 2 wgmma (bf16
-// inputs, row-major A, B with k- or n-stride 1); the skinny route (0) has
-// its own entry point below.  Returns a cudaError_t as int
-// (cudaErrorInvalidValue for a dtype pair or operands the route does not
-// take).
+// inputs, row-major A, B with k- or n-stride 1), 3 tf32x3 (f32 inputs);
+// the skinny route (0) has its own entry point below.  The last five ints
+// are the tf32x3 launch plan of kernels/gemm.py::tf32x3_plan (the other
+// routes ignore them): tile (0 = 128x64, 1 = 64x64, 2 = 32x32), layout
+// (bit 0: A staged k-contiguous, i.e. row-major; bit 1: B staged
+// k-contiguous, i.e. K-major), splits (blocks of a cluster along k, at
+// most 8), kc (k rows per split, a multiple of 8) and vec (bit 0: A in
+// 16-byte copies; bit 1: B).  Returns a cudaError_t as int
+// (cudaErrorInvalidValue for a dtype pair, plan or operands the route does
+// not take).
 extern "C" int repro_gemm(const void* a, const void* b, void* c,
                           int M, int N, int K, int batch,
                           long long sa_b, long long sa_m, long long sa_k,
                           long long sb_b, long long sb_k, long long sb_n,
                           long long sc_b, long long sc_m,
                           int in_dtype, int out_dtype, int route,
+                          int tile, int layout, int splits, int kc, int vec,
                           void* stream) {
   GemmArgs g{M, N, K, sa_b, sa_m, sa_k, sb_b, sb_k, sb_n, sc_b, sc_m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || batch <= 0) return 0;
   cudaError_t e;
-  if (route == kWgmma) {
+  if (route == kTf32x3) {
+    if (in_dtype != 0 || (out_dtype != 0 && out_dtype != 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    t3::Args t{M, N, K, sa_b, sa_m, sa_k, sb_b, sb_k, sb_n, sc_b, sc_m,
+               splits, kc, vec & 1, (vec >> 1) & 1, out_dtype == 1};
+    e = t3::launch(static_cast<const float*>(a), static_cast<const float*>(b),
+                   c, t, batch, tile, (layout & 1) != 0, (layout & 2) != 0, s);
+  } else if (route == kWgmma) {
     if (in_dtype != 1 || sa_k != 1 || (sb_n != 1 && sb_k != 1))
       return static_cast<int>(cudaErrorInvalidValue);
     const auto* A = static_cast<const __nv_bfloat16*>(a);
@@ -186,18 +206,22 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c,
                                     sc_b, sc_m, s);
     else
       e = cudaErrorInvalidValue;
-  } else if (in_dtype == 0 && out_dtype == 0) {
-    e = launch<float, float>(a, b, c, g, batch, route, s);
-  } else if (in_dtype == 0 && out_dtype == 1) {
-    e = launch<float, __nv_bfloat16>(a, b, c, g, batch, route, s);
   } else if (in_dtype == 1 && out_dtype == 0) {
     e = launch<__nv_bfloat16, float>(a, b, c, g, batch, route, s);
   } else if (in_dtype == 1 && out_dtype == 1) {
     e = launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, g, batch, route, s);
   } else {
-    e = cudaErrorInvalidValue;
+    e = cudaErrorInvalidValue;   // f32 inputs with m > 16 take tf32x3
   }
   return static_cast<int>(e);
+}
+
+// How many blocks of the tf32x3 kernel with block tile `tile` (codes as
+// for repro_gemm) the current device runs at once in clusters of
+// `splits`, into *blocks (cudaOccupancyMaxActiveClusters).  Returns a
+// cudaError_t as int.
+extern "C" int repro_gemm_tf32x3_capacity(int tile, int splits, int* blocks) {
+  return static_cast<int>(t3::capacity(tile, splits, blocks));
 }
 
 // The skinny route (m <= 16) with the launch plan of kernels/gemm.py::

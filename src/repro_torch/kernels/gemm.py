@@ -4,12 +4,17 @@ Replaces the reference's Pallas TPU kernel ``gemm_kernel`` via
 ``pallas_gemm`` (``src/repro/kernels/gemm.py``): ``C = A @ B`` with an fp32
 accumulator and one rounding to ``out_dtype``.
 
-The source holds three kernels, and :func:`gemm_route` names the one a call
+The source holds four kernels, and :func:`gemm_route` names the one a call
 runs, by shape, dtype, layout and alignment, before the launch:
 
 * ``"wgmma"`` — bf16 operands with m > 16 (the forward's and hnp's GEMMs):
   Hopper tensor cores fed by TMA, bound by bf16 FLOPs
   (``csrc/gemm_wgmma.cuh``);
+* ``"tf32x3"`` — f32 operands with m > 16, any layout and alignment:
+  3xTF32 ``mma.sync`` tiles on the tensor cores fed by a cp.async ring,
+  fp32-accurate (``csrc/gemm_tf32x3.cuh``); :func:`tf32x3_plan` fixes the
+  tile and the k splits across a cluster from shape and strides — never
+  from the batch count;
 * ``"skinny"`` — m <= 16 (serving: m = batch), bound by the bytes of B
   (``csrc/gemm_skinny.cuh``): B read once in 16-byte copies, all rows in
   one block, k split across warps and across the blocks of a cluster,
@@ -17,8 +22,9 @@ runs, by shape, dtype, layout and alignment, before the launch:
   (no workspace, no atomics); bf16 on the tensor cores, f32 on the CUDA
   cores; :func:`skinny_plan` fixes the launch from shape, dtype, strides
   and alignment — never from the batch count;
-* ``"tiled"`` — anything else (fp32 operands, a column-major A, k % 8 != 0
-  or a misaligned operand): fp32 FMAs on the CUDA cores, no TF32.
+* ``"tiled"`` — the bf16 GEMMs with m > 16 that ``wgmma`` cannot take (a
+  column-major A, k % 8 != 0 or a misaligned operand): fp32 FMAs on the
+  CUDA cores.
 
 The route is not a fallback: a launch that fails raises, and is never
 retried on another kernel.
@@ -48,11 +54,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gemm_batched_ref, gemm_ref
 
-__all__ = ["ROUTES", "SkinnyPlan", "gemm", "gemm_batched", "gemm_batched_ref",
-           "gemm_ref", "gemm_route", "skinny_plan"]
+__all__ = ["ROUTES", "SkinnyPlan", "Tf32x3Plan", "gemm", "gemm_batched",
+           "gemm_batched_ref", "gemm_ref", "gemm_route", "skinny_plan",
+           "tf32x3_capacity", "tf32x3_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("skinny", "tiled", "wgmma")       # index = the C side's route code
+ROUTES = ("skinny", "tiled", "wgmma", "tf32x3")   # index = the C side's code
 # TMA addresses 16-byte units: base pointers and every stride but the unit
 # one must be multiples of 16 bytes, i.e. of 8 bf16 elements.
 _TMA_ALIGN = 16
@@ -66,11 +73,14 @@ def gemm_route(m: int, n: int, k: int, batch: int, dtype: torch.dtype,
     ``a_strides`` are A's (batch, row, k) strides and ``b_strides`` B's
     (batch, k, column), in elements (batch stride 0: one matrix or a
     broadcast); ``a_ptr``/``b_ptr`` the operands' addresses.  m <= 16 takes
-    ``"skinny"``.  bf16 operands with a row-major A, a B with unit k- or
-    n-stride, and the 16-byte alignment TMA needs take ``"wgmma"``;
-    anything else ``"tiled"``."""
+    ``"skinny"``; f32 operands ``"tf32x3"`` whatever their layout and
+    alignment.  bf16 operands with a row-major A, a B with unit k- or
+    n-stride, and the 16-byte alignment TMA needs take ``"wgmma"``; the
+    other bf16 operands ``"tiled"``."""
     if m <= 16:
         return "skinny"
+    if dtype == torch.float32:
+        return "tf32x3"
     sa_b, sa_m, sa_k = a_strides
     sb_b, sb_k, sb_n = b_strides
     if dtype != torch.bfloat16 or sa_k != 1 or k % _TMA_ELEMS:
@@ -170,6 +180,144 @@ def skinny_plan(m: int, n: int, k: int, dtype: torch.dtype, a_strides,
     return SkinnyPlan(layout, vec, splits, kc, tn, a_vec)
 
 
+# The tf32x3 kernels' block tiles (csrc/gemm_tf32x3.cuh; index = the C
+# side's tile code) and the warps of a block (4 for every tile).
+_T3_TILES = ((128, 64), (64, 64), (32, 32))
+_T3_WARPS = 4
+# The plan's time model, fit to every plan tools/gemm_f32_times.py --plans
+# timed on an H100 SXM at 700 W (18 shapes, 3 tiles, 1-8 splits; the
+# chosen plan within 5 % of the fastest at each, and within 7 % at the
+# tool's held-out single matrices; a stack of many matrices gets one
+# matrix's plan, up to 2.1 × the fastest for it).  Blocks run in rounds of
+# at most the tile's capacity; a round costs a fill and drain, a
+# cluster's split-k sum (a fixed part and a part per output of the tile),
+# and the MACs of the blocks that share an SM over the SM's rate for the
+# tile, which a tile reaches only with enough warps on the SM (the share
+# falls as (warps / full)^0.45 below that).  k is split 1, 2, 4, 7 or 8
+# ways, at least _T3_MIN_KC rows a split: clusters of 3, 5 and 6 blocks
+# land unevenly on the SMs (64×64 blocks in clusters of 3 ran 1.3 × the
+# model's time), which the card's capacity (:func:`tf32x3_capacity`)
+# does not show.
+_T3_SPLITS = (1, 2, 4, 7, 8)
+_T3_RATE = {(128, 64): 233.2e3, (64, 64): 211.9e3,
+            (32, 32): 134.9e3}              # MACs per µs of one SM
+_T3_FULL_WARPS = {(128, 64): 8, (64, 64): 16, (32, 32): 28}
+_T3_SHARE_EXP = 0.45
+_T3_ROUND_US = 2.65
+_T3_SPLIT_US, _T3_SPLIT_US_PER_OUT = 1.13, 0.398e-3
+_T3_MIN_KC = 16
+
+
+def _t3_cost(m: int, n: int, bm: int, bn: int, splits: int, kc: int,
+             cap: int) -> float:
+    """The plan model's µs for one matrix on tile (bm, bn) with k cut into
+    ``splits`` ranges of ``kc`` rows, of which blocks the card holds
+    ``cap`` at once."""
+    tile = (bm, bn)
+    blocks = -(-m // bm) * -(-n // bn) * splits
+
+    def one_round(nb: int) -> float:
+        per_sm = -(-nb // _SK_SMS)
+        share = min(1.0, per_sm * _T3_WARPS
+                    / _T3_FULL_WARPS[tile]) ** _T3_SHARE_EXP
+        split = (_T3_SPLIT_US + _T3_SPLIT_US_PER_OUT * bm * bn
+                 if splits > 1 else 0.0)
+        return (_T3_ROUND_US + split
+                + per_sm * bm * bn * kc / (_T3_RATE[tile] * share))
+
+    full, rem = divmod(blocks, cap)
+    return full * one_round(cap) + (one_round(rem) if rem else 0.0)
+
+
+class Tf32x3Plan(NamedTuple):
+    """Launch plan of the tf32x3 route (see :func:`tf32x3_plan`), every
+    field passed to the kernel's entry point."""
+
+    bm: int             # block tile rows
+    bn: int             # block tile columns
+    splits: int         # blocks along k: the cluster's size, at most 8
+    kc: int             # k rows per split (a multiple of 8)
+    a_kmajor: bool      # A staged k-contiguous (row-major A)
+    b_kmajor: bool      # B staged k-contiguous (K-major B)
+    a_vec: bool         # A in 16-byte copies
+    b_vec: bool         # B in 16-byte copies
+
+
+def _t3_vec(ptr: int, unit: int, other: int, batch_stride: int) -> bool:
+    return unit == 1 and other % 4 == 0 and batch_stride % 4 == 0 \
+        and ptr % 16 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def tf32x3_capacity(device: int) -> dict:
+    """{(bm, bn): blocks of that tile's tf32x3 kernel that card ``device``
+    holds at once in clusters of 1..8 blocks} (a tuple of 8,
+    ``cudaOccupancyMaxActiveClusters``), asked once per card."""
+    fn = _build.library("gemm").repro_gemm_tf32x3_capacity
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    caps = {}
+    with torch.cuda.device(device):
+        for code, tile in enumerate(_T3_TILES):
+            row = []
+            for splits in range(1, 9):
+                blocks = ctypes.c_int(0)
+                err = fn(code, splits, ctypes.byref(blocks))
+                if err or blocks.value < splits:
+                    raise RuntimeError(
+                        f"gemm: tf32x3 occupancy query failed ({tile}, "
+                        f"{splits} splits): cudaError {err}, "
+                        f"{blocks.value} blocks")
+                row.append(blocks.value)
+            caps[tile] = tuple(row)
+    return caps
+
+
+def tf32x3_plan(m: int, n: int, k: int, dtype: torch.dtype, a_strides,
+                b_strides, a_ptr: int, b_ptr: int,
+                capacity: dict) -> Tf32x3Plan:
+    """The launch of the tf32x3 kernels for an f32 ``C[z] = A[z] @ B[z]``.
+
+    A function of shape, strides (``a_strides`` A's (batch, row, k),
+    ``b_strides`` B's (batch, k, column), in elements) and addresses
+    alone: it never sees the batch count, so a stacked launch runs each
+    matrix exactly as its single launch does.  The tile and the splits
+    (k cut into ``splits`` ranges of ``kc`` rows, summed in split order
+    across a cluster) come from m, n and k alone, the least time of the
+    model :func:`_t3_cost` over the card's ``capacity``
+    (:func:`tf32x3_capacity`'s table); the layouts and the copy widths, which change
+    no bit of the result, follow the strides and addresses: A is staged
+    k-contiguous unless only its row stride is 1 (column-major), B
+    k-contiguous when only its k stride is 1 (K-major); 16-byte copies
+    where the unit-stride dimension's rows and the batch stride are
+    multiples of 4 floats and the address 16-byte aligned."""
+    if dtype != torch.float32:
+        raise ValueError(f"tf32x3_plan: f32 operands only, not {dtype}")
+    sa_b, sa_m, sa_k = a_strides
+    sb_b, sb_k, sb_n = b_strides
+    a_kmajor = sa_k == 1 or sa_m != 1
+    b_kmajor = sb_k == 1 and sb_n != 1
+    a_vec = (_t3_vec(a_ptr, sa_k, sa_m, sa_b) if a_kmajor
+             else _t3_vec(a_ptr, sa_m, sa_k, sa_b))
+    b_vec = (_t3_vec(b_ptr, sb_k, sb_n, sb_b) if b_kmajor
+             else _t3_vec(b_ptr, sb_n, sb_k, sb_b))
+    kk = max(k, 1)
+    best = None
+    for bm, bn in _T3_TILES:
+        for want in _T3_SPLITS:
+            kc = 8 * -(-kk // (8 * want))
+            splits = -(-kk // kc)
+            if splits != want or (splits > 1 and kc < _T3_MIN_KC):
+                continue
+            key = (_t3_cost(m, n, bm, bn, splits, kc,
+                            capacity[(bm, bn)][splits - 1]),
+                   splits, -bm * bn)
+            if best is None or key < best[0]:
+                best = (key, bm, bn, splits, kc)
+    _, bm, bn, splits, kc = best
+    return Tf32x3Plan(bm, bn, splits, kc, a_kmajor, b_kmajor, a_vec, b_vec)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.library("gemm").repro_gemm
@@ -178,7 +326,7 @@ def _fn():
         [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 8
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     return fn
 
@@ -237,6 +385,30 @@ def _launch_skinny(a, b, c, m, n, k, batch, a_strides, b_strides,
     )
 
 
+def _launch_gemm(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
+                 route, stream, plan: Optional[Tf32x3Plan] = None) -> int:
+    """One launch through ``repro_gemm`` on ``route`` ("tiled", "wgmma" or
+    "tf32x3", whose plan is :func:`tf32x3_plan`'s unless given); returns
+    the cudaError_t."""
+    t3 = (0, 0, 1, 8, 0)
+    if route == "tf32x3":
+        if plan is None:
+            plan = tf32x3_plan(m, n, k, a.dtype, a_strides, b_strides,
+                               a.data_ptr(), b.data_ptr(),
+                               tf32x3_capacity(a.device.index))
+        t3 = (_T3_TILES.index((plan.bm, plan.bn)),
+              int(plan.a_kmajor) | 2 * int(plan.b_kmajor), plan.splits,
+              plan.kc, int(plan.a_vec) | 2 * int(plan.b_vec))
+    return _fn()(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, batch,
+        *a_strides,         # A strides: batch, row, k
+        *b_strides,         # B strides: batch, k, column
+        *c_strides,         # C strides: batch, row
+        _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], ROUTES.index(route),
+        *t3, stream,
+    )
+
+
 def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides) -> str:
     """Launch the route :func:`gemm_route` names; returns the route."""
     route = gemm_route(m, n, k, batch, a.dtype, a_strides, b_strides,
@@ -247,14 +419,8 @@ def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides) -> str:
             err = _launch_skinny(a, b, c, m, n, k, batch, a_strides,
                                  b_strides, c_strides, stream)
         else:
-            err = _fn()(
-                a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, batch,
-                *a_strides,         # A strides: batch, row, k
-                *b_strides,         # B strides: batch, k, column
-                *c_strides,         # C strides: batch, row
-                _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype],
-                ROUTES.index(route), stream,
-            )
+            err = _launch_gemm(a, b, c, m, n, k, batch, a_strides, b_strides,
+                               c_strides, route, stream)
     if err:
         raise RuntimeError(
             f"gemm kernel launch failed ({route} route): cudaError {err}")

@@ -1,8 +1,9 @@
-"""Decode-regime GEMM cases with the reference Pallas GEMM's outputs.
+"""GEMM cases with the reference Pallas GEMM's outputs.
 
-The skinny kernels (m <= 16) run only on a CUDA card, and the machine with
-the card has no JAX.  So the reference's ``pallas_gemm`` (interpret mode)
-is run here once per case and its outputs are kept in
+The skinny kernels (m <= 16) and the f32 tensor-core kernels (``tf32x3``,
+f32 with m > 16) run only on a CUDA card, and the machine with the card
+has no JAX.  So the reference's ``pallas_gemm`` (interpret mode) is run
+here once per case and its outputs are kept in
 ``tests/data/gemm_skinny_pallas.npz``: ``test_torch_gemm.py`` checks on
 the CPU that the file still holds what the reference computes, and
 ``test_torch_kernels_gpu.py`` holds the card's kernels against it.
@@ -11,9 +12,11 @@ The cases take every skinny kernel: both B layouts (row-major, and a
 K-major B the card reads as the transpose of a row-major [n, k]), bf16
 (tensor cores) and f32 (CUDA cores), m 1 / 8 / 16, bf16 in with f32 out,
 and a k of 1000 that the plan splits into uneven parts with n = 200
-ragged against every column tile.  Inputs come from numpy with one seed
-per case, so either side makes the same operands.  This module imports
-numpy only; regenerate the file with::
+ragged against every column tile.  Then f32 at m 17, 100 and 256 with
+both B layouts (the tf32x3 route: m off every block tile, k split across
+a cluster at the smaller m), and f32 in with bf16 out.  Inputs come from
+numpy with one seed per case, so either side makes the same operands.
+This module imports numpy only; regenerate the file with::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/gemm_pallas_ref.py
 """
@@ -36,6 +39,11 @@ def _cases():
     for layout in ("mn", "k"):
         out.append((f"bfloat16-float32-{layout}-m8", 8, layout, "bfloat16",
                     "float32"))
+    for m in (17, 100, 256):
+        for layout in ("mn", "k"):
+            out.append((f"float32-{layout}-m{m}", m, layout, "float32",
+                        "float32"))
+    out.append(("float32-bfloat16-mn-m100", 100, "mn", "float32", "bfloat16"))
     return out
 
 

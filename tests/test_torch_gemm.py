@@ -24,8 +24,9 @@ from repro_torch.core.accounting import offload_trace as ttrace
 from repro_torch.core.hero import offload_policy as tpolicy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import (_unit_stride_2d, gemm, gemm_route,
-                                      skinny_plan)
+from repro_torch.kernels.gemm import (_T3_SPLITS, _T3_TILES, _unit_stride_2d,
+                                      gemm, gemm_route, skinny_plan,
+                                      tf32x3_plan)
 
 import gemm_pallas_ref
 
@@ -232,8 +233,18 @@ def _route_cases():
     head = (4 * 1024, mb.vocab_size, ds, 1, bf16, (0, ds, 1), (0, 1, ds), 0, 0)
     cases.append(("mamba-forward-tied-head", head, "wgmma"))
     cases.append(("hnp-wave", rm(1024, d, yi.num_kv_heads * hd, 2), "wgmma"))
+    f32 = torch.float32
     cases += [
-        ("f32", rm(1024, 4096, 4096, dtype=torch.float32), "tiled"),
+        ("f32", rm(1024, 4096, 4096, dtype=f32), "tf32x3"),
+        ("f32-yi-forward-down", rm(128, 11008, 4096, dtype=f32), "tf32x3"),
+        ("f32-stack", rm(128, 768, 2048, 128, dtype=f32), "tf32x3"),
+        ("f32-col-major-a", (1024, 512, 256, 1, f32, (0, 1, 1024),
+                             (0, 512, 1), 0, 0), "tf32x3"),
+        ("f32-k-major-b", (512, mb.vocab_size, ds, 1, f32, (0, ds, 1),
+                           (0, 1, ds), 0, 0), "tf32x3"),
+        ("f32-misaligned", (1024, 512, 256, 1, f32, (0, 259, 1),
+                            (0, 515, 1), 4, 8), "tf32x3"),
+        ("f32-k-not-multiple-of-4", rm(100, 200, 1001, dtype=f32), "tf32x3"),
         ("col-major-a", (1024, 512, 256, 1, bf16, (0, 1, 1024), (0, 512, 1),
                          0, 0), "tiled"),
         ("k-not-multiple-of-8", rm(1024, 100, 512), "tiled"),
@@ -255,8 +266,10 @@ def test_gemm_route(args, route):
     """Every bf16 GEMM with m > 16 of the yi-6b forward (2 x 512 rows),
     the mamba2-370m forward (4 x 1024, the tied head's K-major B included),
     their graph-mode stacks and the hnp wave takes the tensor-core kernel;
-    every serving GEMM (m = batch = 8) the skinny one; f32, a column-major
-    A, k % 8 != 0 or operands TMA cannot address the CUDA-core tile."""
+    every serving GEMM (m = batch = 8) the skinny one; every f32 GEMM with
+    m > 16 (any layout, alignment and k) the 3xTF32 tensor-core kernel;
+    bf16 with a column-major A, k % 8 != 0 or operands TMA cannot address
+    the CUDA-core tile."""
     assert gemm_route(*args) == route
 
 
@@ -421,3 +434,180 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch):
     assert second != first and second.name == first.name == "libk.so"
     (tmp_path / "k.cu").write_text('#include "t.cuh"\n// edited\n')
     assert _build._lib_path("k") not in (first, second)
+
+
+# f32 GEMM shapes with m > 16 the main paths hand the tf32x3 route: Fig.
+# 3's square n, the yi-6b f32 forward (m 128) and mamba2-370m's (m 512),
+# qwen3-moe's f32 expert shapes (one expert of a stack) and ragged ones.
+def _t3_shapes():
+    yi, mb = get_arch("yi-6b"), get_arch("mamba2-370m")
+    d, hd = yi.d_model, yi.head_dim
+    ds, di = mb.d_model, mb.d_inner
+    shapes = [(n, n, n) for n in (32, 64, 128, 256, 512, 1024, 2048, 4096)]
+    shapes += [(128, (yi.num_heads + 2 * yi.num_kv_heads) * hd, d),
+               (128, d, yi.num_heads * hd), (128, yi.d_ff, d),
+               (128, d, yi.d_ff), (128, yi.vocab_size, d)]
+    shapes += [(512, di, ds), (512, mb.ssm_num_heads, ds), (512, ds, di),
+               (512, mb.vocab_size, ds)]
+    shapes += [(128, 768, 2048), (128, 2048, 768), (17, 72, 104),
+               (100, 200, 1000), (1000, 5128, 1048), (300, 7, 0),
+               (33, 1, 5)]
+    return shapes
+
+
+T3_SHAPES = _t3_shapes()
+# tf32x3_capacity(0) on an H100 80GB HBM3 (700 W): blocks of each tile the
+# card holds at once in clusters of 1..8 (cudaOccupancyMaxActiveClusters).
+H100_T3_CAPACITY = {(128, 64): (264, 264, 237, 248, 235, 234, 224, 240),
+                    (64, 64): (528, 528, 489, 496, 470, 474, 483, 496),
+                    (32, 32): (924, 924, 861, 864, 855, 846, 868, 856)}
+
+
+def _plan(m, n, k, dtype, a_strides, b_strides, a_ptr, b_ptr):
+    return tf32x3_plan(m, n, k, dtype, a_strides, b_strides, a_ptr, b_ptr,
+                       H100_T3_CAPACITY)
+
+
+@pytest.mark.parametrize("m,n,k", T3_SHAPES,
+                         ids=["x".join(map(str, s)) for s in T3_SHAPES])
+def test_tf32x3_plan_is_blind_to_the_batch_and_layout(m, n, k):
+    """The tile and the splits come from m, n and k alone: a stack (any
+    batch stride, 0 included), a column-major A, a K-major B or a
+    misaligned operand gets the same tile and splits, so a stacked launch
+    runs each matrix exactly as its single launch (bit for bit)."""
+    f32 = torch.float32
+    base = _plan(m, n, k, f32, (0, k, 1), (0, n, 1), 0, 256)
+    variants = [((m * k, k, 1), (k * n, n, 1), 0, 256),
+                ((0, k, 1), (k * n, n, 1), 0, 0),
+                ((m * k + 1, 1, m), (0, n, 1), 4, 0),
+                ((0, k + 3, 1), (0, 1, k + 1), 4, 12)]
+    for a_s, b_s, ap, bp in variants:
+        plan = _plan(m, n, k, f32, a_s, b_s, ap, bp)
+        assert (plan.bm, plan.bn, plan.splits, plan.kc) == \
+            (base.bm, base.bn, base.splits, base.kc)
+
+
+@pytest.mark.parametrize("m,n,k", T3_SHAPES,
+                         ids=["x".join(map(str, s)) for s in T3_SHAPES])
+def test_tf32x3_plan_covers_the_output_once(m, n, k):
+    """The block tiles cover every output element exactly once and the
+    splits every k row exactly once: at most 8 splits (a portable
+    cluster), kc a multiple of 8, no split empty."""
+    plan = _plan(m, n, k, torch.float32, (0, k, 1), (0, n, 1), 0, 0)
+    assert (plan.bm, plan.bn) in _T3_TILES
+    tm, tn = -(-m // plan.bm), -(-n // plan.bn)
+    cover = np.zeros((m, n), np.int32)
+    for i in range(tm):
+        for j in range(tn):
+            cover[i * plan.bm:(i + 1) * plan.bm,
+                  j * plan.bn:(j + 1) * plan.bn] += 1
+    assert (cover == 1).all()
+    assert plan.splits in _T3_SPLITS and plan.splits <= 8
+    assert plan.kc % 8 == 0 and plan.kc > 0
+    rows = np.zeros(max(k, 1), np.int32)
+    for s in range(plan.splits):
+        lo, hi = s * plan.kc, min(max(k, 1), (s + 1) * plan.kc)
+        assert hi > lo                         # no split without rows
+        rows[lo:hi] += 1
+    assert (rows == 1).all()
+
+
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_tf32x3_plan_fills_the_card_at_fig3_sizes(n):
+    """At Fig. 3's n 128 the tiles and splits give (nearly) every one of
+    the H100's 132 SMs a block; at n 32 and 64 k is too short for that
+    (every split keeps at least 16 rows), and the smallest tile is taken."""
+    plan = _plan(n, n, n, torch.float32, (0, n, 1), (0, n, 1), 0, 0)
+    blocks = -(-n // plan.bm) * -(-n // plan.bn) * plan.splits
+    if n == 128:
+        assert blocks >= 0.9 * 132
+    assert (plan.bm, plan.bn) == (32, 32)
+    assert plan.kc >= 16 or plan.splits == 1
+
+
+def test_tf32x3_plan_reads_the_capacity_it_is_given():
+    """The tile and splits follow the card's capacity, not a table of one
+    card: at Fig. 3's n 128 the H100's table gives a split k, and a card
+    that held only one cluster of each size at a time would get none."""
+    f32, n = torch.float32, 128
+    full = _plan(n, n, n, f32, (0, n, 1), (0, n, 1), 0, 0)
+    assert full.splits > 1
+    starved = {tile: (row[0],) + tuple(range(2, 9))
+               for tile, row in H100_T3_CAPACITY.items()}
+    plan = tf32x3_plan(n, n, n, f32, (0, n, 1), (0, n, 1), 0, 0, starved)
+    assert plan.splits == 1
+
+
+def test_tf32x3_plan_copies_follow_layout_and_alignment():
+    """Layouts follow the unit strides (A staged k-contiguous unless only
+    its row stride is 1; B k-contiguous only when only its k stride is 1);
+    16-byte copies only where that operand's rows and batch stride are
+    whole 16-byte units and its address is 16-byte aligned.  Other dtypes
+    are not the route's."""
+    f32 = torch.float32
+    m, n, k = 256, 512, 1024
+
+    def plan(a_s, b_s, ap=0, bp=0, kk=k, nn=n):
+        return _plan(m, nn, kk, f32, a_s, b_s, ap, bp)
+
+    p = plan((0, k, 1), (0, n, 1))
+    assert (p.a_kmajor, p.b_kmajor, p.a_vec, p.b_vec) == (True, False,
+                                                           True, True)
+    p = plan((0, 1, m), (0, 1, k))           # column-major A, K-major B
+    assert (p.a_kmajor, p.b_kmajor, p.a_vec, p.b_vec) == (False, True,
+                                                           True, True)
+    p = plan((0, k, 1), (0, n, 1), ap=4, bp=8)
+    assert (p.a_vec, p.b_vec) == (False, False)
+    p = plan((0, k + 3, 1), (0, n + 2, 1))   # column slices, odd strides
+    assert (p.a_vec, p.b_vec) == (False, False)
+    p = plan((0, 1001, 1), (0, n, 1), kk=1001)
+    assert (p.a_vec, p.b_vec) == (False, True)
+    p = plan((m * k + 4, k, 1), (k * n + 2, n, 1))
+    assert (p.a_vec, p.b_vec) == (True, False)
+    p = plan((0, 5, 7), (0, 1, 1), kk=1, nn=1)   # k = 1, n = 1: no unit stride
+    assert (p.a_kmajor, p.b_kmajor, p.a_vec, p.b_vec) == (True, False,
+                                                           False, False)
+    with pytest.raises(ValueError, match="f32 operands only"):
+        _plan(m, n, k, torch.bfloat16, (0, k, 1), (0, n, 1), 0, 0)
+
+
+def _tf32(x):
+    """x cut to TF32: its low 13 mantissa bits cleared (what the tensor
+    core reads of an fp32 register)."""
+    return (np.asarray(x, np.float32).view(np.uint32)
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _emulate(a, b, terms):
+    """The tensor cores' products, exactly (float64): 1xTF32 multiplies
+    the TF32 cuts of a and b; 3xTF32 splits each into hi = its TF32 cut and
+    lo = x - hi (exact in fp32, read as its own TF32 cut) and sums
+    lo·hi + hi·lo + hi·hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    hh = ah.astype(np.float64) @ bh.astype(np.float64)
+    if terms == 1:
+        return hh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al.astype(np.float64) @ bh.astype(np.float64)
+            + ah.astype(np.float64) @ bl.astype(np.float64) + hh)
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 128, 128), (128, 256, 11008)],
+                         ids=["fig3-n128", "yi-down-k11008"])
+def test_tf32x3_products_hold_the_f32_bar(m, n, k):
+    """The tf32x3 route's arithmetic, emulated in numpy: its three TF32
+    products come within the f32 bar (2e-5 of max |ref|) of the
+    reference's f32 Pallas GEMM (interpret mode) at Fig. 3's n 128 and at
+    yi-6b's down projection (k 11008, n cut to 256), while a single TF32
+    product misses it, so the check is not vacuous.  (The tensor core's
+    accumulator truncation is held to the bar on the card.)"""
+    rng = np.random.default_rng(17)
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    want = np.asarray(jops.gemm(jnp.asarray(a), jnp.asarray(b),
+                                interpret=True), np.float64)
+    scale = np.abs(want).max()
+    err3 = np.abs(_emulate(a, b, 3) - want).max() / scale
+    err1 = np.abs(_emulate(a, b, 1) - want).max() / scale
+    assert err3 <= 2e-5 < err1
+    assert err3 < err1 / 20

@@ -153,12 +153,14 @@ def test_gemm_batched_wgmma_equals_single_launches(card, layout,
 
 
 def test_gemm_routes_counted_by_kernel(card):
-    """Serving shapes (m = 8) take the skinny kernel, f32 and a
+    """Serving shapes (m = 8) take the skinny kernel, f32 at m > 16 the
+    3xTF32 tensor-core tile (a column-major A too), bf16 with a
     column-major A the CUDA-core tile, bf16 at m > 16 the tensor cores."""
     bf16 = torch.bfloat16
     cases = [
         ((8, 4096), (4096, 5120), bf16, False, "skinny"),
-        ((128, 256), (256, 128), torch.float32, False, "tiled"),
+        ((128, 256), (256, 128), torch.float32, False, "tf32x3"),
+        ((256, 128), (256, 128), torch.float32, True, "tf32x3"),
         ((256, 128), (256, 128), bf16, True, "tiled"),
         ((128, 256), (256, 128), bf16, False, "wgmma"),
     ]
@@ -194,6 +196,169 @@ def test_gemm_batched_kernel(card, bsz, dtype):
     assert (gemm.launches, gemm_batched.launches) == (before[0], before[1] + 1)
     assert got.shape == (bsz, 96, 80) and got.dtype == dt
     assert _err(got, gemm_batched_ref(a, b)) <= TOL[dtype]
+
+
+# The f32 tensor-core route (tf32x3: 3xTF32 mma.sync, m > 16): Fig. 3's
+# square n, the reference tests' shapes, and ragged ones (m, n, k off
+# every block tile; k off 4 and 8; n = 1), each with A row- and
+# column-major and B MN- and K-major, against the plain version at the
+# f32 bar.
+T3_SHAPES = [(32, 32, 32), (64, 64, 64), (128, 128, 128), (256, 256, 256),
+             (200, 130, 96), (100, 200, 1000), (17, 72, 104),
+             (1000, 5128, 1048), (33, 7, 5), (300, 1, 1001)]
+
+
+def _t3_operands(card, m, n, k, a_layout, b_layout, dt=torch.float32):
+    a = torch.randn(m, k, generator=card, device="cuda") if a_layout == "row" \
+        else torch.randn(k, m, generator=card, device="cuda").T
+    return a.to(dt), _b_operand(card, k, n, b_layout, dt)
+
+
+def _on_tf32x3(fn, *args, count=1, **kw):
+    before = dict(fn.route_launches)
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.route_launches == {**before, "tf32x3": before["tf32x3"] + count}
+    return got
+
+
+@pytest.mark.parametrize("m,n,k", T3_SHAPES,
+                         ids=["x".join(map(str, s)) for s in T3_SHAPES])
+@pytest.mark.parametrize("a_layout", ["row", "col"])
+@pytest.mark.parametrize("b_layout", ["mn", "k"])
+def test_gemm_tf32x3_route(card, m, n, k, a_layout, b_layout):
+    a, b = _t3_operands(card, m, n, k, a_layout, b_layout)
+    got = _on_tf32x3(gemm, a, b)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _err(got, gemm_ref(a, b)) <= TOL["float32"]
+    again = _on_tf32x3(gemm, a, b)
+    assert torch.equal(got, again)          # a launch repeats bit for bit
+    half = _on_tf32x3(gemm, a, b, out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    assert _err(half, gemm_ref(a, b)) <= TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 64), (32, 32)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("a_layout", ["row", "col"])
+@pytest.mark.parametrize("b_layout", ["mn", "k"])
+def test_gemm_tf32x3_every_tile_and_split(card, tile, splits, a_layout,
+                                          b_layout):
+    """Every kernel instance (block tile x operand layouts) with every
+    cluster size the plan may name, forced on one ragged shape, with the
+    16-byte copies the operands allow and with 4-byte copies only: all at
+    the f32 bar."""
+    from repro_torch.kernels import gemm as G
+
+    m, n, k = 150, 170, 1000
+    a, b = _t3_operands(card, m, n, k, a_layout, b_layout)
+    want = gemm_ref(a, b)
+    sa, sb = (0, *a.stride()), (0, *b.stride())
+    kc = 8 * -(-k // (8 * splits))
+    plan = G.tf32x3_plan(m, n, k, a.dtype, sa, sb, a.data_ptr(),
+                         b.data_ptr(), G.tf32x3_capacity(0))._replace(
+                             bm=tile[0], bn=tile[1], splits=splits, kc=kc)
+    stream = torch.cuda.current_stream().cuda_stream
+    for p in (plan, plan._replace(a_vec=False, b_vec=False)):
+        c = torch.empty(m, n, device="cuda")
+        assert G._launch_gemm(a, b, c, m, n, k, 1, sa, sb, (0, n), "tf32x3",
+                              stream, p) == 0
+        torch.cuda.synchronize()
+        assert _err(c, want) <= TOL["float32"]
+
+
+def test_gemm_tf32x3_capacity_is_the_cards(card):
+    """The plan's capacity table comes from the card: for every tile and
+    cluster size 1..8, a whole number of clusters, at least one, and the
+    same table on a second ask (cached once per card)."""
+    from repro_torch.kernels import gemm as G
+
+    caps = G.tf32x3_capacity(0)
+    assert set(caps) == set(G._T3_TILES)
+    for tile, row in caps.items():
+        assert len(row) == 8
+        for splits, blocks in enumerate(row, 1):
+            assert blocks >= splits and blocks % splits == 0, (tile, row)
+    assert G.tf32x3_capacity(0) is caps
+
+
+def test_gemm_tf32x3_plan_refused_when_operands_forbid_it(card):
+    """The kernel's entry point refuses 16-byte copies the operands do not
+    allow (a misaligned base) and a plan whose splits do not cover k: the
+    wrapper never sends them, and a caller that does gets an error, not a
+    wrong result."""
+    from repro_torch.kernels import gemm as G
+
+    m, n, k = 64, 64, 256
+    flat = torch.randn(m * k + 1, generator=card, device="cuda")
+    a, b = flat[1:].view(m, k), torch.randn(k, n, generator=card,
+                                            device="cuda")
+    sa, sb = (0, *a.stride()), (0, *b.stride())
+    plan = G.tf32x3_plan(m, n, k, a.dtype, sa, sb, a.data_ptr(),
+                         b.data_ptr(), G.tf32x3_capacity(0))
+    assert not plan.a_vec and plan.b_vec
+    c = torch.empty(m, n, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (plan._replace(a_vec=True), plan._replace(splits=2, kc=64),
+                plan._replace(splits=9, kc=32), plan._replace(kc=12)):
+        assert G._launch_gemm(a, b, c, m, n, k, 1, sa, sb, (0, n), "tf32x3",
+                              stream, bad) != 0
+    assert G._launch_gemm(a, b, c, m, n, k, 1, sa, sb, (0, n), "tf32x3",
+                          stream, plan) == 0
+    torch.cuda.synchronize()
+    assert _err(c, gemm_ref(a, b)) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 512, 11008), (128, 4096, 4096),
+                                   (512, 1024, 2048)],
+                         ids=["yi-down-k11008", "yi-wo", "mamba-out"])
+def test_gemm_tf32x3_long_k_holds_the_bar(card, m, n, k):
+    """At the yi-6b f32 forward's down projection (k 11008: 344 staged k
+    tiles, each one restart of the tensor core's truncating accumulator)
+    and at forward shapes split across a cluster, the f32 bar holds."""
+    a = torch.randn(m, k, generator=card, device="cuda")
+    b = torch.randn(k, n, generator=card, device="cuda")
+    got = _on_tf32x3(gemm, a, b)
+    assert _err(got, gemm_ref(a, b)) <= TOL["float32"]
+
+
+def test_gemm_tf32x3_zero_k_and_misaligned(card):
+    """k = 0 writes zeros; a base one element past a 16-byte boundary and
+    odd row strides take 4-byte copies with the same results."""
+    a = torch.randn(40, 0, device="cuda")
+    b = torch.randn(0, 24, device="cuda")
+    got = _on_tf32x3(gemm, a, b)
+    assert got.shape == (40, 24) and not got.any()
+    m, n, k = 130, 90, 515
+    fa = torch.randn(m * (k + 3) + 1, generator=card, device="cuda")
+    fb = torch.randn(k * (n + 1) + 1, generator=card, device="cuda")
+    a = fa[1:].view(m, k + 3)[:, :k]
+    b = fb[1:].view(k, n + 1)[:, :n]
+    got = _on_tf32x3(gemm, a, b)
+    assert _err(got, gemm_ref(a, b)) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 2048, 768), (128, 768, 2048),
+                                   (300, 520, 130)])
+@pytest.mark.parametrize("broadcast", ["none", "a", "b"])
+def test_gemm_tf32x3_stacked_equals_single_and_repeats(card, m, k, n,
+                                                       broadcast):
+    """A stack of f32 GEMMs in one batched launch (qwen3-moe's expert
+    shapes, a ragged one; one operand broadcast with batch stride 0 or
+    none) equals its single launches bit for bit, and repeats bit for bit:
+    the plan ignores the batch count, the split-k sum has a fixed order."""
+    z = 4
+    a = torch.randn(z, m, k, generator=card, device="cuda")
+    b = torch.randn(z, k, n, generator=card, device="cuda")
+    if broadcast == "a":
+        a = a[:1].expand(z, m, k)
+    elif broadcast == "b":
+        b = b[:1].expand(z, k, n)
+    got = _on_tf32x3(gemm_batched, a, b)
+    again = _on_tf32x3(gemm_batched, a, b)
+    singles = torch.stack([_on_tf32x3(gemm, a[i], b[i]) for i in range(z)])
+    assert torch.equal(got, again) and torch.equal(got, singles)
+    assert _err(got, gemm_batched_ref(a, b)) <= TOL["float32"]
 
 
 # tests/test_kernels.py::test_flash_attention_variants (D 32), then the
@@ -359,11 +524,13 @@ def test_flash_attention_misaligned_operand_takes_simt(card):
 
 
 # A column slice x[:, :k] of a wider matrix (row stride > k) as A and as B,
-# on every GEMM route: skinny (m <= 16), tiled (f32, or bf16 with a slice
-# TMA cannot address) and wgmma (bf16, m > 16, 16-byte-aligned rows).
+# on every GEMM route: skinny (m <= 16), tf32x3 (f32, m > 16), tiled (bf16
+# with a slice TMA cannot address) and wgmma (bf16, m > 16, 16-byte-aligned
+# rows).
 SLICE_CASES = [(8, 256, 192, "float32", "skinny"),
                (8, 256, 192, "bfloat16", "skinny"),
-               (200, 136, 192, "float32", "tiled"),
+               (200, 136, 192, "float32", "tf32x3"),
+               (200, 136, 101, "float32", "tf32x3"),
                (200, 136, 100, "bfloat16", "tiled"),
                (200, 136, 192, "bfloat16", "wgmma")]
 
@@ -492,22 +659,28 @@ def test_gemm_skinny_misaligned_operands(card, dtype, layout):
 def test_gemm_skinny_matches_pallas_reference(card, cid, m, layout, dtype,
                                               out):
     """Each skinny kernel (tensor cores for bf16, CUDA cores for f32; both
-    B layouts, the K-major one read in place as a transpose) against the
-    reference's Pallas GEMM on the same numpy inputs: its outputs kept in
+    B layouts, the K-major one read in place as a transpose) and, at
+    m > 16, the f32 tensor-core kernel (tf32x3; A also column-major, read
+    in place as a transpose) against the reference's Pallas GEMM on the
+    same numpy inputs: its outputs kept in
     ``tests/data/gemm_skinny_pallas.npz`` (this machine has no JAX; see
     ``tests/gemm_pallas_ref.py``)."""
     a, b = gemm_pallas_ref.inputs(cid)
     want = torch.from_numpy(gemm_pallas_ref.load()[cid])
     dt = getattr(torch, dtype)
-    ta = torch.from_numpy(a).to(dt).cuda()
+    route = "skinny" if m <= 16 else "tf32x3"
     tb = torch.from_numpy(b).to(dt).cuda() if layout == "mn" else \
         torch.from_numpy(np.ascontiguousarray(b.T)).to(dt).cuda().T
-    before = dict(gemm.route_launches)
-    got = gemm(ta, tb, out_dtype=getattr(torch, out))
-    torch.cuda.synchronize()
-    assert gemm.route_launches == {**before, "skinny": before["skinny"] + 1}
-    assert got.dtype == getattr(torch, out) and got.shape == want.shape
-    assert _err(got.cpu(), want) <= _OUT_TOL[out]
+    tas = [torch.from_numpy(a).to(dt).cuda()]
+    if route == "tf32x3":
+        tas.append(torch.from_numpy(np.ascontiguousarray(a.T)).cuda().T)
+    for ta in tas:
+        before = dict(gemm.route_launches)
+        got = gemm(ta, tb, out_dtype=getattr(torch, out))
+        torch.cuda.synchronize()
+        assert gemm.route_launches == {**before, route: before[route] + 1}
+        assert got.dtype == getattr(torch, out) and got.shape == want.shape
+        assert _err(got.cpu(), want) <= _OUT_TOL[out]
 
 
 @pytest.mark.parametrize("k,n,layout", [(4096, 11008, "mn"), (1024, 2048, "mn"),
@@ -991,7 +1164,7 @@ def test_gemm_batched_moe_expert_shapes(card, m, k, n, dtype):
     _, batched = _route_counts()
     got = gemm_batched(a, b)
     torch.cuda.synchronize()
-    route = "wgmma" if dtype == "bfloat16" else "tiled"
+    route = "wgmma" if dtype == "bfloat16" else "tf32x3"
     assert gemm_batched.route_launches == {**batched,
                                            route: batched[route] + 1}
     assert _err(got, moe_gemm_ref(a, b)) <= TOL[dtype]

@@ -127,8 +127,8 @@ def test_fig3_tool_modeled_rows_match_reference_cost_model(n, dtype):
 def test_fig3_tool_routes_and_bars():
     assert [fig3.want_route(d, n) for d in DTYPES for n in (16, 32, 128)] == [
         ("device", None)] * 3 + [
-        ("device-kernel", "skinny"), ("device-kernel", "tiled"),
-        ("device-kernel", "tiled"), ("device-kernel", "skinny"),
+        ("device-kernel", "skinny"), ("device-kernel", "tf32x3"),
+        ("device-kernel", "tf32x3"), ("device-kernel", "skinny"),
         ("device-kernel", "wgmma"), ("device-kernel", "wgmma")]
     assert fig3.BARS == {"float64": 1e-12, "float32": 2e-5,
                          "bfloat16": 2e-2}

@@ -22,11 +22,12 @@ numpy out:
   same device operands (cuBLAS, TF32 off), timed as *compute* is.
 - The backend each call reached (f64 the plain ``device`` path: the
   kernel gate takes f32 / bf16 only; f32 n = 16 the ``skinny`` kernel
-  route, n >= 32 ``tiled``; bf16 n = 16 ``skinny``, n >= 32 ``wgmma``),
+  route, n >= 32 ``tf32x3``; bf16 n = 16 ``skinny``, n >= 32 ``wgmma``),
   each result against numpy's f64 product (bars f64 1e-12, f32 2e-5, bf16
   2e-2, scaled by max |ref|), the speed-up host / total, and the first n
   (doubling from 128 up to 4096) at which the offload beats the host in
-  f64 and in f32.
+  f64 and in f32, each step of that sweep with its compute and
+  ``torch.matmul`` (``library_ms``) times.
 - Beside each measured row, the cost model's breakdown of the same GEMM
   on ``h100-sxm`` (an uncalibrated data-sheet row) and on ``hesoc-vcu128``
   (the paper's board): labelled modeled, never a measurement.
@@ -60,7 +61,7 @@ def want_route(dtype: str, n: int):
         return "device", None
     if n <= 16:
         return "device-kernel", "skinny"
-    return "device-kernel", "tiled" if dtype == "float32" else "wgmma"
+    return "device-kernel", "tf32x3" if dtype == "float32" else "wgmma"
 
 
 def blas_info() -> dict:
@@ -293,7 +294,8 @@ def run(*, sizes=None, crossover=True, seed: int = 0) -> dict:
                     r = measure(n, dtype, rng, check=False, reps=5)
                     sweep.append({k: r[k] for k in (
                         "n", "host_ms", "copy_ms", "launch_ms", "compute_ms",
-                        "total_ms", "speedup", "max_rel_err_vs_f64")})
+                        "library_ms", "total_ms", "speedup",
+                        "max_rel_err_vs_f64")})
                     if r["speedup"] > 1.0:
                         break
                 won = [s["n"] for s in sweep if s["speedup"] > 1.0]
