@@ -23,7 +23,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               launches; the skinny route at every decode GEMM of both
               models (mamba2-370m's K-major head and f32-output dt
               projection included) at m = 8 and 16, and a stacked decode
-              launch bit for bit against its single launches; flash
+              launch bit for bit against its single launches; at the
+              zoo's shapes (phases 12a-12h) every GEMM of each model on
+              ``skinny`` and ``wgmma`` (jamba's on ``tf32x3`` in f32), jamba's
+              expert GEMMs (d 8192, f 24576), flash attention at D 80 on
+              ``simt`` (danube's window, hubert bidirectional) and at D 128
+              on ``wgmma`` (gemma3's window), flash decode at D 80, past a
+              rolling buffer's wrap and on gemma3's windowed long step, the
+              SSD chunk kernel at jamba's 256 heads; flash
               attention on both routes (bf16 at D 64 / 128
               on the tensor cores, f32 and other head dims on the CUDA
               cores), the prefill shape also as the model's transposed
@@ -133,6 +140,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               first decode step and last-position logits of a 1 x 128
               forward, kernels against plain, 1e-4 x max |logit|, and the
               count of routing decisions the two paths make differently;
+12a-12h. the rest of the zoo, each model built on the card after the
+              last one's weights are freed (``zoo_configs``; cuts printed):
+              jamba-1.5-large-398b at one super-block (8 of 72 layers) and
+              8 of 16 experts, served eager and graph (12a, 12b) and run
+              forward on 2 x 512 eager and graph (12c: 7 SSD launches; its
+              bf16 logits held on the kernel path's routing, the unshared
+              error and the routing flips printed), its f32 twin with 2
+              experts at 1e-4 (12d); gemma3-27b whole: served, run forward
+              on 2 x 2048 (the 1024 window bites in 52 of 62 layers) and a
+              decode step at index 4000 of a 4096-slot cache at B 8 (12e);
+              h2o-danube-1.8b whole: served, run forward on 1 x 8192 (D 80
+              on ``simt``) and a decode step at index 5000, past the wrap
+              of its 4096-slot rolling buffer (12f); hubert-xlarge whole:
+              a bidirectional 2 x 512 forward on seeded frame embeddings
+              (12g); qwen2-72b served and qwen2-vl-72b run forward on 2 x
+              512 embeddings with three position streams, both at 8 of 80
+              layers (12h); each with its launches and routes, logits
+              against the plain path, weights and peak memory, and the
+              profiled step or forward;
 11. time    — each kernel at its path's shapes beside its bound, its plain
               version and one library call (CUDA events); the decode GEMMs
               of both models over rotated weights with GB/s, the bound's
@@ -143,19 +169,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               4096-slot cache (B 8 and B 1) beside SDPA; the SSD chunk
               kernel beside its bytes / 3xTF32 bound and the CUDA cores'
               fp32 bound; the batched GEMM at qwen3-moe's four expert
-              shapes beside torch.bmm and its bound; qwen3-moe's decode
+              shapes beside torch.bmm and its bound (and at jamba's); qwen3-moe's decode
               GEMMs outside the experts (qkv, wo, router, head); the f32
               GEMM (``tf32x3``) at square n 32-4096 and at the yi-6b (m
               128) and mamba2-370m (m 512) f32 forwards' shapes beside
               ``torch.matmul`` (TF32 off) and its bytes / 3xTF32 / CUDA-core
               fp32 bounds; the f32 attention kernels (``simt``) at the
               yi-6b f32 forward's and the f32 long-cache step's shapes
-              beside SDPA in f32.
+              beside SDPA in f32; at the zoo's shapes (``time_zoo``) bf16
+              flash attention on ``simt`` at D 80 and on ``wgmma`` with
+              gemma3's window beside SDPA with the same mask, flash decode
+              at D 80 past the wrap and on gemma3's long step, the SSD
+              kernel at jamba's shape.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
 too: every bf16 forward and hnp-wave GEMM and every bf16 forward attention
-launch must have taken the tensor-core route (``wgmma``), every serving
+launch at D 64 / 128 must have taken the tensor-core route (``wgmma``),
+every bf16 one at D 80 the CUDA-core one (``simt``), every serving
 GEMM the skinny one, every bf16 decode attention launch the tensor-core
 one (``mma``), the f32 forward's and decode's attention the CUDA-core
 one (``simt``), every f32 GEMM with m > 16 (phases 2, 6, 7a, 10, 10d)
@@ -238,6 +269,31 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_PARAMS = 30_531_911_680
 MOE_F32_LAYERS = 2
 MOE_PLACED_LANES, MOE_PLACED_ZIPF, MOE_PLACED_STEPS = 4, 1.2, 16
+
+# The rest of the zoo (phases 12a-12h), weights built on the card from a
+# seeded generator after the previous model's are freed.  jamba at its
+# published widths cut to one super-block (8 of 72 layers: the hybrid needs
+# whole super-blocks) and 8 of 16 experts (one super-block with 16 is
+# about 90 GB of bf16, beyond the card; with 8 about 52 GB); its f32 check
+# keeps JAMBA_F32_EXPERTS (about 46 GB of f32) and runs 1 x
+# JAMBA_F32_FWD_SEQ (two 256-token chunks).  gemma3-27b, h2o-danube-1.8b
+# and hubert-xlarge whole; qwen2-72b and qwen2-vl-72b at QWEN2_LAYERS of
+# 80 layers (145 GB whole).  Forwards: ZOO_FWD for jamba, hubert (frame
+# embeddings) and qwen2-vl (embeddings, three distinct position streams);
+# GEMMA_FWD so that the 1024 window bites in 52 of 62 layers, DANUBE_FWD
+# so that the 4096 window bites.  Long decode steps (batch, cache slots,
+# index): gemma3 as yi-6b's (the local layers read [2977, 4001)), danube
+# past the wrap of its 4096-slot rolling buffer.
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_CUT = {"num_layers": 8, "num_experts": 8}
+JAMBA_F32_EXPERTS = 2
+JAMBA_F32_FWD_SEQ = 512
+GEMMA_ARCH, GEMMA_FWD, GEMMA_LONG = "gemma3-27b", (2, 2048), (8, 4096, 4000)
+DANUBE_ARCH, DANUBE_FWD, DANUBE_LONG = ("h2o-danube-1.8b", (1, 8192),
+                                        (8, 4096, 5000))
+HUBERT_ARCH = "hubert-xlarge"
+QWEN2_ARCH, QWEN2_VL_ARCH, QWEN2_LAYERS = "qwen2-72b", "qwen2-vl-72b", 8
+ZOO_FWD = (2, 512)
 
 # H100 SXM data-sheet peaks (dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -430,11 +486,17 @@ def moe_groups(moe_cfg):
     return out
 
 
+def moe_layers(moe_cfg):
+    """The stack's MoE layers: every layer of qwen3-moe, every second of
+    jamba."""
+    return sum(moe_cfg.layer_is_moe(i) for i in range(moe_cfg.num_layers))
+
+
 def moe_expert_shapes(moe_cfg):
     """(tag, E, m, k, n, launches per decode step or forward) of the expert
     GEMMs, m = groups x capacity: gate and up (d -> f), down (f -> d)."""
     e, d, f = moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.moe_d_ff
-    L = moe_cfg.num_layers
+    L = moe_layers(moe_cfg)
     out = []
     for path, (g, cap) in moe_groups(moe_cfg).items():
         out += [(f"{path}:gate/up", e, g * cap, d, f, 2 * L),
@@ -474,18 +536,21 @@ def read_routes():
     return {k: dict(fn.route_launches) for k, fn in _routed().items()}
 
 
-def require_route(label, routes, route, decode=None, batched=None):
-    """Fail unless every GEMM and flash-attention launch in ``routes`` took
-    ``route``, every flash-decode launch ``decode``, every SSD chunk launch
-    ``mma`` and every batched GEMM launch ``batched`` (default ``route``;
-    a path that launches no attention or SSD passes on the GEMMs)."""
+def require_route(label, routes, route, decode=None, batched=None,
+                  attn=None):
+    """Fail unless every GEMM launch in ``routes`` took ``route``, every
+    flash-attention launch ``attn`` (default ``route``), every flash-decode
+    launch ``decode``, every SSD chunk launch ``mma`` and every batched
+    GEMM launch ``batched`` (default ``route``; a path that launches no
+    attention or SSD passes on the GEMMs)."""
     want = {"flash_decode": decode, "ssd_chunk_diag": "mma",
-            "gemm_batched": batched or route}
+            "gemm_batched": batched or route,
+            "flash_attention": attn or route}
     stray = {k: {r: n for r, n in v.items() if r != want.get(k, route) and n}
              for k, v in routes.items()}
     if any(stray.values()):
-        fail(f"{label}: kernel launches off the {route} / {decode} / mma "
-             f"routes: {routes}")
+        fail(f"{label}: kernel launches off the {route} / {attn or route} / "
+             f"{decode} / mma routes: {routes}")
 
 
 def require_f32_gemm_routes(label, routes):
@@ -502,10 +567,19 @@ def require_f32_gemm_routes(label, routes):
 
 
 def decode_route_of(dtype):
-    """Flash decode's route for the models' (aligned, D 128) operands."""
+    """Flash decode's route for the models' (aligned, D 80 or 128)
+    operands."""
     import torch
 
     return "mma" if dtype in ("bfloat16", torch.bfloat16) else "simt"
+
+
+def attn_route_of(cfg):
+    """Flash attention's route for a model's forward: the tensor cores
+    (``wgmma``) in bf16 at D 64 / 128, else the CUDA cores (``simt``: f32,
+    and the bf16 D 80 of h2o-danube and hubert)."""
+    return ("wgmma" if cfg.dtype == "bfloat16" and cfg.head_dim in (64, 128)
+            else "simt")
 
 
 def attn_operands(randn, b, hq, hkv, sq, skv, d, dtype, view):
@@ -593,7 +667,9 @@ def main() -> None:
     cfg = get_arch(ARCH)
     ssm_cfg = get_arch(SSM_ARCH)
     moe_cfg = get_arch(MOE_ARCH)
-    max_abs = check_kernels(cfg, ssm_cfg, moe_cfg, randn)
+    zoo = zoo_configs()
+    max_abs = check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo)
+    launches, routes = {}, {}
 
     # ---- 3.-5. serve, forward, serve in graph mode (bf16) ---------------
     from repro_torch.models import build_model
@@ -608,7 +684,6 @@ def main() -> None:
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
                                              size=PROMPT_LEN)]
                for _ in range(BATCH)]
-    launches, routes = {}, {}
     serve = run_serve(cfg, model, params, prompts, "eager", zero_counts,
                       read_counts)
     serve["init_s"] = init_s
@@ -693,9 +768,16 @@ def main() -> None:
     # ---- 10a.-10f. MoE: qwen3-moe-30b-a3b at full width --------------------
     run_moe(moe_cfg, rng, zero_counts, read_counts, launches, routes)
 
+    # ---- 12a.-12h. the rest of the zoo -------------------------------------
+    run_zoo(zoo, rng, zero_counts, read_counts, launches, routes)
+
     # ---- 11. times --------------------------------------------------------
     kernels = run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes,
                         max_abs)
+    zoo_lines = zoo_kernel_lines(launches, routes, max_abs,
+                                 time_zoo(zoo, randn))
+    for row in kernels:
+        row["zoo"] = zoo_lines[row["name"]]
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
 
@@ -722,9 +804,10 @@ def _row_rel_err(got, want):
     return (diff[live] / scale[live]).max().item(), diff.max().item()
 
 
-def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
+def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo):
     """Phase 2: every kernel against its plain version; returns the max
-    abs errors at the main paths' shapes (bf16)."""
+    abs errors at the main paths' shapes (bf16), the zoo's
+    (``zoo_configs``, ``check_zoo_kernels``) under ``<kernel>:zoo``."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -742,7 +825,10 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
                "flash_attention": 0.0, "ssd_chunk_diag": 0.0,
                "gemm:forward": 0.0, "gemm_batched:forward": 0.0,
                "gemm:ssm-serve": 0.0, "gemm:moe": 0.0,
-               "gemm_batched:moe": 0.0, "gemm:tf32x3": 0.0}
+               "gemm_batched:moe": 0.0, "gemm:tf32x3": 0.0,
+               **{f"{k}:zoo": 0.0 for k in ("gemm", "gemm_batched",
+                                            "flash_attention", "flash_decode",
+                                            "ssd_chunk_diag")}}
     checks = []
 
     def record(kernel, case, dt, err, abs_err, main_shape, scale="max",
@@ -768,6 +854,8 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn):
             fail(f"{fn.__name__} did not take the {route} route: "
                  f"{before} -> {fn.route_launches}")
         return out
+
+    check_zoo_kernels(zoo, randn, record, on_route)
 
     gemm_cases = [(m, n, k, "test") for m, n, k in TEST_GEMM_SHAPES] + [
         (m, n, k, "serve:" + name)
@@ -1115,12 +1203,40 @@ def expected(cfg, path, mode):
     launch).  qwen3-moe: per layer qkv, wo and the router on the GEMM,
     the expert FFN's gate, up and down on the batched GEMM (experts the
     batch), one attention launch; graph mode runs the MoE FFN eagerly, so
-    its counts are eager mode's.  All: plus the head GEMM."""
+    its counts are eager mode's.  A dense stack with a GELU MLP (hubert)
+    runs 2 FFN GEMMs a layer (up, down), not 3.  jamba (hybrid): per
+    super-block each sub-layer's mixer (attention: qkv, wo and one
+    attention launch; Mamba: six GEMMs and, in a forward, one SSD launch,
+    graph mode stacking z/x and B/C) and FFN (dense: three GEMMs; MoE: the
+    router and three batched); decode keeps every FFN eager.  All: plus
+    the head GEMM."""
     L = cfg.num_layers
     counts = dict.fromkeys(("gemm", "gemm_batched", "flash_decode",
                             "flash_attention", "ssd_chunk_diag"), 0)
+    attn = "flash_decode" if path == "serve" else "flash_attention"
+    if not cfg.uniform_stack:
+        period = cfg.attn_layer_period
+        g = b = a = ssd = 0
+        for j in range(period):
+            if cfg.layer_kind(j) == "attn":
+                g, a = g + 2, a + 1
+            elif path == "forward" and mode == "graph":
+                g, b, ssd = g + 2, b + 2, ssd + 1
+            else:
+                g, ssd = g + 6, ssd + (path == "forward")
+            if cfg.layer_is_moe(j):
+                g, b = g + 1, b + 3
+            else:
+                g += 3
+        n_sb = L // period
+        ops = {"gemm", "qkv_project", "attention", "moe_expert_ffn",
+               "mlp_block"}
+        if path == "forward":
+            ops |= {"ssd_scan"} | ({"gemm_batched"} if mode == "graph"
+                                   else set())
+        return ({**counts, "gemm": n_sb * g + 1, "gemm_batched": n_sb * b,
+                 attn: n_sb * a, "ssd_chunk_diag": n_sb * ssd}, ops)
     if cfg.num_experts:
-        attn = "flash_decode" if path == "serve" else "flash_attention"
         return ({**counts, "gemm": 3 * L + 1, "gemm_batched": 3 * L,
                  attn: L},
                 {"gemm", "qkv_project", "attention", "moe_expert_ffn"})
@@ -1132,8 +1248,8 @@ def expected(cfg, path, mode):
                      "ssd_chunk_diag": L}, {"gemm", "gemm_batched", "ssd_scan"})
         return ({**counts, "gemm": 6 * L + 1, "ssd_chunk_diag": L},
                 {"gemm", "ssd_scan"})
-    attn = "flash_decode" if path == "serve" else "flash_attention"
-    return ({**counts, "gemm": 5 * L + 1, attn: L},
+    mlp = 3 if cfg.mlp_kind == "swiglu" else 2
+    return ({**counts, "gemm": (2 + mlp) * L + 1, attn: L},
             {"gemm", "qkv_project", "mlp_block", "attention"})
 
 
@@ -1162,12 +1278,12 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
               forward_mode=forward_mode)
     # Warm the plain path's allocator and the kernels' libraries once.
     with offload_policy(**KERNEL_POLICY), torch.no_grad():
-        serve_batch(arch, prompts, max_new_tokens=1, **kw)
+        serve_batch(cfg, prompts, max_new_tokens=1, **kw)
     zero_counts()
     with offload_policy(**KERNEL_POLICY), offload_trace() as trace, \
             (metrics.collect(books) if books is not None
              else contextlib.nullcontext()):
-        res_k = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
+        res_k = serve_batch(cfg, prompts, max_new_tokens=MAX_NEW, **kw)
     launches = read_counts()
     routes = read_routes()
     per_step, ops = expected(cfg, "serve", forward_mode)
@@ -1181,7 +1297,7 @@ def run_serve(cfg, model, params, prompts, forward_mode, zero_counts,
                   batched="wgmma" if cfg.num_experts else None)
     backends = _backends(trace, ops)
     with offload_policy(**PLAIN_POLICY):
-        res_p = serve_batch(arch, prompts, max_new_tokens=MAX_NEW, **kw)
+        res_p = serve_batch(cfg, prompts, max_new_tokens=MAX_NEW, **kw)
     tok = res_k.tokens
     if tok.shape != (BATCH, MAX_NEW) or tok.min() < 0 or \
             tok.max() >= cfg.vocab_size:
@@ -1342,9 +1458,84 @@ def _logit_errs(logits_of, shape):
                 (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()}
 
 
-def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
-    """Phases 4 and 8: Model.forward at full width, eager and graph mode
-    on the kernels (counted), and on the plain path."""
+def _first_positions(inputs, n):
+    """The first ``n`` positions of a forward's inputs: a (B, S) token
+    tensor, or the batch dict (``tokens`` / ``embeds``, ``positions``
+    (B, S) or (3, B, S))."""
+    if not isinstance(inputs, dict):
+        return inputs[:, :n]
+    return {k: v[..., :n] if k == "positions" else v[:, :n]
+            for k, v in inputs.items()}
+
+
+def _moe_routing(calls, replay):
+    """A context in which the MoE router's top-k choices are recorded into
+    ``calls`` (one (experts, probabilities) pair a router call), or, with
+    ``replay``, taken from it call by call: the replaying path routes each
+    token to the recorded experts, its gates read from its own router
+    probabilities there and renormalized, as ``_top_k_gates`` does."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import moe as M
+
+    @contextlib.contextmanager
+    def scope():
+        top_k = M._top_k_gates
+        recorded = iter(list(calls))
+        if not replay:
+            calls.clear()
+
+        def spy(logits, k):
+            probs = torch.softmax(logits.float(), dim=-1)
+            if replay:
+                idx = next(recorded)[0]
+                gates = probs.gather(-1, idx)
+                return gates / torch.clamp(gates.sum(dim=-1, keepdim=True),
+                                           min=1e-9), idx
+            gates, idx = top_k(logits, k)
+            calls.append((idx, probs))
+            return gates, idx
+
+        M._top_k_gates = spy
+        try:
+            yield
+        finally:
+            M._top_k_gates = top_k
+
+    return scope()
+
+
+def _routing_diff(kernel_calls, plain_calls, k):
+    """Routing decisions (token, slot) of two paths, the count that differ,
+    and the plain path's gap between its k-th and next expert's
+    probability at each token that differs."""
+    decisions = differ = 0
+    gaps = []
+    for (ik, _), (ip, probs) in zip(kernel_calls, plain_calls, strict=True):
+        decisions += ip.numel()
+        differ += int((ik != ip).sum())
+        rows = (ik != ip).any(dim=-1)
+        if rows.any():
+            srt = probs[rows].sort(dim=-1, descending=True).values
+            gaps += (srt[:, k - 1] - srt[:, k]).tolist()
+    return {"decisions": decisions, "differ": differ,
+            "gaps_at_differing_tokens": gaps}
+
+
+def run_forward(cfg, model, params, tokens, zero_counts, read_counts,
+                shared_routing=False):
+    """Phases 4, 8, 10c and 12: Model.forward at full width, eager and
+    graph mode on the kernels (counted), and on the plain path.  ``tokens``
+    is a (B, S) token tensor or the batch dict (embedding inputs,
+    positions).  ``shared_routing`` holds an MoE model's logits to the bar
+    with the plain path taking the kernel path's routing (the top-k of two
+    bf16 paths can flip at near-ties, and a flipped or dropped copy
+    changes the answer); the unshared error, the routing decisions that
+    differ and their probability gaps are printed beside it."""
+    import contextlib
+
     import torch
 
     from repro_torch.core import blas
@@ -1353,14 +1544,16 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
     from repro_torch.models import build_model
 
     arch = cfg.name
-    bsz, seq = tokens.shape
+    lead = tokens if not isinstance(tokens, dict) else (
+        tokens.get("tokens", tokens.get("embeds")))
+    bsz, seq = lead.shape[0], lead.shape[1]
     out = {"arch": arch, "dtype": cfg.dtype, "batch": bsz, "seq": seq,
            "seconds": {}, "launches": {}, "routes": {}, "trace_backends": {}}
     last = {}
     for mode in ("eager", "graph"):
         mdl = build_model(dataclasses.replace(cfg, forward_mode=mode))
         with offload_policy(**KERNEL_POLICY), torch.no_grad():
-            mdl.forward(params, tokens[:, :64])          # warm up
+            mdl.forward(params, _first_positions(tokens, 64))  # warm up
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
@@ -1373,7 +1566,7 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
         out["launches"][mode] = counts
         out["routes"][mode] = read_routes()
         require_route(f"{arch} forward ({mode})", out["routes"][mode],
-                      "wgmma")
+                      "wgmma", attn=attn_route_of(cfg))
         for _ in range(2):           # two more, uncounted, for the spread
             t0 = time.perf_counter()
             with offload_policy(**KERNEL_POLICY), torch.no_grad():
@@ -1399,10 +1592,14 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
         last[mode] = logits[:, -1].float()
         del logits
 
-    def last_logits(pol, k_parts=1):
+    kernel_routing = []
+
+    def last_logits(pol, k_parts=1, share=shared_routing):
         t0 = time.perf_counter()
+        routing = (_moe_routing(kernel_routing, pol is not KERNEL_POLICY)
+                   if share else contextlib.nullcontext())
         with offload_policy(**pol), blas.host_k_split(k_parts), \
-                torch.no_grad():
+                torch.no_grad(), routing:
             out = model.forward(params, tokens)[0][:, -1].float()
         torch.cuda.synchronize()
         if pol is PLAIN_POLICY and k_parts == 1:
@@ -1426,16 +1623,34 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts):
         fail(f"{arch} graph forward differs from eager: {graph_vs_eager}")
     out["last_logits"] = {"bfloat16": {**errs, "bar": bar},
                           "graph_vs_eager": graph_vs_eager}
+    if shared_routing:
+        plain_routing = []
+        with offload_policy(**PLAIN_POLICY), torch.no_grad(), \
+                _moe_routing(plain_routing, False):
+            lp = model.forward(params, tokens)[0][:, -1].float()
+        lk = last_logits(KERNEL_POLICY)
+        out["last_logits"]["routing_shared"] = True
+        out["last_logits"]["unshared"] = {
+            "err": (lk - lp).abs().max().item() / lp.abs().max().item(),
+            "argmax_agreement": (lk.argmax(-1) == lp.argmax(-1)).float()
+            .mean().item(),
+            "routing": _routing_diff(kernel_routing, plain_routing,
+                                     cfg.experts_per_token)}
     return out
 
 
-def run_long_decode(cfg, model, params, prompts, zero_counts, read_counts):
-    """One decode step of the model at full width at cache index
-    LONG_INDEX on a LONG_CACHE-slot cache whose every layer's K and V are
-    drawn from a generator seeded with SEED, the prompts' first tokens as
-    input: kernels (counted: each layer's flash decode split across a
-    cluster, on its dtype's route) against the plain path.  Logits bar:
-    1e-4 x max |logit| in f32, max(2e-2, 2 x floor) in bf16."""
+def run_long_decode(cfg, model, params, prompts, zero_counts, read_counts,
+                    *, batch=BATCH, cache_len=LONG_CACHE, index=LONG_INDEX,
+                    phase="long-decode", clone=True):
+    """One decode step of the model at full width at cache index ``index``
+    on a ``cache_len``-slot cache whose every layer's K and V are drawn
+    from a generator seeded with SEED, the prompts' first tokens as input:
+    kernels (counted: each layer's flash decode split across a cluster, on
+    its dtype's route) against the plain path.  Logits bar: 1e-4 x max
+    |logit| in f32, max(2e-2, 2 x floor) in bf16.  ``clone=False`` runs
+    every path on the one cache (a step writes its slot before it reads
+    the cache, so each path sees the same cache), where a second copy
+    would not fit beside the weights."""
     import torch
 
     from repro_torch.core import blas
@@ -1443,22 +1658,23 @@ def run_long_decode(cfg, model, params, prompts, zero_counts, read_counts):
     from repro_torch.kernels.flash_decode import cluster_capacity, decode_plan
 
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    base = model.init_decode_cache(BATCH, LONG_CACHE, device=dev)
+    base = model.init_decode_cache(batch, cache_len, device=dev)
     for buf in base.values():
         for layer in buf:
             layer.copy_(torch.randn(layer.shape, generator=gen, device=dev))
-    first = torch.tensor([[p[0]] for p in prompts], device=dev)
+    first = torch.tensor([[p[0]] for p in prompts[:batch]], device=dev)
 
     def logits_of(pol, k_parts=1):
-        cache = {name: buf.clone() for name, buf in base.items()}
+        cache = ({name: buf.clone() for name, buf in base.items()} if clone
+                 else base)
         with offload_policy(**pol), blas.host_k_split(k_parts), \
                 torch.no_grad():
-            return model.decode_step(params, cache, first,
-                                     LONG_INDEX)[0].float()
+            return model.decode_step(params, cache, first, index)[0].float()
 
     zero_counts()
-    errs = _logit_errs(logits_of, (BATCH, cfg.vocab_size))
+    errs = _logit_errs(logits_of, (batch, cfg.vocab_size))
     launches, routes = read_counts(), read_routes()
     per_step, _ = expected(cfg, "serve", "eager")
     if launches != per_step:
@@ -1471,13 +1687,20 @@ def run_long_decode(cfg, model, params, prompts, zero_counts, read_counts):
     if not errs["err"] <= bar:
         fail(f"{cfg.dtype} long-cache decode logits differ: {errs} > {bar}")
     dt = getattr(torch, cfg.dtype)
-    plan = decode_plan(BATCH, cfg.num_heads, cfg.num_kv_heads, LONG_CACHE,
+    slots = base["k"].shape[3]
+    plan = decode_plan(batch, cfg.num_heads, cfg.num_kv_heads, slots,
                        cfg.head_dim, dt, route,
                        cluster_capacity(route, dt, cfg.head_dim, 0))
-    out = {"phase": "long-decode", "arch": cfg.name, "dtype": cfg.dtype,
-           "batch": BATCH, "cache_len": LONG_CACHE, "cache_index": LONG_INDEX,
-           "plan": plan._asdict(), "launches": launches, "routes": routes,
-           "logits": {**errs, "bar": bar}}
+    out = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+           "batch": batch, "cache_len": cache_len, "cache_slots": slots,
+           "cache_index": index, "plan": plan._asdict(),
+           "launches": launches, "routes": routes,
+           "logits": {**errs, "bar": bar},
+           "cache_GB": sum(t.numel() * t.element_size()
+                           for t in base.values()) / 1e9,
+           "max_memory_allocated_GB": _peak_GB()}
+    if phase != "long-decode":
+        out["profile_step"] = _profile(lambda: logits_of(KERNEL_POLICY))
     emit(out)
     del base
     torch.cuda.empty_cache()
@@ -2270,6 +2493,591 @@ def run_moe_f32(cfg, prompts, tokens):
     return out["routes"]
 
 
+def zoo_configs():
+    """The configs of phases 12a-12h: jamba cut (``JAMBA_CUT``) and its f32
+    twin with ``JAMBA_F32_EXPERTS``, gemma3-27b, h2o-danube-1.8b and
+    hubert-xlarge whole, qwen2-72b / qwen2-vl-72b at ``QWEN2_LAYERS``."""
+    from repro_torch.configs import get_arch
+
+    jamba = dataclasses.replace(get_arch(JAMBA_ARCH), **JAMBA_CUT)
+    return {
+        "jamba": jamba,
+        "jamba-f32": dataclasses.replace(jamba, num_experts=JAMBA_F32_EXPERTS,
+                                         dtype="float32"),
+        "gemma3": get_arch(GEMMA_ARCH),
+        "danube": get_arch(DANUBE_ARCH),
+        "hubert": get_arch(HUBERT_ARCH),
+        "qwen2": dataclasses.replace(get_arch(QWEN2_ARCH),
+                                     num_layers=QWEN2_LAYERS),
+        "qwen2-vl": dataclasses.replace(get_arch(QWEN2_VL_ARCH),
+                                        num_layers=QWEN2_LAYERS),
+    }
+
+
+def zoo_cuts(cfg):
+    """What the phase cut from the published config, in words."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(cfg.name)
+    cuts = []
+    if cfg.num_layers != full.num_layers:
+        cuts.append(f"layers {cfg.num_layers} of {full.num_layers}")
+    if cfg.num_experts != full.num_experts:
+        cuts.append(f"experts {cfg.num_experts} of {full.num_experts} "
+                    f"(top-{cfg.experts_per_token} kept)")
+    return cuts
+
+
+def zoo_gemm_shapes(cfg):
+    """(name, k, n, B layout, out dtype) of every distinct GEMM shape of a
+    zoo model's layers and head: attention qkv / wo, Mamba z / x, B / C,
+    dt (written f32) and out, the dense FFN's up (and gate) / down, the
+    MoE router (written f32; under the kernel gate's 8 below 8 experts)
+    and the head (``embed.T``, K-major, when tied)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    moe = any(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    dense = any(not cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    out = []
+    if "attn" in kinds:
+        out += [("qkv", d, (cfg.num_heads + 2 * cfg.num_kv_heads) * hd,
+                 "mn", "bfloat16"),
+                ("wo", cfg.num_heads * hd, d, "mn", "bfloat16")]
+    if "mamba" in kinds:
+        gn = cfg.ssm_num_groups * cfg.ssm_state_dim
+        out += [("mamba:wz/wx", d, cfg.d_inner, "mn", "bfloat16"),
+                ("mamba:wb/wc", d, gn, "mn", "bfloat16"),
+                ("mamba:wdt", d, cfg.ssm_num_heads, "mn", "float32"),
+                ("mamba:wo", cfg.d_inner, d, "mn", "bfloat16")]
+    if dense:
+        out += [("ffn:up", d, cfg.d_ff, "mn", "bfloat16"),
+                ("ffn:down", cfg.d_ff, d, "mn", "bfloat16")]
+    if moe and cfg.num_experts >= 8:
+        out.append(("router", d, cfg.num_experts, "mn", "float32"))
+    tied = cfg.tie_embeddings and cfg.embed_inputs
+    out.append(("head", d, cfg.vocab_size, "k" if tied else "mn",
+                "bfloat16"))
+    return out
+
+
+def zoo_forward_rows(key):
+    """Rows (m) of a zoo model's forward: its batch x sequence."""
+    b, s = {"gemma3": GEMMA_FWD, "danube": DANUBE_FWD}.get(key, ZOO_FWD)
+    return b * s
+
+
+def zoo_attention_cases(zoo):
+    """(tag, B, Hq, Hkv, S, D, causal, window) of the zoo forwards'
+    attention: danube's sliding window (D 80), hubert's bidirectional
+    encoder (D 80), gemma3's local window (D 128), jamba / qwen2's GQA
+    64 / 8 (D 128)."""
+    g, dn, h, j = zoo["gemma3"], zoo["danube"], zoo["hubert"], zoo["jamba"]
+    return [
+        ("danube-swa", DANUBE_FWD[0], dn.num_heads, dn.num_kv_heads,
+         DANUBE_FWD[1], dn.head_dim, True, dn.sliding_window),
+        ("hubert-bidir", ZOO_FWD[0], h.num_heads, h.num_kv_heads, ZOO_FWD[1],
+         h.head_dim, False, None),
+        ("gemma3-local", GEMMA_FWD[0], g.num_heads, g.num_kv_heads,
+         GEMMA_FWD[1], g.head_dim, True, g.local_window),
+        ("jamba/qwen2", ZOO_FWD[0], j.num_heads, j.num_kv_heads, ZOO_FWD[1],
+         j.head_dim, True, None),
+    ]
+
+
+def zoo_decode_cases(zoo):
+    """(tag, B, Hq, Hkv, S, D, lo, hi) of the zoo decode steps: the serve
+    step's 64-slot cache (32 of 16 + 16 tokens valid) at every new head
+    geometry, gemma3's long step on a local layer, danube's step past the
+    wrap of its rolling buffer (every slot valid)."""
+    g, dn, j = zoo["gemma3"], zoo["danube"], zoo["jamba"]
+    steps = PROMPT_LEN + MAX_NEW
+    gb, gs, gi = GEMMA_LONG
+    db, ds, _ = DANUBE_LONG
+    return [
+        ("jamba/qwen2-serve", BATCH, j.num_heads, j.num_kv_heads, CACHE_LEN,
+         j.head_dim, 0, steps),
+        ("gemma3-serve", BATCH, g.num_heads, g.num_kv_heads, CACHE_LEN,
+         g.head_dim, 0, steps),
+        ("danube-serve", BATCH, dn.num_heads, dn.num_kv_heads, CACHE_LEN,
+         dn.head_dim, 0, steps),
+        ("gemma3-long-local", gb, g.num_heads, g.num_kv_heads, gs, g.head_dim,
+         gi - g.local_window + 1, gi + 1),
+        ("danube-long-wrapped", db, dn.num_heads, dn.num_kv_heads, ds,
+         dn.head_dim, 0, ds),
+    ]
+
+
+def zoo_ssd_shapes(zoo):
+    """(tag, BH, C, Q, P, N) of jamba's SSD launches: the 2 x 512 forward
+    (256 heads a row, chunk 256) and the f32 check's 1 x 512."""
+    j = zoo["jamba"]
+    q = j.ssm_chunk
+    return [("jamba-forward", ZOO_FWD[0] * j.ssm_num_heads, ZOO_FWD[1] // q,
+             q, j.ssm_head_dim, j.ssm_state_dim),
+            ("jamba-f32", j.ssm_num_heads, JAMBA_F32_FWD_SEQ // q, q,
+             j.ssm_head_dim, j.ssm_state_dim)]
+
+
+def check_zoo_kernels(zoo, randn, record, on_route):
+    """Phase 2 at the zoo's shapes: every GEMM of each model on ``skinny``
+    (m = 8, 16) for the decoders and on ``wgmma`` at its forward's rows,
+    jamba's at m = 512 on ``tf32x3`` in f32; the expert GEMMs of jamba
+    (8 experts, d 8192, f 24576; decode and forward groups) on ``wgmma``
+    and of its f32 twin on ``tf32x3``; flash attention on the model's
+    transposed views (D 80 on ``simt``, D 128 on ``wgmma``); flash decode
+    on ``mma``, each launch repeated bit for bit; the SSD chunk kernel at
+    jamba's shapes on ``mma``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gemm import gemm, gemm_batched
+    from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
+                                         gemm_ref, moe_gemm_ref,
+                                         ssd_chunk_diag_ref)
+    from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    seen = set()
+    for key, cfg in zoo.items():
+        if cfg.dtype != "bfloat16":
+            continue
+        ms = [(zoo_forward_rows(key), "wgmma")]
+        if cfg.causal and cfg.embed_inputs:
+            ms += [(BATCH, "skinny"), (16, "skinny")]
+        for name, k, n, lay, out in zoo_gemm_shapes(cfg):
+            for m, route in ms:
+                if (m, k, n, lay, out) in seen:
+                    continue
+                seen.add((m, k, n, lay, out))
+                ot = getattr(torch, out)
+                a, b = randn(m, k, dtype=bf16), b_operand(randn, k, n, lay,
+                                                          bf16)
+                got = on_route(gemm, route, lambda: gemm(a, b, out_dtype=ot))
+                err, abs_err = _rel_err(got, gemm_ref(a, b, out_dtype=f32))
+                record("gemm", f"{route} {key}:{name} {m}x{k}@{k}x{n} B "
+                       f"{lay}-major out {out}", bf16, err, abs_err, True,
+                       tol={"bfloat16": TOL[out]}, key="gemm:zoo")
+                del a, b, got
+    m = JAMBA_F32_FWD_SEQ
+    for name, k, n, lay, _ in zoo_gemm_shapes(zoo["jamba-f32"]):
+        a, b = randn(m, k), b_operand(randn, k, n, lay, f32)
+        got = on_route(gemm, "tf32x3", lambda: gemm(a, b))
+        record("gemm", f"tf32x3 jamba-f32:{name} {m}x{k}@{k}x{n}", f32,
+               *_rel_err(got, gemm_ref(a, b)), False)
+        del a, b, got
+
+    for key, route, dt in (("jamba", "wgmma", bf16),
+                           ("jamba-f32", "tf32x3", f32)):
+        for tag, e, m, k, n, _ in moe_expert_shapes(zoo[key]):
+            if key == "jamba-f32" and not tag.startswith("decode"):
+                continue        # its forward is 1 x 512, not FWD_BATCH x FWD_SEQ
+            a = randn(e, m, k, dtype=dt)
+            b = (randn(e, k, n) * k ** -0.5).to(dt)
+            got = on_route(gemm_batched, route, lambda: gemm_batched(a, b))
+            record("gemm_batched", f"{key} moe {tag} {e}x{m}x{k}@{e}x{k}x{n} "
+                   f"{route}", dt, *_rel_err(got, moe_gemm_ref(a, b)),
+                   dt == bf16, key="gemm_batched:zoo")
+            del a, b, got
+
+    for tag, b, hq, hkv, s, d, causal, window in zoo_attention_cases(zoo):
+        q, k, v = attn_operands(randn, b, hq, hkv, s, s, d, bf16, True)
+        route = "wgmma" if d in (64, 128) else "simt"
+        kw = dict(causal=causal, window=window)
+        got = on_route(flash_attention, route,
+                       lambda: flash_attention(q, k, v, **kw))
+        want = attention_ref(q, k, v, **kw)
+        record("flash_attention", f"{tag} B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
+               f"causal={causal} window={window} BSHD views {route}", bf16,
+               *_row_rel_err(got, want), True, scale="row max",
+               key="flash_attention:zoo")
+        del q, k, v, got, want
+
+    for tag, b, hq, hkv, s, d, lo_, hi_ in zoo_decode_cases(zoo):
+        q = randn(b, hq, d, dtype=bf16)
+        k, v = randn(b, hkv, s, d, dtype=bf16), randn(b, hkv, s, d, dtype=bf16)
+        lo = torch.full((b,), lo_, dtype=torch.int32, device=dev)
+        hi = torch.full((b,), hi_, dtype=torch.int32, device=dev)
+        got = on_route(flash_decode, "mma",
+                       lambda: flash_decode(q, k, v, lo, hi))
+        again = on_route(flash_decode, "mma",
+                         lambda: flash_decode(q, k, v, lo, hi))
+        case = f"{tag} B{b} Hq{hq} Hkv{hkv} S{s} D{d} [{lo_}, {hi_}) mma"
+        if not torch.equal(got, again):
+            fail(f"flash_decode {case}: a repeat launch differs")
+        record("flash_decode", case, bf16,
+               *_rel_err(got, decode_attention_ref(q, k, v, lo, hi)), True,
+               key="flash_decode:zoo")
+        del q, k, v
+
+    for tag, bh, nc, q, p, n in zoo_ssd_shapes(zoo):
+        x = randn(bh, nc, q, p)
+        dta = torch.cumsum(-randn(bh, nc, q).abs() * 0.7, dim=-1)
+        b, c = randn(bh, nc, q, n), randn(bh, nc, q, n)
+        got = on_route(ssd_chunk_diag, "mma",
+                       lambda: ssd_chunk_diag(x, dta, b, c))
+        if not torch.equal(got, ssd_chunk_diag(x, dta, b, c)):
+            fail(f"ssd_chunk_diag {tag}: a repeat launch differs")
+        record("ssd_chunk_diag", f"{tag} BH{bh} C{nc} Q{q} P{p} N{n}", f32,
+               *_row_rel_err(got, ssd_chunk_diag_ref(x, dta, b, c)), True,
+               scale="row max", tol=SSD_TOL, main_dtype=f32,
+               key="ssd_chunk_diag:zoo")
+        del x, dta, b, c, got
+    torch.cuda.empty_cache()
+
+
+def _zoo_build(cfg):
+    """(model, params, facts) for one zoo model: weights drawn on the card
+    from a generator seeded with SEED (after the previous model's are
+    freed), their count beside ``param_count()`` (which counts no norms,
+    biases or Mamba conv / dt / A / D vectors), the data-sheet bytes
+    and the measured peak."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    facts = {"init_s": time.perf_counter() - t0,
+             "params": sum(t.numel() for t in leaves),
+             "param_count": cfg.param_count(),
+             "weights_GB": sum(t.numel() * t.element_size()
+                               for t in leaves) / 1e9,
+             "data_sheet_GB": cfg.param_count()
+             * getattr(torch, cfg.dtype).itemsize / 1e9,
+             "reduced": zoo_cuts(cfg)}
+    return model, params, facts
+
+
+def _peak_GB():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _zoo_tokens(rng, cfg, shape):
+    import torch
+
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=shape)).to("cuda")
+
+
+def _zoo_prompts(rng, cfg):
+    return [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                          size=PROMPT_LEN)]
+            for _ in range(BATCH)]
+
+
+def _zoo_embeds(cfg, shape, mrope=False):
+    """Seeded frame / patch embeddings (B, S, D) in the model's dtype, at
+    the scale of the token embeddings (d_model**-0.5); with ``mrope``
+    three distinct position streams: temporal, and height / width of a
+    32-wide patch grid."""
+    import torch
+
+    dev = torch.device("cuda")
+    b, s = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = (torch.randn(b, s, cfg.d_model, generator=gen, device=dev)
+         * cfg.d_model ** -0.5).to(getattr(torch, cfg.dtype))
+    batch = {"embeds": x}
+    if mrope:
+        t = torch.arange(s, dtype=torch.int32, device=dev)
+        batch["positions"] = torch.stack(
+            [t, t // 32, t % 32])[:, None, :].expand(3, b, s).contiguous()
+    return batch
+
+
+def run_zoo(zoo, rng, zero_counts, read_counts, launches, routes):
+    """Phases 12a-12h: the rest of the model zoo at published widths (cut
+    where the card forces it, ``zoo_cuts``), each model's weights freed
+    before the next is built.  Returns {phase: facts} for the kernels
+    line."""
+    import torch
+
+    phases = {}
+
+    def keep(tag, out, launch_key="launches", route_key="routes"):
+        launches[tag] = (out[launch_key]["eager"]
+                         if "eager" in out[launch_key] else out[launch_key])
+        routes[tag] = (out[route_key]["eager"]
+                       if "eager" in out[route_key] else out[route_key])
+        if "graph" in out[route_key]:
+            routes[tag + "-graph"] = out[route_key]["graph"]
+        phases[tag] = out
+        emit({"phase": tag, **out, "max_memory_allocated_GB": _peak_GB()})
+
+    def serve(tag, cfg, model, params, facts, graph=False):
+        prompts = _zoo_prompts(rng, cfg)
+        out = run_serve(cfg, model, params, prompts, "eager", zero_counts,
+                        read_counts)
+        toks = out.pop("tokens")
+        keep(tag, {**out, **facts})
+        if graph:
+            out_g = run_serve(cfg, model, params, prompts, "graph",
+                              zero_counts, read_counts)
+            if out_g.pop("tokens") != toks:
+                fail(f"{cfg.name} graph-mode serving gave other greedy "
+                     "tokens than eager mode")
+            out_g["greedy_tokens_equal_eager"] = True
+            keep(tag + "-graph", out_g)
+        return prompts
+
+    def forward(tag, cfg, model, params, inputs, facts=None):
+        keep(tag, {**run_forward(cfg, model, params, inputs, zero_counts,
+                                 read_counts,
+                                 shared_routing=bool(cfg.num_experts)),
+                   **(facts or {})})
+
+    # ---- 12a-12d. jamba: one super-block, 8 experts ----------------------
+    cfg = zoo["jamba"]
+    model, params, facts = _zoo_build(cfg)
+    prompts = serve("jamba-serve", cfg, model, params, facts, graph=True)
+    forward("jamba-forward", cfg, model, params,
+            _zoo_tokens(rng, cfg, ZOO_FWD))
+    del params, model
+    routes["jamba-float32"] = run_jamba_f32(zoo["jamba-f32"], prompts, rng)
+
+    # ---- 12e. gemma3-27b whole -------------------------------------------
+    cfg = zoo["gemma3"]
+    model, params, facts = _zoo_build(cfg)
+    prompts = serve("gemma3-serve", cfg, model, params, facts)
+    forward("gemma3-forward", cfg, model, params,
+            _zoo_tokens(rng, cfg, GEMMA_FWD))
+    b, slots, index = GEMMA_LONG
+    out = run_long_decode(cfg, model, params, prompts, zero_counts,
+                          read_counts, batch=b, cache_len=slots, index=index,
+                          phase="gemma3-long-decode", clone=False)
+    launches["gemma3-long-decode"] = out["launches"]
+    routes["gemma3-long-decode"] = out["routes"]
+    phases["gemma3-long-decode"] = out
+    del params, model
+
+    # ---- 12f. h2o-danube-1.8b whole --------------------------------------
+    cfg = zoo["danube"]
+    model, params, facts = _zoo_build(cfg)
+    prompts = serve("danube-serve", cfg, model, params, facts)
+    forward("danube-forward", cfg, model, params,
+            _zoo_tokens(rng, cfg, DANUBE_FWD))
+    b, slots, index = DANUBE_LONG
+    out = run_long_decode(cfg, model, params, prompts, zero_counts,
+                          read_counts, batch=b, cache_len=slots, index=index,
+                          phase="danube-long-decode")
+    launches["danube-long-decode"] = out["launches"]
+    routes["danube-long-decode"] = out["routes"]
+    phases["danube-long-decode"] = out
+    del params, model
+
+    # ---- 12g. hubert-xlarge whole: a bidirectional encoder ----------------
+    cfg = zoo["hubert"]
+    model, params, facts = _zoo_build(cfg)
+    forward("hubert-forward", cfg, model, params, _zoo_embeds(cfg, ZOO_FWD),
+            facts)
+    del params, model
+
+    # ---- 12h. qwen2-72b and qwen2-vl-72b at 8 of 80 layers ----------------
+    cfg = zoo["qwen2"]
+    model, params, facts = _zoo_build(cfg)
+    serve("qwen2-serve", cfg, model, params, facts)
+    del params, model
+    cfg = zoo["qwen2-vl"]
+    model, params, facts = _zoo_build(cfg)
+    forward("qwen2-vl-forward", cfg, model, params,
+            _zoo_embeds(cfg, ZOO_FWD, mrope=True), facts)
+    del params, model
+    torch.cuda.empty_cache()
+    return phases
+
+
+def run_jamba_f32(cfg32, prompts, rng):
+    """Phase 12d: the jamba super-block with f32 weights and
+    JAMBA_F32_EXPERTS experts (top-2 of 2: no routing decision can
+    differ): first decode step and last-position logits of a 1 x
+    JAMBA_F32_FWD_SEQ forward, kernels against plain, under F32_LOGIT_TOL
+    x max |logit|; every SSD launch on ``mma``, attention and decode on
+    ``simt``, GEMMs on ``skinny`` / ``tf32x3``.  Returns the routes."""
+    import torch
+
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+
+    dev = torch.device("cuda")
+    model32, params32, facts = _zoo_build(cfg32)
+    first = torch.tensor([[p[0]] for p in prompts], device=dev)
+    toks = _zoo_tokens(rng, cfg32, (1, JAMBA_F32_FWD_SEQ))
+
+    def first_logits(pol, k_parts=1):
+        cache = model32.init_decode_cache(BATCH, CACHE_LEN, device=dev)
+        with offload_policy(**pol), blas.host_k_split(k_parts), \
+                torch.no_grad():
+            return model32.decode_step(params32, cache, first, 0)[0].float()
+
+    def last_logits(pol, k_parts=1):
+        with offload_policy(**pol), blas.host_k_split(k_parts), \
+                torch.no_grad():
+            return model32.forward(params32, toks)[0][:, -1].float()
+
+    zero_routes()
+    out = {"bar": F32_LOGIT_TOL, "forward_batch": 1,
+           "forward_seq": JAMBA_F32_FWD_SEQ,
+           "decode_first_step": _logit_errs(first_logits,
+                                            (BATCH, cfg32.vocab_size)),
+           "forward_last_position": _logit_errs(
+               last_logits, (1, cfg32.vocab_size)),
+           "routes": read_routes(), **facts,
+           "max_memory_allocated_GB": _peak_GB()}
+    r = out["routes"]
+    n_mamba = sum(cfg32.layer_kind(i) == "mamba"
+                  for i in range(cfg32.num_layers))
+    n_attn = cfg32.num_layers - n_mamba
+    # The kernel path runs once per logits: decode then forward.
+    if r["ssd_chunk_diag"] != {"simt": 0, "mma": n_mamba}:
+        fail(f"jamba f32 SSD off the mma route: {r['ssd_chunk_diag']}")
+    if r["flash_attention"] != {"simt": n_attn, "wgmma": 0} or \
+            r["flash_decode"] != {"simt": n_attn, "mma": 0}:
+        fail(f"jamba f32 attention off the simt routes: {r}")
+    if any(n for rt, n in r["gemm_batched"].items() if rt != "tf32x3"):
+        fail(f"jamba f32 expert GEMMs off the tf32x3 route: {r}")
+    require_f32_gemm_routes("jamba f32", r)
+    for name in ("decode_first_step", "forward_last_position"):
+        if not out[name]["err"] <= F32_LOGIT_TOL:
+            fail(f"jamba f32 {name} logits differ: {out[name]} > "
+                 f"{F32_LOGIT_TOL}")
+    emit({"phase": "jamba-float32", **out})
+    del params32
+    torch.cuda.empty_cache()
+    return r
+
+
+def time_zoo(zoo, randn):
+    """Phase 11 at the zoo's shapes: flash attention in bf16 at D 80 on
+    ``simt`` (danube's 1 x 8192 sliding window, hubert's bidirectional 2 x
+    512) and on ``wgmma`` at gemma3's windowed 2 x 2048, on the model's
+    transposed views, beside SDPA with the same mask (GQA); flash decode
+    at D 80 past the rolling buffer's wrap (danube) and on gemma3's long
+    step (a local layer's [2977, 4001) and a global layer's [0, 4001))
+    beside SDPA; the SSD chunk kernel at jamba's forward shape; the
+    batched GEMM at jamba's expert shapes beside ``torch.bmm``.  Returns
+    {name: row}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.gemm import gemm_batched
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    layers = {"danube-swa": zoo["danube"].num_layers,
+              "hubert-bidir": zoo["hubert"].num_layers,
+              "gemma3-local": sum(zoo["gemma3"].layer_window(i, 0) < 1 << 30
+                                  for i in range(zoo["gemma3"].num_layers)),
+              "jamba/qwen2": None}
+    for tag, b, hq, hkv, s, d, causal, window in zoo_attention_cases(zoo):
+        if tag == "jamba/qwen2":
+            continue
+        nbytes, flops = attn_work(b, hq, hkv, s, s, d, causal, window, 2)
+        ops = _rotation(lambda: attn_operands(randn, b, hq, hkv, s, s, d,
+                                              bf16, True), nbytes)
+        pos = torch.arange(s, device=dev)
+        rel = pos[:, None] - pos[None, :]
+        mask = torch.ones(s, s, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= rel >= 0
+        if window is not None:
+            mask &= rel < window
+        kw = dict(causal=causal, window=window)
+        before = dict(flash_attention.route_launches)
+        t_k = _time(lambda t: flash_attention(*t, **kw), ops, iters=10)
+        took = {r: n - before[r] for r, n in
+                flash_attention.route_launches.items() if n != before[r]}
+        t_p = _time(lambda t: attention_ref(*t, **kw), ops, iters=3)
+        t_l = _time(lambda t: sdpa(*t, attn_mask=mask, enable_gqa=True), ops,
+                    iters=10)
+        rows[f"flash_attention:{tag}"] = {
+            "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
+            "window": window, "dtype": "bfloat16", "routes": took,
+            "launches_per_forward": layers[tag], "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "library": "SDPA, GQA, the same mask",
+            "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
+            "bound_by": _bound_by(nbytes, flops, "bfloat16"),
+            "TFLOPs": flops / t_k / 1e9, "vs_library": t_k / t_l}
+        del ops, mask
+    g, dn = zoo["gemma3"], zoo["danube"]
+    gb, gs, gi = GEMMA_LONG
+    for name, cfg, shapes in (
+            ("gemma3", g, [("gemma3-long-local", gb, gs, gi + 1,
+                            gi - g.local_window + 1),
+                           ("gemma3-long-global", gb, gs, gi + 1)]),
+            ("danube", dn, [("danube-long-wrapped", DANUBE_LONG[0],
+                             DANUBE_LONG[1], DANUBE_LONG[1])])):
+        dec = time_flash_decode(flash_decode, cfg.num_heads,
+                                cfg.num_kv_heads, cfg.head_dim, randn,
+                                shapes=shapes)
+        for tag, row in dec.items():
+            rows[f"flash_decode:{tag}"] = row
+    j = zoo["jamba"]
+    n_mamba = sum(j.layer_kind(i) == "mamba" for i in range(j.num_layers))
+    rows["ssd_chunk_diag:jamba-forward"] = time_ssd(
+        ssd_chunk_diag, j, randn, batch=ZOO_FWD[0], seq=ZOO_FWD[1],
+        launches=n_mamba)
+    moe_rows, moe_tot = time_moe_gemms(gemm_batched, j, randn)
+    rows["gemm_batched:jamba-experts"] = {"shapes": moe_rows,
+                                          "per_path": moe_tot}
+    torch.cuda.empty_cache()
+    return rows
+
+
+ZOO_PATHS = ("jamba-serve", "jamba-serve-graph", "jamba-forward",
+             "jamba-float32", "gemma3-serve", "gemma3-forward",
+             "gemma3-long-decode", "danube-serve", "danube-forward",
+             "danube-long-decode", "hubert-forward", "qwen2-serve",
+             "qwen2-vl-forward")
+
+
+def zoo_kernel_lines(launches, routes, max_abs, times):
+    """Per kernel of the kernels line: its launches on each zoo path
+    (counted; a serve path's over the whole run of PROMPT_LEN + MAX_NEW
+    steps), its routes there, its max abs error at the zoo's shapes
+    against its plain version (phase 2) and its measured rows
+    (``time_zoo``)."""
+    out = {}
+    for name in ("gemm", "gemm_tf32x3", "flash_decode", "gemm_batched",
+                 "flash_attention", "ssd_chunk_diag"):
+        fn = "gemm" if name == "gemm_tf32x3" else name
+        line = {"launches": {}, "routes": {}}
+        for path in ZOO_PATHS:
+            if path not in routes:
+                continue
+            r = routes[path][fn]
+            if name == "gemm_tf32x3":
+                n = r.get("tf32x3", 0) + routes[path]["gemm_batched"].get(
+                    "tf32x3", 0)
+            else:
+                n = (launches[path][fn] if path in launches
+                     else sum(r.values()))
+            if n:
+                line["launches"][path] = n
+                line["routes"][path] = r
+        if name != "gemm_tf32x3":
+            line["max_abs_err"] = max_abs[f"{fn}:zoo"]
+        line["times"] = {k.split(":", 1)[1]: v for k, v in times.items()
+                         if k.split(":", 1)[0] == name}
+        out[name] = line
+    return out
+
+
 def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
     """Phase 11: each kernel at its path's shapes; returns the kernels
     line."""
@@ -2731,7 +3539,7 @@ def time_moe_gemms(gemm_batched, moe_cfg, randn):
         t_c = _time(lambda v: v.reshape(e, m, d), views)
         nbytes = 2.0 * 2 * e * m * d
         tot[path]["layout_copy"] = {
-            "ms": t_c, "ms_per_pass": moe_cfg.num_layers * t_c,
+            "ms": t_c, "ms_per_pass": moe_layers(moe_cfg) * t_c,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
             "GBps": nbytes / t_c / 1e6}
         del bufs, views
@@ -2740,13 +3548,14 @@ def time_moe_gemms(gemm_batched, moe_cfg, randn):
 
 def time_flash_decode(flash_decode, hq, hkv, d, randn, dtype="bfloat16",
                       shapes=None):
-    """Each shape of ``shapes`` (default DECODE_TIME_SHAPES) in ``dtype``:
-    ``flash_decode`` (any tree's wrapper), its plain version and SDPA (GQA,
-    the same slot mask) in ms per launch over caches rotated past L2,
-    beside the bound (q read and the output written once, the valid K and
-    V slots read once, 4·D FLOPs per q head and slot; f32: the larger of
-    the bytes and 3xTF32 work, the CUDA cores' fp32 bound beside).
-    Returns ``{tag: {...}}``."""
+    """Each shape ``(tag, B, S, hi[, lo])`` of ``shapes`` (default
+    DECODE_TIME_SHAPES; slots [lo, hi) valid, lo 0 unless given) in
+    ``dtype``: ``flash_decode`` (any tree's wrapper), its plain version
+    and SDPA (GQA, the same slot mask) in ms per launch over caches
+    rotated past L2, beside the bound (q read and the output written once,
+    the valid K and V slots read once, 4·D FLOPs per q head and slot; f32:
+    the larger of the bytes and 3xTF32 work, the CUDA cores' fp32 bound
+    beside).  Returns ``{tag: {...}}``."""
     import torch
 
     from repro_torch.kernels.ref import decode_attention_ref
@@ -2756,27 +3565,30 @@ def time_flash_decode(flash_decode, hq, hkv, d, randn, dtype="bfloat16",
     item = dt.itemsize
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for tag, b, s, valid in shapes or DECODE_TIME_SHAPES:
+    for tag, b, s, valid, *start in shapes or DECODE_TIME_SHAPES:
+        first = start[0] if start else 0
         q = randn(b, hq, d, dtype=dt)
         kvs = _rotation(lambda: (randn(b, hkv, s, d, dtype=dt),
                                  randn(b, hkv, s, d, dtype=dt)),
                         2 * b * hkv * s * d * item)
-        lo = torch.zeros(b, dtype=torch.int32, device=dev)
+        lo = torch.full((b,), first, dtype=torch.int32, device=dev)
         hi = torch.full((b,), valid, dtype=torch.int32, device=dev)
-        slot_ok = (torch.arange(s, device=dev) < valid)[None, None, None]
+        slot = torch.arange(s, device=dev)
+        slot_ok = ((slot >= first) & (slot < valid))[None, None, None]
         q4 = q[:, :, None, :]
         t_k = _time(lambda kv: flash_decode(q, kv[0], kv[1], lo, hi), kvs)
         t_p = _time(lambda kv: decode_attention_ref(q, kv[0], kv[1], lo, hi),
                     kvs, iters=10)
         t_l = _time(lambda kv: sdpa(q4, kv[0], kv[1], attn_mask=slot_ok,
                                     enable_gqa=True), kvs)
-        nbytes = item * (2.0 * b * hq * d + 2.0 * b * hkv * valid * d)
-        flops = 4.0 * b * hq * valid * d
+        live = valid - first
+        nbytes = item * (2.0 * b * hq * d + 2.0 * b * hkv * live * d)
+        flops = 4.0 * b * hq * live * d
         bounds = (f32_bounds(nbytes, flops) if dtype == "float32" else
                   {"bound_ms": _bound_ms(nbytes, flops, dtype),
                    "bound_by": _bound_by(nbytes, flops, dtype)})
         out[tag] = {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "S": s,
-                    "valid": valid, "dtype": dtype, "ms": t_k,
+                    "valid": valid, "lo": first, "dtype": dtype, "ms": t_k,
                     "plain_ms": t_p, "library_ms": t_l,
                     "library": "SDPA, GQA, slot mask", **bounds,
                     "bound_share": bounds["bound_ms"] / t_k,
@@ -2920,9 +3732,11 @@ def ssd_bounds(nbytes, tensor_flops, ops):
                                      1e3 * ops / PEAK_FLOPS["float32"])}
 
 
-def time_ssd(ssd_chunk_diag, ssm_cfg, randn):
-    """``ssd_chunk_diag`` (any tree's wrapper) at mamba2-370m's 4 x 1024
-    forward shape, fp32 operands with the model's decay (log-decays from
+def time_ssd(ssd_chunk_diag, ssm_cfg, randn, batch=SSM_FWD_BATCH,
+             seq=SSM_FWD_SEQ, launches=None):
+    """``ssd_chunk_diag`` (any tree's wrapper) at a forward's shape (default
+    mamba2-370m's 4 x 1024; ``launches`` a forward, default one a layer),
+    fp32 operands with the model's decay (log-decays from
     dt ≈ 0.7), over inputs rotated past L2: kernel, plain version and the
     library yardstick (two fp32 cuBLAS bmm around a masked exp) in ms per
     launch, beside the bounds (``ssd_bounds``), with the routes the timed
@@ -2933,8 +3747,8 @@ def time_ssd(ssd_chunk_diag, ssm_cfg, randn):
 
     dev = torch.device("cuda")
     ps, ns = ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state_dim
-    qs = min(ssm_cfg.ssm_chunk, SSM_FWD_SEQ)
-    ncs, bhs = SSM_FWD_SEQ // qs, SSM_FWD_BATCH * ssm_cfg.ssm_num_heads
+    qs = min(ssm_cfg.ssm_chunk, seq)
+    ncs, bhs = seq // qs, batch * ssm_cfg.ssm_num_heads
     nbytes, tensor, ops = ssd_work(bhs, ncs, qs, ps, ns)
     ins = _rotation(lambda: (
         randn(bhs, ncs, qs, ps),
@@ -2962,7 +3776,8 @@ def time_ssd(ssd_chunk_diag, ssm_cfg, randn):
     t_p = _time(lambda t: ssd_chunk_diag_ref(*t), ins, iters=10)
     t_l = _time(two_bmm, ins, iters=10)
     return {"BH": bhs, "C": ncs, "Q": qs, "P": ps, "N": ns,
-            "dtype": "float32", "launches_per_forward": ssm_cfg.num_layers,
+            "dtype": "float32",
+            "launches_per_forward": launches or ssm_cfg.num_layers,
             "routes": routes, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
             "library": "2 x torch.bmm fp32 + masked exp",
             **ssd_bounds(nbytes, tensor, ops), "bytes": nbytes,

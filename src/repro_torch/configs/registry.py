@@ -38,8 +38,14 @@ def _load_all() -> None:
     # import for side effect of register()
     from repro_torch.configs import (  # noqa: F401
         arctic_480b,
+        gemma3_27b,
+        h2o_danube_1_8b,
+        hubert_xlarge,
+        jamba_1_5_large_398b,
         mamba2_370m,
         paper_gemm,
+        qwen2_72b,
+        qwen2_vl_72b,
         qwen3_moe_30b_a3b,
         yi_6b,
     )

@@ -1,7 +1,11 @@
 """Batched serving loop: prefill + decode with a KV cache (or, for an
 SSM stack such as mamba2-370m, a per-layer SSM and conv state cache).
 MoE archs (qwen3-moe-30b-a3b, arctic-480b) serve through the same loop,
-their expert FFNs on the batched GEMM kernel.
+their expert FFNs on the batched GEMM kernel; jamba's hybrid stack with
+its mixed cache (k/v a super-block, SSM and conv states a Mamba
+sub-layer); gemma3's local / global windows and danube's rolling
+sliding-window cache; qwen2's qkv bias.  Embedding-input archs (qwen2-vl,
+hubert) and encoders (hubert) are refused, as the reference refuses them.
 
 A deliberately small but real serving loop: requests arrive with prompts,
 are padded into a batch, prefilled token by token through the decode step
@@ -35,6 +39,9 @@ CLI does, with every eligible op on the kernels:
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 [--forward-mode graph]
     python -m repro_torch.launch.serve --arch mamba2-370m
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b [--device cpu]
+    python -m repro_torch.launch.serve --arch jamba-1.5-large-398b
+    python -m repro_torch.launch.serve --arch gemma3-27b
+    python -m repro_torch.launch.serve --arch h2o-danube-1.8b   # or qwen2-72b
     python -m repro_torch.launch.serve --arch yi-6b --devices 4 \
         --num-batches 4 --scheduler cost-aware [--no-pin-caches]
 """
@@ -44,12 +51,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.core import cost_model as cm
 from repro_torch.core.hero import DeviceHandle, engine, offload_policy
 from repro_torch.launch import costing
@@ -130,7 +137,7 @@ def _run_decode(
 
 
 def serve_batch(
-    arch: str,
+    arch: Union[str, ArchConfig],
     prompts: List[List[int]],
     *,
     smoke: bool = True,
@@ -143,7 +150,9 @@ def serve_batch(
     forward_mode: Optional[str] = None,
 ) -> ServeResult:
     """Serve one batch of prompts; ``params`` (on ``device``) defaults to
-    random weights from a generator seeded with ``seed``.  ``forward_mode``
+    random weights from a generator seeded with ``seed``.  ``arch`` is a
+    registered name or a config (e.g. a published one cut in depth to fit
+    the card); ``smoke`` serves its reduced twin.  ``forward_mode``
     ("eager" / "graph") overrides the config's."""
     dev, model, params = _setup(arch, smoke, forward_mode, params, seed,
                                 device)
@@ -172,7 +181,7 @@ def serve_batch(
 def _setup(arch, smoke, forward_mode, params, seed, device):
     """(torch device, model, params) for one serving call."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
     if forward_mode is not None:

@@ -10,10 +10,12 @@ __all__ = ["make_prefill_step", "make_serve_step"]
 
 
 def make_prefill_step(model: Model):
-    """``prefill_step(params, tokens) -> logits (B, S, V)``: one
-    ``Model.forward`` over the whole prompt (tokens (B, S) int)."""
-    def prefill_step(params, tokens):
-        return model.forward(params, tokens)[0]
+    """``prefill_step(params, batch) -> logits (B, S, V)``: one
+    ``Model.forward`` over the whole prompt.  ``batch`` is the reference's
+    dict (``tokens`` (B, S) int or ``embeds`` (B, S, D), optional
+    ``positions``) or a (B, S) token tensor."""
+    def prefill_step(params, batch):
+        return model.forward(params, batch)[0]
 
     return prefill_step
 

@@ -1,4 +1,4 @@
-"""GQA attention block: QKV projections (BLAS seam) + RoPE + KV cache.
+"""GQA attention block: QKV projections (BLAS seam) + RoPE/M-RoPE + KV cache.
 
 Every contraction and the attention math itself dispatch through registered
 ``OffloadOp`` descriptors — ``qkv_project`` (fused 3-way input projection),
@@ -8,7 +8,8 @@ stamped on every record by the one dispatch path in
 
 ``attention_block`` (training / prefill) runs the whole sequence through
 the ``attention`` descriptor, whose kernel lowering is the flash-attention
-kernel.  M-RoPE arrives with the qwen2-vl config.
+kernel.  ``causal=cfg.causal`` reaches it too: an encoder (hubert) attends
+both ways.  qwen2-vl rotates by M-RoPE on (3, B, S) positions.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from repro_torch.core import blas
 from repro_torch.models import layers as L
 
-__all__ = ["init_attention", "split_qkv", "attention_block",
+__all__ = ["init_attention", "split_qkv", "rotate_qk", "attention_block",
            "decode_attention_block"]
 
 
@@ -53,16 +54,22 @@ def split_qkv(qkv: torch.Tensor, cfg):
 
 def _project_qkv(p, x, cfg, positions, rope_theta):
     """Fused input projection (one seam dispatch) + rotary embedding."""
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE arrives with the qwen2-vl config")
     qkv = blas.qkv_project(
         x, p["wq"], p["wk"], p["wv"],
         bq=p.get("bq"), bk=p.get("bk"), bv=p.get("bv"),
     )
     q, k, v = split_qkv(qkv, cfg)
-    q = L.rope(q, positions, rope_theta)
-    k = L.rope(k, positions, rope_theta)
-    return q, k, v
+    return (*rotate_qk(q, k, cfg, positions, rope_theta), v)
+
+
+def rotate_qk(q, k, cfg, positions, rope_theta):
+    """RoPE on q and k — M-RoPE on (3, B, S) positions for qwen2-vl; other
+    archs take (B, S) positions, or the first stream of (3, B, S) ones."""
+    if cfg.mrope:
+        return (L.mrope(q, positions, rope_theta),
+                L.mrope(k, positions, rope_theta))
+    pos2d = positions if positions.ndim == 2 else positions[0]
+    return L.rope(q, pos2d, rope_theta), L.rope(k, pos2d, rope_theta)
 
 
 def attention_block(
@@ -75,8 +82,9 @@ def attention_block(
     rope_theta=None,
 ) -> torch.Tensor:
     """Full-sequence attention (training / prefill). x: (B, S, D);
-    positions: (B, S) int.  q/k/v reach the ``attention`` descriptor as
-    (B, H, S, hd) transposed views (the kernel reads them in place)."""
+    positions: (B, S) int, or (3, B, S) for M-RoPE.  q/k/v reach the
+    ``attention`` descriptor as (B, H, S, hd) transposed views (the kernel
+    reads them in place)."""
     b, s, _ = x.shape
     rope_theta = rope_theta if rope_theta is not None else cfg.rope_theta
     q, k, v = _project_qkv(p, x, cfg, positions, rope_theta)
@@ -115,7 +123,8 @@ def decode_attention_block(
     k_cache, v_cache = cache
     s_cache = k_cache.shape[2]
     rope_theta = rope_theta if rope_theta is not None else cfg.rope_theta
-    positions = torch.full((b, 1), cache_index, dtype=torch.int32,
+    lead = (3, b, 1) if cfg.mrope else (b, 1)
+    positions = torch.full(lead, cache_index, dtype=torch.int32,
                            device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, rope_theta)
     qh = q.transpose(1, 2)                             # (B, Hq, 1, hd)

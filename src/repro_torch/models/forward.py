@@ -87,21 +87,21 @@ def _force(x):
 
 
 def _graph_norm(xa, p, cfg, kind: str):
-    """RMSNorm as the registered ``rmsnorm_scale`` descriptor (one recorded
-    host launch, graph-capturable)."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            "layer_norm arrives with the encoder (hubert) configs")
-    return _hnp().rmsnorm_scale(xa, p["scale"], eps=cfg.norm_eps)
+    """Norm as a graph node: RMSNorm is the registered ``rmsnorm_scale``
+    descriptor (one recorded host launch, graph-capturable); LayerNorm (the
+    audio encoder's) runs eagerly on the forced value and is re-wrapped."""
+    hnp = _hnp()
+    if kind == "rmsnorm":
+        return hnp.rmsnorm_scale(xa, p["scale"], eps=cfg.norm_eps)
+    return hnp.array(L.layer_norm(_force(xa), p, cfg.norm_eps))
 
 
 def _graph_attention(p, h, shape, cfg, positions, window, rope_theta):
-    """QKV projection -> RoPE (eager) -> attention -> out projection."""
+    """QKV projection -> RoPE / M-RoPE (eager) -> attention -> out
+    projection."""
     hnp = _hnp()
-    from repro_torch.models.attention import split_qkv
+    from repro_torch.models.attention import rotate_qk, split_qkv
 
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE arrives with the qwen2-vl config")
     b, s, _ = shape
     qkv = hnp.qkv_project(
         h, p["wq"], p["wk"], p["wv"],
@@ -109,8 +109,7 @@ def _graph_attention(p, h, shape, cfg, positions, window, rope_theta):
     )
     q, k, v = split_qkv(_force(qkv), cfg)  # resident for the region
     rope_theta = rope_theta if rope_theta is not None else cfg.rope_theta
-    q = L.rope(q, positions, rope_theta)
-    k = L.rope(k, positions, rope_theta)
+    q, k = rotate_qk(q, k, cfg, positions, rope_theta)
     out = hnp.attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=cfg.causal, window=window,

@@ -10,7 +10,9 @@ from repro_torch.core import blas
 
 __all__ = [
     "rms_norm",
+    "layer_norm",
     "rope",
+    "mrope",
     "mlp_apply",
     "init_dense",
     "init_mlp",
@@ -48,11 +50,19 @@ def rms_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
     return blas.rmsnorm_scale(x, p["scale"], eps=eps)
 
 
+def layer_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
+    """LayerNorm (the audio encoder's): fp32 mean and population variance,
+    scale and bias in fp32, one rounding to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
 def apply_norm(x, p, eps, kind: str):
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            "layer_norm arrives with the encoder (hubert) configs")
-    return rms_norm(x, p, eps)
+    return rms_norm(x, p, eps) if kind == "rmsnorm" else layer_norm(x, p, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +82,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
     inv_freq = theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions.to(torch.float32)[..., None] * inv_freq     # (B, S, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    return _rope_rotate(x.float(), sin, cos).to(x.dtype)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, theta,
+          sections=(2, 3, 3)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions: (3, B, S) —
+    the temporal / height / width streams.  The rotary half-dim is split
+    into contiguous bands in the ratio ``sections`` (the last band takes the
+    remainder), each rotated by its own stream; identical streams reduce to
+    :func:`rope`."""
+    d = x.shape[-1]
+    half = d // 2
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=x.device)
+    inv_freq = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    total = sum(sections)
+    bounds, start = [], 0
+    for s in sections:
+        size = (half * s) // total
+        bounds.append((start, start + size))
+        start += size
+    bounds[-1] = (bounds[-1][0], half)
+    ang = torch.cat(
+        [positions[i].to(torch.float32)[..., None] * inv_freq[lo:hi]
+         for i, (lo, hi) in enumerate(bounds)], dim=-1)    # (B, S, half)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     return _rope_rotate(x.float(), sin, cos).to(x.dtype)

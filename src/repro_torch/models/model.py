@@ -35,7 +35,8 @@ class Model:
     def init_params(self, gen: torch.Generator, *, device) -> Dict[str, Any]:
         """Random weights from ``gen`` (a generator on ``device``) with the
         reference's distributions: N(0, 1)·fan_in**-0.5 for dense weights,
-        N(0, 1)·d_model**-0.5 for the embedding, ones for norm scales."""
+        N(0, 1)·d_model**-0.5 for the embedding, ones for norm scales (zeros
+        for biases).  An embedding-input arch has no ``embed``."""
         cfg = self.cfg
         dtype = _dtype_of(cfg)
         params: Dict[str, Any] = {
@@ -53,13 +54,28 @@ class Model:
         return params
 
     # ---- pieces -------------------------------------------------------------
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Token ids (B, S) -> embeddings (B, S, D)."""
-        if not self.cfg.embed_inputs:
-            raise NotImplementedError(
-                "embedding-input (audio / vlm) frontends arrive with their "
-                "configs")
-        return params["embed"][tokens]
+    def _embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's batch dict -> (embeddings (B, S, D), positions).
+
+        ``batch`` holds ``tokens`` (B, S) int for a token-input arch or
+        ``embeds`` (B, S, D) for an embedding-input one (audio / vlm stub
+        frontends), and optionally ``positions``: (B, S), or (3, B, S) for
+        M-RoPE.  Positions default to 0..S-1 for every row (every stream,
+        for M-RoPE: text tokens carry identical streams)."""
+        cfg = self.cfg
+        if cfg.embed_inputs:
+            tokens = batch["tokens"]
+            x = params["embed"][tokens]
+            bsz, s = tokens.shape
+        else:
+            x = batch["embeds"]
+            bsz, s = x.shape[0], x.shape[1]
+        positions = batch.get("positions")
+        if positions is None:
+            lead = (3, bsz, s) if cfg.mrope else (bsz, s)
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device).expand(*lead)
+        return x, positions
 
     def _head(self, params, x) -> torch.Tensor:
         cfg = self.cfg
@@ -69,16 +85,18 @@ class Model:
         return blas.matmul(x, params["head"])
 
     # ---- forward ------------------------------------------------------------
-    def forward(self, params, tokens: torch.Tensor, *,
+    def forward(self, params, batch, *,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits (B, S, V), aux_loss) — training / prefill.  tokens:
-        (B, S) int; positions default to 0..S-1 for every row."""
-        x = self._embed(params, tokens)
-        bsz, s = tokens.shape
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=tokens.device).expand(bsz, s)
+        """(logits (B, S, V), aux_loss) — training / prefill.  ``batch`` is
+        the reference's dict (``tokens`` or ``embeds``, optional
+        ``positions``; see :meth:`_embed`), or a (B, S) int tensor of
+        tokens, with ``positions`` beside it."""
+        if isinstance(batch, torch.Tensor):
+            batch = {"tokens": batch}
+        if positions is not None:
+            batch = {**batch, "positions": positions}
+        x, positions = self._embed(params, batch)
         x, aux = T.apply_stack(params["stack"], x, self.cfg,
                                positions=positions)
         return self._head(params, x), aux
@@ -90,11 +108,13 @@ class Model:
             device=device)
 
     def decode_step(self, params, cache, tokens, cache_index):
-        """One token: tokens (B, 1) int; cache_index int.  Returns
-        (logits (B, V), cache) — the cache is updated in place."""
-        x = self._embed(params, tokens)
+        """One token: tokens (B, 1) int (or embeddings (B, 1, D) for an
+        embedding-input arch); cache_index int.  Returns (logits (B, V),
+        cache) — the cache is updated in place."""
+        cfg = self.cfg
+        x = params["embed"][tokens] if cfg.embed_inputs else tokens
         x, cache = T.decode_stack(params["stack"], cache, x, cache_index,
-                                  self.cfg)
+                                  cfg)
         logits = self._head(params, x)
         return logits[:, 0, :], cache
 

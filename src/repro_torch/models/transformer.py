@@ -1,27 +1,35 @@
 """Stack assembly: pre-norm residual blocks, looped over layers.
 
-**Uniform** stacks only: every layer has the same structure — a dense
-decoder (attention + FFN), an MoE decoder (attention + the MoE FFN of
-``models/moe.py``, arctic's dense residual FFN beside it) or a Mamba-2
-SSM stack (``family == "ssm"``: mixer only, no second norm and no FFN).
-Parameters are a list of per-layer dicts (the reference stacks them on a
-leading (L, …) axis for ``lax.scan``; :func:`repro_torch.convert.params_from_jax`
-splits that axis).  Per-layer data (attention window, RoPE theta) is a
-Python list the layer loop walks beside the parameters.
+Two stack layouts, as in the reference:
+
+* **uniform** — every layer has the same structure: a dense decoder
+  (attention + FFN), an MoE decoder (attention + the MoE FFN of
+  ``models/moe.py``, arctic's dense residual FFN beside it), an encoder
+  (hubert: LayerNorm, GELU, bidirectional attention) or a Mamba-2 SSM stack
+  (``family == "ssm"``: mixer only, no second norm and no FFN).  Parameters
+  are a list of per-layer dicts (the reference stacks them on a leading
+  (L, …) axis for ``lax.scan``; :func:`repro_torch.convert.params_from_jax`
+  splits that axis).  Per-layer data (attention window, RoPE theta: gemma3's
+  5:1 local:global pattern, danube's sliding window) is a Python list the
+  layer loop walks beside the parameters.
+* **hybrid** (jamba) — layers repeat with period P (8): the parameters are
+  a list of super-block dicts ``{"sub0": …, "sub{P-1}": …}``.  Sub-layer
+  ``j`` is attention when ``j % P == attn_layer_offset`` and Mamba
+  otherwise; its FFN is MoE when ``cfg.layer_is_moe(j)``.  Every sub-layer
+  runs with no window and ``cfg.rope_theta``, as the reference's does.
 
 The loop is eager, so each layer writes its own trace records with
 ``count = 1``; the reference traces its scan body once and writes one
-record per op with ``count = num_layers``.  Count-weighted totals agree.
+record per op with ``count = num_layers`` (uniform) or ``num_layers / P``
+(hybrid, per sub-layer).  Count-weighted totals agree.
 
 ``cfg.forward_mode = "graph"`` captures each block of the forward as an
-``hnp`` graph (``models/forward.py``), and in decode the dense FFN with the
-residual fused into its launch; an MoE FFN runs eagerly in both modes
-(its sort and scatter are no graph), as in the reference.  An MoE stack's
-forward returns the sum of its layers' router aux losses, as the
-reference's scan carries it.  The decode caches (k/v, or the SSM and conv
-states) are written in place, layer by layer.  Hybrid stacks (jamba:
-Mamba layers beside attention and MoE layers, in period-8 super-blocks)
-raise ``NotImplementedError`` naming the jamba slice that brings them.
+``hnp`` graph (``models/forward.py``), and in a uniform decode the dense
+FFN with the residual fused into its launch; an MoE FFN runs eagerly in
+both modes (its sort and scatter are no graph), and a hybrid decode keeps
+every FFN eager, as the reference does.  The forward returns the sum of the
+MoE router losses in layer order (0 without MoE layers).  The decode caches
+(k/v, the SSM and conv states) are written in place, layer by layer.
 """
 
 from __future__ import annotations
@@ -48,28 +56,43 @@ __all__ = [
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.forward_mode not in ("eager", "graph"):
         raise ValueError(f"unknown forward_mode {cfg.forward_mode!r}")
-    if not cfg.uniform_stack:
-        raise NotImplementedError(
-            f"{cfg.family} stacks (Mamba beside attention and MoE layers in "
-            f"super-blocks) arrive with the jamba slice")
+
+
+def _period(cfg: ArchConfig) -> int:
+    """Sub-layers per super-block of a hybrid stack."""
+    return cfg.attn_layer_period or cfg.moe_layer_period
+
+
+def _decode_period(cfg: ArchConfig) -> int:
+    """The hybrid decode's period: ``attn_layer_period``.  The reference's
+    hybrid decode divides by it, so a non-uniform stack without one (MoE
+    every k-th layer and no attention period) has no decode there; the
+    port raises instead of guessing one."""
+    if not cfg.attn_layer_period:
+        raise ValueError(
+            f"{cfg.name}: a non-uniform stack (moe_layer_period="
+            f"{cfg.moe_layer_period}) needs attn_layer_period > 0 to decode; "
+            f"the reference's hybrid decode divides by attn_layer_period == 0")
+    return cfg.attn_layer_period
 
 
 # ---------------------------------------------------------------------------
 # single block
 # ---------------------------------------------------------------------------
 
-def _init_block(gen: torch.Generator, cfg: ArchConfig, dtype, *, device):
+def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                is_moe: bool, dtype, *, device):
     p: Dict[str, Any] = {"norm1": L.init_norm(cfg.d_model, dtype,
                                               device=device,
                                               kind=cfg.norm_kind)}
-    if cfg.layer_kind(0) == "attn":
+    if kind == "attn":
         p["mixer"] = A.init_attention(gen, cfg, dtype, device=device)
     else:
         p["mixer"] = S.init_mamba(gen, cfg, dtype, device=device)
     if cfg.family != "ssm":
         p["norm2"] = L.init_norm(cfg.d_model, dtype, device=device,
                                  kind=cfg.norm_kind)
-        if cfg.layer_is_moe(0):
+        if is_moe:
             p["ffn"] = M.init_moe(gen, cfg, dtype, device=device)
         else:
             p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
@@ -77,12 +100,11 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, dtype, *, device):
     return p
 
 
-def _apply_block(p, x, cfg: ArchConfig, *, positions, window, rope_theta):
-    """One pre-norm residual block (training / prefill): attention + FFN
-    (dense or MoE), or the Mamba mixer alone for an SSM stack.  Returns
-    ``(x, aux_loss)``: the MoE router's loss, else 0."""
-    kind = cfg.layer_kind(0)
-    is_moe = cfg.layer_is_moe(0)
+def _apply_block(p, x, cfg: ArchConfig, kind: str, is_moe: bool, *,
+                 positions, window, rope_theta):
+    """One pre-norm residual block (training / prefill): attention or the
+    Mamba mixer, then the FFN (dense or MoE; none in an SSM stack).
+    Returns ``(x, aux_loss)``: the MoE router's loss, else 0."""
     if cfg.forward_mode == "graph":
         # Whole-block graph capture: the hnp scheduler fuses elementwise
         # epilogues, batches independent projections and threads residency
@@ -130,9 +152,18 @@ def _layer_data(cfg: ArchConfig, seq_len: int) -> Tuple[List[int], List[float]]:
 
 def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, *,
                device) -> List[Dict[str, Any]]:
+    """Per-layer dicts (uniform), or per-super-block dicts of ``sub{j}``
+    blocks (hybrid)."""
     _check_supported(cfg)
-    return [_init_block(gen, cfg, dtype, device=device)
-            for _ in range(cfg.num_layers)]
+    if cfg.uniform_stack:
+        kind, is_moe = cfg.layer_kind(0), cfg.layer_is_moe(0)
+        return [_init_block(gen, cfg, kind, is_moe, dtype, device=device)
+                for _ in range(cfg.num_layers)]
+    period = _period(cfg)
+    return [{f"sub{j}": _init_block(gen, cfg, cfg.layer_kind(j),
+                                    cfg.layer_is_moe(j), dtype, device=device)
+             for j in range(period)}
+            for _ in range(cfg.num_layers // period)]
 
 
 # ---------------------------------------------------------------------------
@@ -140,17 +171,28 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, *,
 # ---------------------------------------------------------------------------
 
 def apply_stack(params, x, cfg: ArchConfig, *, positions):
-    """x: (B, S, D); positions: (B, S) int.  Loops the layers, each with its
-    window and RoPE theta; returns ``(x, aux_loss)`` — the sum of the
-    layers' MoE router losses in layer order (0 for a dense or SSM
-    stack)."""
+    """x: (B, S, D); positions: (B, S) int, or (3, B, S) for M-RoPE.  Loops
+    the layers (a hybrid stack: the super-blocks' sub-layers in order), each
+    with its window and RoPE theta; returns ``(x, aux_loss)`` — the sum of
+    the MoE router losses in layer order (0 for a stack without MoE
+    layers)."""
     _check_supported(cfg)
-    windows, thetas = _layer_data(cfg, x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, lp in enumerate(params):
-        x, a = _apply_block(lp, x, cfg, positions=positions,
-                            window=windows[i], rope_theta=thetas[i])
-        aux = aux + a
+    if cfg.uniform_stack:
+        kind, is_moe = cfg.layer_kind(0), cfg.layer_is_moe(0)
+        windows, thetas = _layer_data(cfg, x.shape[1])
+        for i, lp in enumerate(params):
+            x, a = _apply_block(lp, x, cfg, kind, is_moe,
+                                positions=positions, window=windows[i],
+                                rope_theta=thetas[i])
+            aux = aux + a
+        return x, aux
+    for sb in params:
+        for j in range(_period(cfg)):
+            x, a = _apply_block(sb[f"sub{j}"], x, cfg, cfg.layer_kind(j),
+                                cfg.layer_is_moe(j), positions=positions,
+                                window=None, rope_theta=cfg.rope_theta)
+            aux = aux + a
     return x, aux
 
 
@@ -161,9 +203,27 @@ def apply_stack(params, x, cfg: ArchConfig, *, positions):
 def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
                       device) -> Dict[str, torch.Tensor]:
     """Decode cache with a leading layer axis: k/v each (L, B, Hkv, S, hd)
-    for a dense stack; for an SSM stack the states ``ssm`` (L, B, H, N, P)
-    in fp32 and ``conv`` (L, B, K−1, F) in ``dtype``."""
+    for a uniform attention stack (S the window for a sliding-window arch:
+    a rolling buffer); for an SSM stack the states ``ssm`` (L, B, H, N, P)
+    in fp32 and ``conv`` (L, B, K−1, F) in ``dtype``.  A hybrid stack has
+    one attention and P − 1 Mamba sub-layers a super-block: k/v (n_sb, B,
+    Hkv, cache_len, hd), no rolling buffer, ``ssm`` (n_sb, P − 1, B, H, N,
+    P) in fp32 and ``conv`` (n_sb, P − 1, B, K−1, F)."""
     _check_supported(cfg)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    if not cfg.uniform_stack:
+        period = _decode_period(cfg)
+        n_sb = cfg.num_layers // period
+        ssm_shape, conv_shape = S.mamba_state_shapes(cfg, batch)
+        kv = (n_sb, batch, hkv, cache_len, hd)
+        return {
+            "k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "ssm": torch.zeros((n_sb, period - 1, *ssm_shape),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((n_sb, period - 1, *conv_shape), dtype=dtype,
+                                device=device),
+        }
     if cfg.family == "ssm":
         ssm_shape, conv_shape = S.mamba_state_shapes(cfg, batch)
         n = cfg.num_layers
@@ -175,7 +235,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
     eff = cache_len
     if cfg.sliding_window:
         eff = min(cache_len, cfg.sliding_window)  # rolling SWA buffer
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, eff, cfg.head_dim)
+    shape = (cfg.num_layers, batch, hkv, eff, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -183,7 +243,8 @@ def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
 
 
 def _decode_block(p, x, cache_slices, cache_index, cfg, *, window, rope_theta):
-    """One layer of single-token decode. Returns (x, new_cache_slices)."""
+    """One layer of a uniform stack's single-token decode. Returns (x,
+    new_cache_slices)."""
     h = L.apply_norm(x, p["norm1"], cfg.norm_eps, cfg.norm_kind)
     if cfg.family == "ssm":
         mix, (ssm_new, conv_new) = S.decode_mamba_block(
@@ -210,10 +271,43 @@ def _decode_block(p, x, cache_slices, cache_index, cfg, *, window, rope_theta):
     return x, {"k": k_new, "v": v_new}
 
 
+def _decode_super_block(sb, x, csl, cache_index, cfg: ArchConfig):
+    """One hybrid super-block of single-token decode: the attention
+    sub-layer on the block's k/v, each Mamba sub-layer on its slot ``mi``
+    of the block's SSM and conv states (written in place), every FFN eager
+    in both modes (as the reference decodes a hybrid stack)."""
+    mi = 0
+    for j in range(cfg.attn_layer_period):
+        sub = sb[f"sub{j}"]
+        h = L.apply_norm(x, sub["norm1"], cfg.norm_eps, cfg.norm_kind)
+        if cfg.layer_kind(j) == "attn":
+            mix, _ = A.decode_attention_block(
+                sub["mixer"], h, (csl["k"], csl["v"]), cache_index, cfg,
+                rope_theta=cfg.rope_theta)
+        else:
+            mix, _ = S.decode_mamba_block(
+                sub["mixer"], h, (csl["ssm"][mi], csl["conv"][mi]), cfg)
+            mi += 1
+        x = x + mix
+        h = L.apply_norm(x, sub["norm2"], cfg.norm_eps, cfg.norm_kind)
+        if cfg.layer_is_moe(j):
+            f, _ = M.moe_ffn(sub["ffn"], h, cfg)
+        else:
+            f = L.mlp_apply(sub["ffn"], h, cfg.mlp_kind)
+        x = x + f
+    return x
+
+
 def decode_stack(params, cache, x, cache_index, cfg: ArchConfig):
-    """x: (B, 1, D).  Loops the layers, each writing its slice of the
-    stacked cache in place; returns (x, cache)."""
+    """x: (B, 1, D).  Loops the layers (or super-blocks), each writing its
+    slice of the stacked cache in place; returns (x, cache)."""
     _check_supported(cfg)
+    if not cfg.uniform_stack:
+        _decode_period(cfg)
+        for i, sb in enumerate(params):
+            csl = {name: buf[i] for name, buf in cache.items()}
+            x = _decode_super_block(sb, x, csl, cache_index, cfg)
+        return x, cache
     windows, thetas = _layer_data(cfg, 0)
     for i, lp in enumerate(params):
         csl = {name: buf[i] for name, buf in cache.items()}

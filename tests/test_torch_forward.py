@@ -252,29 +252,42 @@ def test_cli_forward_mode_graph(capsys):
     assert "mlp_block" in ops and "tok/s" in capsys.readouterr().out
 
 
-def test_graph_mamba_and_moe_wait_for_their_slices():
+def test_graph_hybrid_and_moe_blocks_equal_eager():
     """Mamba blocks run in graph mode since the SSM slice
-    (tests/test_torch_ssm.py) and MoE blocks since the MoE slice: a graph
-    MoE block equals its eager twin.  Stacks that put Mamba layers beside
-    attention and MoE layers (jamba) still raise, naming the jamba
-    slice."""
+    (tests/test_torch_ssm.py), MoE blocks since the MoE slice and hybrid
+    stacks since the jamba slice: a graph MoE block equals its eager twin,
+    and a hybrid stack (jamba's Mamba sub-layers beside attention and MoE
+    sub-layers) builds, applies in graph mode as in eager mode, and
+    decodes."""
     from repro_torch.models import transformer as T
 
-    hybrid = dataclasses.replace(tget_arch("mamba2-370m").reduced(),
-                                 family="hybrid", attn_layer_period=2,
+    hybrid = dataclasses.replace(tget_arch("jamba-1.5-large-398b").reduced(),
                                  forward_mode="graph")
-    with pytest.raises(NotImplementedError, match="jamba slice"):
-        T.apply_stack([], torch.zeros(1, 1, 4), hybrid, positions=None)
-    moe = tget_arch("qwen3-moe-30b-a3b").reduced()
     gen = torch.Generator().manual_seed(0)
+    stack = T.init_stack(gen, hybrid, torch.float32, device="cpu")
+    assert len(stack) == hybrid.num_layers // 8
+    assert sorted(stack[0]) == [f"sub{j}" for j in range(8)]
+    x = torch.randn(2, 16, hybrid.d_model, generator=gen)
+    pos = torch.arange(16).expand(2, 16)
+    eager = dataclasses.replace(hybrid, forward_mode="eager")
+    with _port_policy(), torch.no_grad():
+        got, aux = T.apply_stack(stack, x, hybrid, positions=pos)
+        want, want_aux = T.apply_stack(stack, x, eager, positions=pos)
+        cache = T.init_decode_cache(hybrid, 2, 4, torch.float32,
+                                    device="cpu")
+        y, _ = T.decode_stack(stack, cache, x[:, :1], 0, hybrid)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+    assert float(aux) > 0 and torch.isfinite(y).all()
+    moe = tget_arch("qwen3-moe-30b-a3b").reduced()
     p = T.init_stack(gen, moe, torch.float32, device="cpu")[0]
     x = torch.randn(2, 8, moe.d_model, generator=gen)
     pos = torch.arange(8).expand(2, 8)
     with _port_policy(), torch.no_grad():
         got, aux = tforward.graph_block(p, x, moe, "attn", True,
                                         positions=pos, window=1 << 30)
-        want, want_aux = T._apply_block(p, x, moe, positions=pos,
-                                        window=1 << 30,
+        want, want_aux = T._apply_block(p, x, moe, "attn", True,
+                                        positions=pos, window=1 << 30,
                                         rope_theta=moe.rope_theta)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)

@@ -613,17 +613,30 @@ def test_params_from_jax_carries_mamba_params(dtype):
     assert logits.shape[-1] == tcfg.vocab_size
 
 
-def test_hybrid_and_moe_stacks_wait_for_the_moe_slice():
-    """The MoE slice has come: a uniform MoE stack builds a decode cache;
-    a hybrid stack (jamba's Mamba layers beside attention and MoE layers)
-    still raises, naming the jamba slice that brings it."""
+def test_hybrid_and_moe_stacks_build_decode_caches():
+    """A uniform MoE stack builds a decode cache; a hybrid stack (jamba's
+    Mamba sub-layers beside attention and MoE sub-layers) builds its mixed
+    one — k/v a super-block, SSM and conv states a Mamba sub-layer — and
+    decodes a token into it (tests/test_torch_hybrid.py holds it against
+    the reference)."""
     from repro_torch.models import transformer as T
 
-    jamba = tget_arch("mamba2-370m")
-    hybrid = dataclasses.replace(jamba, family="hybrid", attn_layer_period=8)
-    with pytest.raises(NotImplementedError, match="jamba slice"):
-        T.init_decode_cache(hybrid.reduced(), 1, 4, torch.float32,
-                            device="cpu")
+    hybrid = tget_arch("jamba-1.5-large-398b").reduced()
+    n_sb = hybrid.num_layers // 8
+    cache = T.init_decode_cache(hybrid, 1, 4, torch.float32, device="cpu")
+    ssm_shape, conv_shape = TS.mamba_state_shapes(hybrid, 1)
+    assert tuple(cache["k"].shape) == (n_sb, 1, hybrid.num_kv_heads, 4,
+                                       hybrid.head_dim)
+    assert tuple(cache["ssm"].shape) == (n_sb, 7, *ssm_shape)
+    assert tuple(cache["conv"].shape) == (n_sb, 7, *conv_shape)
+    assert cache["ssm"].dtype == torch.float32
+    stack = T.init_stack(torch.Generator().manual_seed(0), hybrid,
+                         torch.float32, device="cpu")
+    with _port_policy(), torch.no_grad():
+        y, cache = T.decode_stack(stack, cache,
+                                  torch.randn(1, 1, hybrid.d_model), 0,
+                                  hybrid)
+    assert torch.isfinite(y).all() and cache["ssm"].abs().sum() > 0
     moe = tget_arch("qwen3-moe-30b-a3b").reduced()
     cache = T.init_decode_cache(moe, 1, 4, torch.float32, device="cpu")
     assert tuple(cache["k"].shape) == (moe.num_layers, 1, moe.num_kv_heads,
