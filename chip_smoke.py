@@ -26,16 +26,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               launch bit for bit against its single launches; at the
               zoo's shapes (phases 12a-12h) every GEMM of each model on
               ``skinny`` and ``wgmma`` (jamba's on ``tf32x3`` in f32), jamba's
-              expert GEMMs (d 8192, f 24576), flash attention at D 80 on
-              ``simt`` (danube's window, hubert bidirectional) and at D 128
-              on ``wgmma`` (gemma3's window), flash decode at D 80, past a
+              expert GEMMs (d 8192, f 24576), flash attention at D 80 and
+              128 on ``wgmma`` (danube's window, hubert bidirectional,
+              gemma3's window), flash decode at D 80, past a
               rolling buffer's wrap and on gemma3's windowed long step, the
               SSD chunk kernel at jamba's 256 heads; flash
-              attention on both routes (bf16 at D 64 / 128
-              on the tensor cores, f32 and other head dims on the CUDA
-              cores), the prefill shape also as the model's transposed
-              (B, S, H, D) views; flash decode on both routes (bf16 on
-              the tensor cores, f32 on the CUDA cores), also on 4096- and
+              attention on its three routes (bf16 at D 64 / 80 / 128 on
+              the tensor cores by ``wgmma``, f32 on them by 3xTF32
+              ``tf32x3``, D 32 in bf16 and a misaligned bf16 and f32
+              operand on the CUDA cores, ``simt``), the prefill shape also
+              as the model's transposed (B, S, H, D) views, the f32
+              forwards' shapes (yi-6b / qwen3-moe 1 x 128, jamba 1 x 512)
+              on ``tf32x3`` repeated bit for bit; flash decode
+              on both routes (bf16 on the tensor cores, f32 on the CUDA
+              cores), also on 4096- and
               4099-slot caches split across a cluster, each launch
               repeated bit for bit; the SSD chunk kernel on its
               tensor-core route (``mma``) at every case, the forward's
@@ -84,9 +88,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               ``DIR/serve_cluster_trace.json.gz``;
 6. float32  — first-step decode logits and last-position forward logits of
               the same model with f32 weights, kernels against plain (the
-              forward's GEMMs on ``tf32x3``, the decode step's on
-              ``skinny``), and the long-cache decode step of phase 5 with
-              these weights;
+              forward's GEMMs and attention on ``tf32x3``, the decode
+              step's GEMMs on ``skinny``), and the long-cache decode step
+              of phase 5 with these weights;
 7. hnp      — the paper's path: the reference quickstart's graph, then one
               wave of two same-shape GEMMs at yi-6b width stacked into one
               batched-GEMM launch;
@@ -151,7 +155,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               on 2 x 2048 (the 1024 window bites in 52 of 62 layers) and a
               decode step at index 4000 of a 4096-slot cache at B 8 (12e);
               h2o-danube-1.8b whole: served, run forward on 1 x 8192 (D 80
-              on ``simt``) and a decode step at index 5000, past the wrap
+              on ``wgmma``) and a decode step at index 5000, past the wrap
               of its 4096-slot rolling buffer (12f); hubert-xlarge whole:
               a bidirectional 2 x 512 forward on seeded frame embeddings
               (12g); qwen2-72b served and qwen2-vl-72b run forward on 2 x
@@ -174,22 +178,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               GEMM (``tf32x3``) at square n 32-4096 and at the yi-6b (m
               128) and mamba2-370m (m 512) f32 forwards' shapes beside
               ``torch.matmul`` (TF32 off) and its bytes / 3xTF32 / CUDA-core
-              fp32 bounds; the f32 attention kernels (``simt``) at the
-              yi-6b f32 forward's and the f32 long-cache step's shapes
-              beside SDPA in f32; at the zoo's shapes (``time_zoo``) bf16
-              flash attention on ``simt`` at D 80 and on ``wgmma`` with
-              gemma3's window beside SDPA with the same mask, flash decode
+              fp32 bounds; f32 flash attention (``tf32x3``) at the yi-6b
+              f32 forward's shape and flash decode (``simt``) at the f32
+              long-cache step's beside SDPA in f32; at the zoo's shapes
+              (``time_zoo``) bf16 flash attention on ``wgmma`` at D 80 and
+              with gemma3's window beside SDPA with the same mask, flash decode
               at D 80 past the wrap and on gemma3's long step, the SSD
               kernel at jamba's shape.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
 too: every bf16 forward and hnp-wave GEMM and every bf16 forward attention
-launch at D 64 / 128 must have taken the tensor-core route (``wgmma``),
-every bf16 one at D 80 the CUDA-core one (``simt``), every serving
-GEMM the skinny one, every bf16 decode attention launch the tensor-core
-one (``mma``), the f32 forward's and decode's attention the CUDA-core
-one (``simt``), every f32 GEMM with m > 16 (phases 2, 6, 7a, 10, 10d)
+launch (D 64 / 80 / 128) must have taken the tensor-core route
+(``wgmma``), every serving GEMM the skinny one, every bf16 decode
+attention launch the tensor-core one (``mma``), every f32 forward
+attention launch (yi-6b, qwen3-moe, jamba) the f32 tensor-core one
+(``tf32x3``), the f32 decode's attention the CUDA-core one (``simt``),
+every f32 GEMM with m > 16 (phases 2, 6, 7a, 10, 10d)
 the f32 tensor-core one (``tf32x3``), and every SSD launch of the phase-2
 checks and of the forwards (eager, graph, f32) the tensor-core one
 (``mma``).  The last
@@ -362,8 +367,10 @@ DECODE_TIME_SHAPES = [("serve", BATCH, CACHE_LEN, PROMPT_LEN + MAX_NEW - 1),
 # model's transposed (B, S, H, D) views), and rows a window leaves empty
 # (bidir. with window -5: the last six queries see no key) at D 80 and 128;
 # then D 64 (the tensor-core route's other tile): causal GQA, ragged with a
-# window, empty rows, and a kv loop (5 tiles) that wraps its 3-stage ring.  bf16 at D 64 / 128 must take the ``wgmma``
-# route, everything else ``simt``.
+# window, empty rows, and a kv loop (5 tiles) that wraps its 3-stage ring.
+# Each case runs in bf16 and f32, on the route ``attn_route`` names.
+# Then SIMT_ATTN_CASES: a k one element off 16-byte alignment, bf16 at D 80
+# and f32 at D 128, which must take ``simt``.
 TEST_ATTN_CASES = [
     dict(b=2, sq=128, skv=128, hq=4, hkv=4, d=32, causal=True),
     dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=32, causal=True),
@@ -382,6 +389,12 @@ TEST_ATTN_CASES = [
     dict(b=2, sq=200, skv=200, hq=4, hkv=4, d=64, causal=False, window=-5,
          view=True),
     dict(b=1, sq=600, skv=600, hq=4, hkv=2, d=64, causal=True),
+]
+SIMT_ATTN_CASES = [
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=20,
+         dtype="bfloat16"),
+    dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=128, causal=True,
+         dtype="float32"),
 ]
 
 
@@ -574,12 +587,32 @@ def decode_route_of(dtype):
     return "mma" if dtype in ("bfloat16", torch.bfloat16) else "simt"
 
 
-def attn_route_of(cfg):
-    """Flash attention's route for a model's forward: the tensor cores
-    (``wgmma``) in bf16 at D 64 / 128, else the CUDA cores (``simt``: f32,
-    and the bf16 D 80 of h2o-danube and hubert)."""
-    return ("wgmma" if cfg.dtype == "bfloat16" and cfg.head_dim in (64, 128)
-            else "simt")
+def f32_attention_cases(cfg, moe_cfg, zoo):
+    """(tag, B, Hq, Hkv, S, D) of each f32 forward's causal attention
+    launch: yi-6b's and qwen3-moe's at F32_FWD_BATCH x F32_FWD_SEQ,
+    jamba's at 1 x JAMBA_F32_FWD_SEQ; a shape two models share once."""
+    cases = {}
+    for tag, c, b, s in (("yi-6b-f32", cfg, F32_FWD_BATCH, F32_FWD_SEQ),
+                         ("qwen3-moe-f32", moe_cfg, F32_FWD_BATCH,
+                          F32_FWD_SEQ),
+                         ("jamba-f32", zoo["jamba-f32"], 1,
+                          JAMBA_F32_FWD_SEQ)):
+        shape = (b, c.num_heads, c.num_kv_heads, s, c.head_dim)
+        cases[shape] = cases.get(shape, ()) + (tag,)
+    return [("/".join(tags), *shape) for shape, tags in cases.items()]
+
+
+def attn_route(dtype, d):
+    """Flash attention's route for aligned operands (every model's, and
+    TEST_ATTN_CASES'): the bf16 tensor-core tile (``wgmma``) at D 64 / 80
+    / 128, the f32 one (``tf32x3``) at D a multiple of 8 up to 128, else
+    the CUDA cores (``simt``)."""
+    import torch
+
+    if dtype in ("bfloat16", torch.bfloat16):
+        return "wgmma" if d in (64, 80, 128) else "simt"
+    return "tf32x3" if d % 8 == 0 and d <= 128 else "simt"
+
 
 
 def attn_operands(randn, b, hq, hkv, sq, skv, d, dtype, view):
@@ -1113,8 +1146,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo):
             q, k, v = attn_operands(randn, case["b"], case["hq"],
                                     case["hkv"], case["sq"], case["skv"],
                                     case["d"], dt, case.get("view", False))
-            route = ("wgmma" if dt == bf16 and case["d"] in (64, 128)
-                     else "simt")
+            route = attn_route(dt, case["d"])
             got = on_route(flash_attention, route,
                            lambda: flash_attention(q, k, v, **kw))
             want = attention_ref(q, k, v, **kw)
@@ -1132,6 +1164,40 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo):
                     fail(f"flash_attention {tag}: fully masked row is not 0")
     if masked_rows == 0:
         fail("flash_attention: no fully masked row was checked")
+    for case in SIMT_ATTN_CASES:
+        dt = getattr(torch, case["dtype"])
+        q, k, v = attn_operands(randn, case["b"], case["hq"], case["hkv"],
+                                case["sq"], case["skv"], case["d"], dt, True)
+        flat = randn(k.numel() + 1, dtype=dt)
+        k = flat[1:].view(k.shape)          # 2 / 4 bytes off 16-byte alignment
+        kw = dict(causal=case["causal"], window=case.get("window"))
+        got = on_route(flash_attention, "simt",
+                       lambda: flash_attention(q, k, v, **kw))
+        record("flash_attention", f"misaligned k B{case['b']} Hq{case['hq']} "
+               f"Hkv{case['hkv']} Sq{case['sq']} Skv{case['skv']} "
+               f"D{case['d']} BSHD views simt", dt,
+               *_row_rel_err(got, attention_ref(q, k, v, **kw)), False,
+               scale="row max")
+
+    # The f32 forwards' attention at their own shapes on tf32x3, as
+    # (B, H, S, D) tensors and as the model's transposed views, each
+    # launched twice and equal bit for bit.
+    for tag, b, hq, hkv, s, d in f32_attention_cases(cfg, moe_cfg, zoo):
+        for view in (False, True):
+            q, k, v = attn_operands(randn, b, hq, hkv, s, s, d,
+                                    torch.float32, view)
+            got = on_route(flash_attention, "tf32x3",
+                           lambda: flash_attention(q, k, v, causal=True))
+            again = on_route(flash_attention, "tf32x3",
+                             lambda: flash_attention(q, k, v, causal=True))
+            case = (f"{tag} B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal "
+                    f"{'BSHD views' if view else 'BHSD'} tf32x3")
+            if not torch.equal(got, again):
+                fail(f"flash_attention {case}: a repeat launch differs")
+            record("flash_attention", case, torch.float32,
+                   *_row_rel_err(got, attention_ref(q, k, v, causal=True)),
+                   False, scale="row max")
+            del q, k, v, got, again
 
     # SSD chunk term.  The model path hands the kernel fp32 operands; its
     # log-decays are cumulative sums of dt·a with a = -1 and dt ≈ 0.7
@@ -1365,7 +1431,7 @@ def _backends(trace, ops):
 KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny",
                             "gemm_tf32x3"),
                    "flash_attention": ("flash_attention_kernel",
-                                       "attn_wgmma"),
+                                       "attn_wgmma", "attn_tf32x3"),
                    "flash_decode": ("flash_decode_",),
                    "ssd_chunk_diag": ("ssd_chunk_kernel", "ssd_mma_kernel")}
 
@@ -1566,7 +1632,7 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts,
         out["launches"][mode] = counts
         out["routes"][mode] = read_routes()
         require_route(f"{arch} forward ({mode})", out["routes"][mode],
-                      "wgmma", attn=attn_route_of(cfg))
+                      "wgmma", attn=attn_route(cfg.dtype, cfg.head_dim))
         for _ in range(2):           # two more, uncounted, for the spread
             t0 = time.perf_counter()
             with offload_policy(**KERNEL_POLICY), torch.no_grad():
@@ -1711,9 +1777,9 @@ def run_f32(cfg, tokens, prompts, zero_counts, read_counts):
     """Phase 6: decode first-step and forward last-position logits with
     f32 weights at full width, kernels against plain, bar 1e-4, and the
     long-cache decode step at that bar.  Every attention launch of the f32
-    forward and decode must take the CUDA-core route (``simt``: true
-    fp32); returns the route counts of the phase's short and long-cache
-    decode steps."""
+    forward must take the f32 tensor-core route (``tf32x3``: 3xTF32,
+    fp32-accurate), of the decode the CUDA-core one (``simt``); returns
+    the route counts of the phase's short and long-cache decode steps."""
     import torch
 
     from repro_torch.core import blas
@@ -1746,8 +1812,8 @@ def run_f32(cfg, tokens, prompts, zero_counts, read_counts):
            "bar": F32_LOGIT_TOL, "forward_batch": F32_FWD_BATCH,
            "forward_seq": F32_FWD_SEQ, "routes": read_routes()}
     attn = out["routes"]["flash_attention"]
-    if attn != {"simt": cfg.num_layers, "wgmma": 0}:
-        fail(f"f32 forward attention off the simt route: {attn}")
+    if attn != {"simt": 0, "wgmma": 0, "tf32x3": cfg.num_layers}:
+        fail(f"f32 forward attention off the tf32x3 route: {attn}")
     require_f32_gemm_routes("f32 decode / forward", out["routes"])
     dec = out["routes"]["flash_decode"]
     if dec != {"simt": cfg.num_layers, "mma": 0}:
@@ -2481,6 +2547,10 @@ def run_moe_f32(cfg, prompts, tokens):
             n for r, n in out["routes"]["gemm_batched"].items()
             if r != "tf32x3"):
         fail(f"f32 expert GEMMs off the tf32x3 route: {out['routes']}")
+    if out["routes"]["flash_attention"] != {"simt": 0, "wgmma": 0,
+                                           "tf32x3": MOE_F32_LAYERS}:
+        fail(f"qwen3-moe f32 attention off the tf32x3 route: "
+             f"{out['routes']['flash_attention']}")
     require_f32_gemm_routes("qwen3-moe f32", out["routes"])
     for name in ("decode_first_step", "forward_last_position"):
         if not out[name]["err"] <= F32_LOGIT_TOL:
@@ -2624,7 +2694,7 @@ def check_zoo_kernels(zoo, randn, record, on_route):
     jamba's at m = 512 on ``tf32x3`` in f32; the expert GEMMs of jamba
     (8 experts, d 8192, f 24576; decode and forward groups) on ``wgmma``
     and of its f32 twin on ``tf32x3``; flash attention on the model's
-    transposed views (D 80 on ``simt``, D 128 on ``wgmma``); flash decode
+    transposed views (D 80 and 128 on ``wgmma``); flash decode
     on ``mma``, each launch repeated bit for bit; the SSD chunk kernel at
     jamba's shapes on ``mma``."""
     import torch
@@ -2683,7 +2753,7 @@ def check_zoo_kernels(zoo, randn, record, on_route):
 
     for tag, b, hq, hkv, s, d, causal, window in zoo_attention_cases(zoo):
         q, k, v = attn_operands(randn, b, hq, hkv, s, s, d, bf16, True)
-        route = "wgmma" if d in (64, 128) else "simt"
+        route = attn_route(bf16, d)
         kw = dict(causal=causal, window=window)
         got = on_route(flash_attention, route,
                        lambda: flash_attention(q, k, v, **kw))
@@ -2902,8 +2972,9 @@ def run_jamba_f32(cfg32, prompts, rng):
     JAMBA_F32_EXPERTS experts (top-2 of 2: no routing decision can
     differ): first decode step and last-position logits of a 1 x
     JAMBA_F32_FWD_SEQ forward, kernels against plain, under F32_LOGIT_TOL
-    x max |logit|; every SSD launch on ``mma``, attention and decode on
-    ``simt``, GEMMs on ``skinny`` / ``tf32x3``.  Returns the routes."""
+    x max |logit|; every SSD launch on ``mma``, attention on ``tf32x3``,
+    decode on ``simt``, GEMMs on ``skinny`` / ``tf32x3``.  Returns the
+    routes."""
     import torch
 
     from repro_torch.core import blas
@@ -2941,9 +3012,9 @@ def run_jamba_f32(cfg32, prompts, rng):
     # The kernel path runs once per logits: decode then forward.
     if r["ssd_chunk_diag"] != {"simt": 0, "mma": n_mamba}:
         fail(f"jamba f32 SSD off the mma route: {r['ssd_chunk_diag']}")
-    if r["flash_attention"] != {"simt": n_attn, "wgmma": 0} or \
+    if r["flash_attention"] != {"simt": 0, "wgmma": 0, "tf32x3": n_attn} or \
             r["flash_decode"] != {"simt": n_attn, "mma": 0}:
-        fail(f"jamba f32 attention off the simt routes: {r}")
+        fail(f"jamba f32 attention off the tf32x3 / simt routes: {r}")
     if any(n for rt, n in r["gemm_batched"].items() if rt != "tf32x3"):
         fail(f"jamba f32 expert GEMMs off the tf32x3 route: {r}")
     require_f32_gemm_routes("jamba f32", r)
@@ -2958,9 +3029,9 @@ def run_jamba_f32(cfg32, prompts, rng):
 
 
 def time_zoo(zoo, randn):
-    """Phase 11 at the zoo's shapes: flash attention in bf16 at D 80 on
-    ``simt`` (danube's 1 x 8192 sliding window, hubert's bidirectional 2 x
-    512) and on ``wgmma`` at gemma3's windowed 2 x 2048, on the model's
+    """Phase 11 at the zoo's shapes: flash attention in bf16 on ``wgmma``
+    at D 80 (danube's 1 x 8192 sliding window, hubert's bidirectional 2 x
+    512) and at gemma3's windowed 2 x 2048, on the model's
     transposed views, beside SDPA with the same mask (GQA); flash decode
     at D 80 past the rolling buffer's wrap (danube) and on gemma3's long
     step (a local layer's [2977, 4001) and a global layer's [0, 4001))
@@ -2972,12 +3043,8 @@ def time_zoo(zoo, randn):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.gemm import gemm_batched
-    from repro_torch.kernels.ref import attention_ref
     from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
-    dev = torch.device("cuda")
-    bf16 = torch.bfloat16
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     layers = {"danube-swa": zoo["danube"].num_layers,
               "hubert-bidir": zoo["hubert"].num_layers,
@@ -2985,35 +3052,10 @@ def time_zoo(zoo, randn):
                                   for i in range(zoo["gemma3"].num_layers)),
               "jamba/qwen2": None}
     for tag, b, hq, hkv, s, d, causal, window in zoo_attention_cases(zoo):
-        if tag == "jamba/qwen2":
-            continue
-        nbytes, flops = attn_work(b, hq, hkv, s, s, d, causal, window, 2)
-        ops = _rotation(lambda: attn_operands(randn, b, hq, hkv, s, s, d,
-                                              bf16, True), nbytes)
-        pos = torch.arange(s, device=dev)
-        rel = pos[:, None] - pos[None, :]
-        mask = torch.ones(s, s, dtype=torch.bool, device=dev)
-        if causal:
-            mask &= rel >= 0
-        if window is not None:
-            mask &= rel < window
-        kw = dict(causal=causal, window=window)
-        before = dict(flash_attention.route_launches)
-        t_k = _time(lambda t: flash_attention(*t, **kw), ops, iters=10)
-        took = {r: n - before[r] for r, n in
-                flash_attention.route_launches.items() if n != before[r]}
-        t_p = _time(lambda t: attention_ref(*t, **kw), ops, iters=3)
-        t_l = _time(lambda t: sdpa(*t, attn_mask=mask, enable_gqa=True), ops,
-                    iters=10)
-        rows[f"flash_attention:{tag}"] = {
-            "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
-            "window": window, "dtype": "bfloat16", "routes": took,
-            "launches_per_forward": layers[tag], "ms": t_k, "plain_ms": t_p,
-            "library_ms": t_l, "library": "SDPA, GQA, the same mask",
-            "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
-            "bound_by": _bound_by(nbytes, flops, "bfloat16"),
-            "TFLOPs": flops / t_k / 1e9, "vs_library": t_k / t_l}
-        del ops, mask
+        if tag != "jamba/qwen2":
+            rows[f"flash_attention:{tag}"] = time_zoo_attention(
+                flash_attention, randn, b, hq, hkv, s, d, causal, window,
+                layers[tag])
     g, dn = zoo["gemma3"], zoo["danube"]
     gb, gs, gi = GEMMA_LONG
     for name, cfg, shapes in (
@@ -3037,6 +3079,45 @@ def time_zoo(zoo, randn):
                                           "per_path": moe_tot}
     torch.cuda.empty_cache()
     return rows
+
+
+def time_zoo_attention(flash_attention, randn, b, hq, hkv, s, d, causal,
+                       window, launches):
+    """Flash attention (any tree's wrapper) in bf16 on the model's
+    transposed (B, S, H, D) views over operands rotated past L2: kernel,
+    plain version and SDPA with the same mask (GQA) in ms per launch,
+    beside the bound, with the routes the timed launches took."""
+    import torch
+
+    from repro_torch.kernels.ref import attention_ref
+
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes, flops = attn_work(b, hq, hkv, s, s, d, causal, window, 2)
+    ops = _rotation(lambda: attn_operands(randn, b, hq, hkv, s, s, d, bf16,
+                                          True), nbytes)
+    pos = torch.arange(s, device="cuda")
+    rel = pos[:, None] - pos[None, :]
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    kw = dict(causal=causal, window=window)
+    before = dict(flash_attention.route_launches)
+    t_k = _time(lambda t: flash_attention(*t, **kw), ops, iters=10)
+    took = {r: n - before[r] for r, n in
+            flash_attention.route_launches.items() if n != before[r]}
+    t_p = _time(lambda t: attention_ref(*t, **kw), ops, iters=3)
+    t_l = _time(lambda t: sdpa(*t, attn_mask=mask, enable_gqa=True), ops,
+                iters=10)
+    return {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": causal,
+            "window": window, "dtype": "bfloat16", "routes": took,
+            "launches_per_forward": launches, "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "library": "SDPA, GQA, the same mask",
+            "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
+            "bound_by": _bound_by(nbytes, flops, "bfloat16"),
+            "TFLOPs": flops / t_k / 1e9, "vs_library": t_k / t_l}
 
 
 ZOO_PATHS = ("jamba-serve", "jamba-serve-graph", "jamba-forward",
@@ -3327,8 +3408,8 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
             "bound_by": t["bound_by"]}
 
     # The f32 GEMM route (tf32x3) at square n and at the f32 forwards'
-    # shapes; the f32 attention kernels (simt) at the yi-6b f32 forward's
-    # shape and at the f32 long-cache decode step, beside SDPA in f32.
+    # shapes; f32 flash attention (tf32x3) at the yi-6b f32 forward's shape
+    # and flash decode (simt) at the f32 long-cache step, beside SDPA in f32.
     f32_rows, f32_tot = time_f32_gemms(gemm, cfg, ssm_cfg, randn)
     emit({"f32_gemm_shapes": f32_rows, "per_forward": f32_tot})
     f32_attn = time_f32_attention(flash_attention, cfg, randn)
@@ -3462,6 +3543,9 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
              "S", "routes", "ms", "plain_ms", "library_ms", "bound_ms",
              "fp32_fma_bound_ms")},
          "tile_source": "src/repro_torch/kernels/csrc/attn_wgmma.cuh",
+         "routes": {"wgmma": "src/repro_torch/kernels/csrc/attn_wgmma.cuh",
+                    "tf32x3": "src/repro_torch/kernels/csrc/attn_tf32x3.cuh",
+                    "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
          "route_launches": {path: r["flash_attention"]
                             for path, r in routes.items()
                             if any(r["flash_attention"].values())}},
@@ -3675,17 +3759,19 @@ def time_f32_gemms(gemm, cfg, ssm_cfg, randn):
     return rows, tot
 
 
-def time_f32_attention(flash_attention, cfg, randn):
-    """Flash attention (any tree's wrapper) on f32 operands at the yi-6b
-    f32 forward's shape (F32_FWD_BATCH x F32_FWD_SEQ, causal GQA, D 128:
-    the CUDA-core ``simt`` route): kernel, plain version and SDPA in f32
-    (``is_causal``, GQA; TF32 off) in ms per launch over operands rotated
-    past L2, beside ``f32_bounds``."""
+def time_f32_attention(flash_attention, cfg, randn, b=F32_FWD_BATCH,
+                       s=F32_FWD_SEQ, launches=None):
+    """Flash attention (any tree's wrapper) on f32 operands at an f32
+    forward's shape (by default yi-6b's, F32_FWD_BATCH x F32_FWD_SEQ,
+    causal GQA, D 128: the ``tf32x3`` route; ``simt`` before it): kernel,
+    plain version and SDPA in f32 (``is_causal``, GQA; TF32 off) in ms per
+    launch over operands rotated past L2, beside ``f32_bounds``.
+    ``launches``: the forward's attention launches (default: a layer
+    each)."""
     import torch
 
     from repro_torch.kernels.ref import attention_ref
 
-    b, s = F32_FWD_BATCH, F32_FWD_SEQ
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     nbytes, flops = attn_work(b, hq, hkv, s, s, d, True, None, 4)
     ops = _rotation(lambda: attn_operands(randn, b, hq, hkv, s, s, d,
@@ -3700,7 +3786,7 @@ def time_f32_attention(flash_attention, cfg, randn):
     bounds = f32_bounds(nbytes, flops)
     return {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "causal": True,
             "dtype": "float32", "routes": took,
-            "launches_per_forward": cfg.num_layers, "ms": t_k,
+            "launches_per_forward": launches or cfg.num_layers, "ms": t_k,
             "plain_ms": t_p, "library_ms": t_l,
             "library": "SDPA f32, GQA, is_causal (TF32 off)", **bounds,
             "bound_share": bounds["bound_ms"] / t_k,

@@ -1,9 +1,9 @@
 // Tensor-core flash attention for Hopper (sm_90a): bf16 q / k / v with head
-// dim 64 or 128, fp32 softmax and accumulators, bf16 output.  The `wgmma`
-// route of flash_attention.cu; kernels/flash_attention.py's
+// dim 64, 80 or 128, fp32 softmax and accumulators, bf16 output.  The
+// `wgmma` route of flash_attention.cu; kernels/flash_attention.py's
 // flash_attention_route sends a call here only when TMA can address its
-// operands (bf16, D 64 or 128, contiguous head dim, 16-byte-aligned base
-// addresses and batch / head / sequence strides).
+// operands (bf16, D 64 / 80 / 128, contiguous head dim, 16-byte-aligned
+// base addresses and batch / head / sequence strides).
 //
 // It computes what the reference's Pallas kernel `_attn_kernel`
 // (src/repro/kernels/flash_attention.py) computes: online-softmax attention
@@ -28,9 +28,21 @@
 //     transposed views, is read in place; TMA zero-fills rows past Sq and
 //     Skv and never crosses a head or batch entry, so nothing is padded.
 //     Tiles are 64 head-dim columns (128 bytes, the swizzle width) wide,
-//     128-byte swizzled, D / 64 of them side by side.
+//     128-byte swizzled, TD / 64 of them side by side (TD, the tile's
+//     head dim and the template's D, is the true D rounded up to 64 or
+//     128; Args::D is the true one).
+//   * D 80 (h2o-danube, hubert) runs the TD-128 tile.  The maps carry the
+//     true extent D, so TMA zero-fills columns 80-127 of every box: the
+//     model's views hold the next head's data there, and a map as wide
+//     as the row stride would read it.  The scores run only the D / 16
+//     k16 steps that hold data (DQK = 80: 5 of 8); P·V runs the whole
+//     128-wide tile (zero columns of V give zero columns of O; a wgmma
+//     n80 cannot read an MN-major 128-byte-swizzled tile, whose atom is
+//     64 wide), and the epilogue stores only columns below D, since the
+//     output row is D wide and columns 80-127 would be the next row's.
+//     So D 80 costs (80 + 128) / 160 = 1.3 times its tensor-core work.
 //   * Scores: S = Q·Kᵀ with `wgmma.m64nBKVk16`, Q and K both K-major (D
-//     contiguous), D / 16 steps per tile, fp32 in registers.
+//     contiguous), DQK / 16 steps per tile, fp32 in registers.
 //   * Softmax in fp32 on the accumulator fragment: a row lives in one quad
 //     of lanes, so its max takes two `shfl_xor`s (the row sum l is kept per
 //     thread and reduced once, at the end).  exp2 with scale·log2(e)
@@ -40,20 +52,25 @@
 //     kv loop visits only tiles that can hold a live key for some query of
 //     the block (dead tiles are never loaded), as the CUDA-core kernel.
 //   * P·V: P rounded to bf16 in registers is the A operand of a register-A
-//     `wgmma.m64nDk16` against V, which is MN-major (D contiguous) and read
+//     `wgmma.m64nTDk16` against V, which is MN-major (D contiguous) and read
 //     with the transpose bit, as the GEMM's row-major B.  O is fp32 in
 //     registers, rescaled by each tile's max correction.
 //   * Epilogue: O / l rounded to bf16, plain masked stores of bf16 pairs to
-//     the strided output; l == 0 writes exactly 0.
+//     the strided output (rows below Sq, columns below D); l == 0 writes
+//     exactly 0.
 //
 // Bound on an H100: at yi-6b's prefill shape (B 2, Hq 32, Hkv 4, S 512, D
 // 128, causal) the call does 4.3 GFLOP against 18.9 MB read and written,
 // about 230 FLOP/byte, near the card's ~295 FLOP/byte ridge: 4.35 µs of
 // bf16 tensor-core work against 5.6 µs of bytes, so its bound is the
-// bytes.  Not in this kernel yet: overlap of one tile's softmax with the
-// next tile's scores inside a warpgroup (the two consumer warpgroups
-// overlap each other only as the scheduler interleaves them), TMA-store
-// epilogue, persistent blocks.
+// bytes.  At h2o-danube's 1 x 8192 (32 / 8 heads, D 80, causal, window
+// 4096) the live pairs make 258 GFLOP, 0.261 ms of bf16 tensor-core work
+// against a few MB: bound by the operations, and the padded P·V makes
+// the tile's work 335 GFLOP.  Not in this kernel yet: an exact D-80 tile
+// (16-column boxes with the 32-byte swizzle, n80 for P·V), overlap of one
+// tile's softmax with the next tile's scores inside a warpgroup (the two
+// consumer warpgroups overlap each other only as the scheduler
+// interleaves them), TMA-store epilogue, persistent blocks.
 //
 // Every mbarrier wait traps after a bounded spin instead of hanging
 // (wg::mbar_wait).
@@ -72,9 +89,12 @@ constexpr int THREADS = 128 * (1 + CONSUMERS);
 constexpr int BOX = 64;                     // head-dim columns per TMA box
 constexpr float NEG = -1e30f;               // a row's max before any live key
 
-template <int D, int BKV, int STAGES>
+// D: the tile's head dim (a multiple of the box); DQK: the head-dim
+// columns the scores read (the true D rounded up to 16).
+template <int D, int DQK, int BKV, int STAGES>
 struct Cfg {
-  static_assert(D % BOX == 0 && BKV % 16 == 0, "tile shape");
+  static_assert(D % BOX == 0 && BKV % 16 == 0 && DQK % 16 == 0 && DQK <= D,
+                "tile shape");
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;      // one K or one V tile
   // Q, the K ring, the V ring, the barriers (Q, K full, V full, empty) and
@@ -84,7 +104,7 @@ struct Cfg {
 };
 
 struct Args {
-  int Hq, Hkv, Sq, Skv;
+  int Hq, Hkv, Sq, Skv, D;          // D: the true head dim (stores stop there)
   int causal, use_window, window;
   float scale_log2;                 // sm_scale * log2(e)
   long long o_b, o_h, o_s;          // output strides (elements)
@@ -106,13 +126,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D, int BKV, int STAGES>
+template <int D, int DQK, int BKV, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_wgmma(const __grid_constant__ CUtensorMap map_q,
            const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v,
            __nv_bfloat16* __restrict__ out, Args a) {
-  using C = Cfg<D, BKV, STAGES>;
+  using C = Cfg<D, DQK, BKV, STAGES>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -212,7 +232,7 @@ attn_wgmma(const __grid_constant__ CUtensorMap map_q,
     wg::fence_regs(sc);
     wg::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       // Box kk / 4 of the head dim, 16 columns = 32 bytes along its
       // swizzled 128-byte rows.
       const int box = kk / 4, off = (kk % 4) * 32;
@@ -313,18 +333,19 @@ attn_wgmma(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
+      if (col >= a.D) continue;        // D is even: a pair is whole or out
       wg::store2(ob + row * a.o_s + col, o[4 * j + 2 * hh] * inv,
                  o[4 * j + 2 * hh + 1] * inv);
     }
   }
 }
 
-template <int D, int BKV, int STAGES>
+template <int D, int DQK, int BKV, int STAGES>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, __nv_bfloat16* out, const Args& a,
                    int B, cudaStream_t stream) {
-  constexpr int smem = Cfg<D, BKV, STAGES>::SMEM;
-  auto kernel = attn_wgmma<D, BKV, STAGES>;
+  constexpr int smem = Cfg<D, DQK, BKV, STAGES>::SMEM;
+  auto kernel = attn_wgmma<D, DQK, BKV, STAGES>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -343,7 +364,7 @@ inline cudaError_t run(const void* q, const void* k, const void* v, void* out,
                        const long long (&qs)[3], const long long (&ks)[3],
                        const long long (&vs)[3], const long long (&os)[3],
                        cudaStream_t stream) {
-  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  if (D != 64 && D != 80 && D != 128) return cudaErrorInvalidValue;
   constexpr int BKV = 128;
   // Maps (D, S, H, B); strides of S, H, B from (batch, head, seq) order.
   CUtensorMap mq, mk, mv;
@@ -355,11 +376,12 @@ inline cudaError_t run(const void* q, const void* k, const void* v, void* out,
       !wg::encode_4d(&mk, k, kd, kst, BOX, BKV) ||
       !wg::encode_4d(&mv, v, kd, vst, BOX, BKV))
     return cudaErrorInvalidValue;
-  Args a{Hq, Hkv, Sq, Skv, causal, use_window, window,
+  Args a{Hq, Hkv, Sq, Skv, D, causal, use_window, window,
          scale * 1.4426950408889634f, os[0], os[1], os[2]};
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (D == 64) return launch<64, BKV, 3>(mq, mk, mv, o, a, B, stream);
-  return launch<128, BKV, 2>(mq, mk, mv, o, a, B, stream);
+  if (D == 64) return launch<64, 64, BKV, 3>(mq, mk, mv, o, a, B, stream);
+  if (D == 80) return launch<128, 80, BKV, 2>(mq, mk, mv, o, a, B, stream);
+  return launch<128, 128, BKV, 2>(mq, mk, mv, o, a, B, stream);
 }
 
 }  // namespace fa

@@ -2,15 +2,19 @@
 // query sequence, causal / sliding-window / bidirectional, with GQA.
 //
 // Replaces the reference's Pallas TPU kernel `_attn_kernel` / `flash_attention`
-// (src/repro/kernels/flash_attention.py).  Two kernels; the caller names
+// (src/repro/kernels/flash_attention.py).  Three kernels; the caller names
 // which one runs (`route`, chosen in kernels/flash_attention.py::
 // flash_attention_route by dtype, head dim, strides and alignment), and
-// nothing here falls back from one to the other:
+// nothing here falls back from one to another:
 //
-//   wgmma (attn_wgmma.cuh) — bf16 with D 64 or 128 and TMA-addressable
-//     operands (yi-6b's prefill): Hopper tensor cores fed by TMA.
-//   simt (below) — everything else: f32 (true fp32, the 2e-5 bar), other
-//     head dims (D 80, 32, ...), misaligned operands.
+//   wgmma (attn_wgmma.cuh) — bf16 with D 64, 80 or 128 and TMA-addressable
+//     operands (the models' prefill and forward): Hopper tensor cores fed
+//     by TMA.
+//   tf32x3 (attn_tf32x3.cuh) — f32 with D a multiple of 8 up to 128 and
+//     16-byte-aligned operands (the f32 checks): 3xTF32 `mma.sync`, fed
+//     by cp.async, fp32-accurate (the 2e-5 bar).
+//   simt (below) — everything else: other head dims (D 32 in bf16, D not a
+//     multiple of 8 in f32, D over 128), misaligned or broadcast operands.
 //
 // The CUDA-core kernel.  In the Pallas kernel the grid was (b, q head,
 // q block, kv block) with the kv axis sequential: the fp32 running state
@@ -41,9 +45,9 @@
 // What bounds it on an H100: prefill attention does 4·D FLOPs per (query,
 // live key) pair against 2·D·itemsize bytes per key row, so at yi-6b's
 // prefill shape (S 512, D 128) the work is FLOP-bound at the tensor cores'
-// rate; this first kernel uses the CUDA cores' fp32 FMAs (about 67 TFLOP/s
-// on the data sheet) and sits far from that bound; bf16 at D 64 / 128
-// takes the tensor-core kernel instead.
+// rate; this kernel uses the CUDA cores' fp32 FMAs (about 67 TFLOP/s on
+// the data sheet) and sits far from that bound, so every operand the two
+// tensor-core kernels can take goes to them; it stays for the rest.
 //
 // Thread layout: 256 threads as a 16 x 16 grid (ty, tx).  Thread (ty, tx)
 // owns query rows ty + 16 i (i < 4) of the 64-row tile; for the scores it
@@ -57,6 +61,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "attn_tf32x3.cuh"
 #include "attn_wgmma.cuh"
 
 namespace {
@@ -273,8 +278,10 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 // key is live only if q_pos - kv_pos < window (any int: 0 or less masks
 // whole rows, as in the reference).  Hq % Hkv == 0, Skv >= Sq and
 // 1 <= D <= 256 are checked here and by the caller.  route: 0 simt, 1
-// wgmma (bf16, D 64 or 128, 16-byte-aligned addresses and strides; an
-// operand TMA cannot address returns cudaErrorInvalidValue).
+// wgmma (bf16, D 64, 80 or 128, 16-byte-aligned addresses and strides; an
+// operand TMA cannot address returns cudaErrorInvalidValue), 2 tf32x3
+// (f32, D % 8 == 0 and D <= 128, 16-byte-aligned addresses and strides;
+// anything else returns cudaErrorInvalidValue).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
@@ -291,6 +298,13 @@ extern "C" int repro_flash_attention(
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(fa::run(
+        q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, use_window, window,
+        scale, {q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
+        {o_b, o_h, o_s}, s));
+  }
+  if (route == 2) {
+    if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(fa3::run(
         q, k, v, out, B, Hq, Hkv, Sq, Skv, D, causal, use_window, window,
         scale, {q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s},
         {o_b, o_h, o_s}, s));

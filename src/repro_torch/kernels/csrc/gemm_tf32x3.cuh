@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace t3 {
 
 namespace cg = cooperative_groups;
@@ -117,32 +119,12 @@ struct Cfg {
   static_assert(MT >= 1 && NT >= 1 && WTM % 16 == 0 && WTN % 8 == 0, "tile");
 };
 
-__device__ __forceinline__ unsigned gemm_tf32x3_saddr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes (4 floats) from src, of which `bytes` are read and the rest
-// zero-filled (0: nothing is read).
-__device__ __forceinline__ void gemm_tf32x3_cp16(float* dst, const float* src,
-                                                 int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(gemm_tf32x3_saddr(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
 // One float from src, or 0 when !valid.
 __device__ __forceinline__ void gemm_tf32x3_cp4(float* dst, const float* src,
                                                 bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(gemm_tf32x3_saddr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               :: "r"(tf32::smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void gemm_tf32x3_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void gemm_tf32x3_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 // Copy a [ROWS][COLS] tile into shared memory (row pitch PITCH floats):
@@ -164,8 +146,7 @@ __device__ __forceinline__ void gemm_tf32x3_load(float* dst, const float* src,
       const int i = it * THREADS + threadIdx.x;
       const int r = i / CPR, c = (i % CPR) * 4;
       const int n = r < r_lim ? max(0, min(4, c_lim - c)) : 0;
-      gemm_tf32x3_cp16(dst + r * PITCH + c, n ? src + r * s_r + c : safe,
-                       4 * n);
+      tf32::cp16(dst + r * PITCH + c, n ? src + r * s_r + c : safe, 4 * n);
     }
   } else {
 #pragma unroll 4
@@ -179,38 +160,12 @@ __device__ __forceinline__ void gemm_tf32x3_load(float* dst, const float* src,
   }
 }
 
-// x = hi + lo: hi is x cut to TF32 (low 13 bits cleared), lo = x − hi
-// exactly (the mma reads only lo's TF32 bits).
-__device__ __forceinline__ void gemm_tf32x3_split(float x, uint32_t& hi,
-                                                  uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// Four 8x4 fp32 matrices (ldmatrix's 8x8 b16): lane l gets row l / 4,
-// word l % 4 of each, i.e. a TF32 mma fragment; lanes 8q..8q+7 name the
-// rows of matrix q.
-__device__ __forceinline__ void gemm_tf32x3_ldsm4(uint32_t addr,
-                                                  uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
 // A warp's operand fragments of one k8 step, as fp32 bits.
 template <int MT, int NT>
 struct Frags {
   uint32_t a[MT][4];     // A rows g, g + 8 of m-tile i; k t, t + 4
   uint32_t b[NT][2];     // B column g of n-tile j; k t, t + 4
 };
-
-__device__ __forceinline__ void gemm_tf32x3_mma(float (&d)[4],
-                                                const uint32_t (&a)[4],
-                                                uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // d = a·b from a zero accumulator: a k tile's first product, so the mma
 // sum needs no zeroing between tiles.
@@ -291,10 +246,10 @@ gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
   auto fetch = [&](const float* as, const float* bs, int kk,
                    Frags<MT, NT>& f) {
     if constexpr (AK) {
-      const uint32_t base = gemm_tf32x3_saddr(as) + a_ld + 4u * kk;
+      const uint32_t base = tf32::smem_u32(as) + a_ld + 4u * kk;
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        gemm_tf32x3_ldsm4(base + 4u * i * 16 * OpA::PITCH, f.a[i]);
+        tf32::ldsm_x4(base + 4u * i * 16 * OpA::PITCH, f.a[i]);
     } else {
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -307,11 +262,11 @@ gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
     }
     if constexpr (BKM) {
       static_assert(NT % 2 == 0, "n-tiles in pairs");
-      const uint32_t base = gemm_tf32x3_saddr(bs) + b_ld + 4u * kk;
+      const uint32_t base = tf32::smem_u32(bs) + b_ld + 4u * kk;
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t r[4];
-        gemm_tf32x3_ldsm4(base + 4u * j * 8 * OpB::PITCH, r);
+        tf32::ldsm_x4(base + 4u * j * 8 * OpB::PITCH, r);
         f.b[j][0] = r[0];
         f.b[j][1] = r[1];
         f.b[j + 1][0] = r[2];
@@ -338,13 +293,13 @@ gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < ntiles) load(s);
-    gemm_tf32x3_commit();
+    tf32::cp_commit();
   }
   for (int kt = 0; kt < ntiles; ++kt) {
-    gemm_tf32x3_wait<STAGES - 2>();        // tile kt has landed (this thread)
+    tf32::cp_wait<STAGES - 2>();          // tile kt has landed (this thread)
     __syncthreads();                       // ... every thread's; slot kt-1 free
     if (kt + STAGES - 1 < ntiles) load(kt + STAGES - 1);
-    gemm_tf32x3_commit();
+    tf32::cp_commit();
     const float* as = smem + (kt % STAGES) * K::STAGE;
     const float* bs = as + OpA::FLOATS;
     // k rows of this tile: a split's last may hold fewer than BK.
@@ -361,12 +316,12 @@ gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
       for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          gemm_tf32x3_split(__uint_as_float(cur.a[i][e]), ah[i][e], al[i][e]);
+          tf32::split<false>(__uint_as_float(cur.a[i][e]), ah[i][e], al[i][e]);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          gemm_tf32x3_split(__uint_as_float(cur.b[j][e]), bh[j][e], bl[j][e]);
+          tf32::split<false>(__uint_as_float(cur.b[j][e]), bh[j][e], bl[j][e]);
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -374,9 +329,9 @@ gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
           if (kk == 0)
             gemm_tf32x3_mma0(part[i][j], al[i], bh[j][0], bh[j][1]);
           else
-            gemm_tf32x3_mma(part[i][j], al[i], bh[j][0], bh[j][1]);
-          gemm_tf32x3_mma(part[i][j], ah[i], bl[j][0], bl[j][1]);
-          gemm_tf32x3_mma(part[i][j], ah[i], bh[j][0], bh[j][1]);
+            tf32::mma(part[i][j], al[i], bh[j][0], bh[j][1]);
+          tf32::mma(part[i][j], ah[i], bl[j][0], bl[j][1]);
+          tf32::mma(part[i][j], ah[i], bh[j][0], bh[j][1]);
         }
       if (kk + 8 < BK) cur = nxt;
     }
@@ -409,7 +364,7 @@ gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
   // Split k: partial tile into this block's shared memory (the ring is
   // done with), then each block of the cluster sums its slice of the tile
   // over the splits, split 0 first, and rounds it once into C.
-  gemm_tf32x3_wait<0>();
+  tf32::cp_wait<0>();
   __syncthreads();
   float* red = smem;
 #pragma unroll

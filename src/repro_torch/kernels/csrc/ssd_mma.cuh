@@ -101,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include "gemm_wgmma.cuh"   // tensor-map encoder, mbarriers, TMA loads
+#include "mma_tf32.cuh"
 
 namespace ssd_mma {
 
@@ -133,31 +134,10 @@ __host__ __device__ inline size_t smem_bytes(int N, int P, int itemsize) {
   return (2 * BQ * gn + size_t(STAGES) * BK * (gn + gp)) * GROUP + 64;
 }
 
-// x = hi + lo: hi is x cut to TF32, lo = x − hi exactly (the mma reads
-// only its TF32 bits).  An EXACT operand (bf16, exact in TF32) has lo 0.
-template <bool EXACT>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    hi = __float_as_uint(x) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  }
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
+// The 3xTF32 split, the m16n8k8 product and ldmatrix (mma_tf32.cuh).
+using tf32::ldsm_x4;
+using tf32::mma;
+using tf32::split;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -6,15 +6,19 @@ Replaces the reference's Pallas TPU kernel ``_attn_kernel`` via
 online-softmax attention, causal / sliding-window / bidirectional, GQA,
 queries right-aligned to the end of the keys, fully masked rows 0.
 
-The source holds two kernels, and :func:`flash_attention_route` names the
-one a call runs, by dtype, head dim, strides and alignment, before the
+The source holds three kernels, and :func:`flash_attention_route` names
+the one a call runs, by dtype, head dim, strides and alignment, before the
 launch:
 
-* ``"wgmma"`` — bf16 with D 64 or 128 and operands TMA can address (the
-  forward's prefill attention): Hopper tensor cores fed by TMA
-  (``csrc/attn_wgmma.cuh``);
-* ``"simt"`` — anything else (f32, other head dims, misaligned strides or
-  addresses): fp32 FMAs on the CUDA cores, no TF32, so f32 stays true fp32.
+* ``"wgmma"`` — bf16 with D 64, 80 or 128 and operands TMA can address
+  (the models' forward attention): Hopper tensor cores fed by TMA
+  (``csrc/attn_wgmma.cuh``; D 80 on the 128-wide tile, zero-filled);
+* ``"tf32x3"`` — f32 with D a multiple of 8 up to 128 and 16-byte-aligned
+  operands (the f32 checks): 3xTF32 ``mma.sync`` on the tensor cores,
+  fp32-accurate (``csrc/attn_tf32x3.cuh``);
+* ``"simt"`` — anything else (bf16 D 32 and other head dims, f32 D not a
+  multiple of 8 or over 128, misaligned or broadcast operands): fp32 FMAs
+  on the CUDA cores, no TF32.
 
 The route is not a fallback: a launch that fails raises, and is never
 retried on the other kernel.  Each kernel's design and bound are described
@@ -36,38 +40,47 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import _TMA_ALIGN, _TMA_ELEMS
+from repro_torch.kernels.gemm import _TMA_ALIGN
 from repro_torch.kernels.ref import attention_ref
 
 __all__ = ["ROUTES", "attention_ref", "flash_attention",
            "flash_attention_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("simt", "wgmma")       # index = the C side's route code
+ROUTES = ("simt", "wgmma", "tf32x3")   # index = the C side's route code
 # The CUDA-core kernel's widest head dim; a block then needs 148 KB of
 # shared memory, within the H100's 227 KB.
 _MAX_D = 256
-# The tensor-core kernel's head dims (a multiple of the 64-column TMA box).
-_WGMMA_D = (64, 128)
+# The bf16 tensor-core kernel's head dims: the 64- and 128-wide tiles, and
+# D 80 on the 128-wide one (TMA zero-fills columns 80-127).  The f32 one
+# takes D a multiple of its 8-deep k step, up to 128.
+_WGMMA_D = (64, 80, 128)
+_TF32X3_MAX_D = 128
 
 
 def flash_attention_route(dtype: torch.dtype, d: int, strides, ptrs) -> str:
     """The kernel that runs attention on these operands.
 
     ``strides`` holds the (batch, head, sequence, head-dim) strides in
-    elements of q, k, v and the output, ``ptrs`` their addresses.  bf16
-    with D 64 or 128, a contiguous head dim, and the 16-byte alignment TMA
-    needs (every base address; every batch, head and sequence stride a
-    positive multiple of 16 bytes, so no broadcast) take ``"wgmma"``;
-    anything else ``"simt"``."""
-    if dtype != torch.bfloat16 or d not in _WGMMA_D:
+    elements of q, k, v and the output, ``ptrs`` their addresses.  Both
+    tensor-core kernels need a contiguous head dim and 16-byte alignment
+    (every base address; every batch, head and sequence stride a positive
+    multiple of 16 bytes, so no broadcast).  Then bf16 with D 64, 80 or
+    128 takes ``"wgmma"``, f32 with D a multiple of 8 up to 128
+    ``"tf32x3"``; anything else ``"simt"``."""
+    if dtype == torch.bfloat16 and d in _WGMMA_D:
+        route = "wgmma"
+    elif dtype == torch.float32 and d % 8 == 0 and d <= _TF32X3_MAX_D:
+        route = "tf32x3"
+    else:
         return "simt"
-    if any(st[3] != 1 or any(x <= 0 or x % _TMA_ELEMS for x in st[:3])
+    elems = _TMA_ALIGN // dtype.itemsize
+    if any(st[3] != 1 or any(x <= 0 or x % elems for x in st[:3])
            for st in strides):
         return "simt"
     if any(p % _TMA_ALIGN for p in ptrs):
         return "simt"
-    return "wgmma"
+    return route
 
 
 @functools.lru_cache(maxsize=None)

@@ -194,12 +194,16 @@ def _route_strides(d, dtype, layout="bhsd", b=2, s=512, hq=32, hkv=4):
     return [t.stride() for t in (q, k, v, out)], [0, 256 * 4096, 512, 1024]
 
 
-# yi-6b's prefill geometry (Hq 32, Hkv 4, S 512) at the tensor-core
-# route's head dims, contiguous and as the model's transposed views, then
-# what stays on the CUDA cores: f32, D 80 (h2o-danube, hubert), D 32 (the
-# reference tests), a sequence stride that is not a multiple of 8
-# elements, an odd base address, a strided head dim and a broadcast
-# (stride 0) batch.
+# yi-6b's prefill geometry (Hq 32, Hkv 4, S 512) at the bf16 tensor-core
+# route's head dims, contiguous and as the model's transposed views, also
+# D 80 (h2o-danube's 32 / 8 heads, hubert's 16 / 16); f32 at head dims
+# that are multiples of 8 up to 128 on the f32 tensor-core route; then
+# what stays on the CUDA cores: D 32 in bf16 (the reference tests), f32
+# at D 36 and 136, a sequence stride that is not a multiple of 16 bytes,
+# an odd base address, a strided head dim and a broadcast (stride 0)
+# batch, in bf16 and f32.
+_D80 = dict(d=80, dtype=torch.bfloat16)
+_F32 = dict(d=128, dtype=torch.float32)
 _ROUTE_CASES = [
     ("bf16-d128", dict(d=128, dtype=torch.bfloat16), None, "wgmma"),
     ("bf16-d64", dict(d=64, dtype=torch.bfloat16), None, "wgmma"),
@@ -209,10 +213,10 @@ _ROUTE_CASES = [
                                 layout="bshd"), None, "wgmma"),
     ("bf16-d128-packed-aligned", dict(d=128, dtype=torch.bfloat16,
                                       layout="packed8"), None, "wgmma"),
-    ("f32-d128", dict(d=128, dtype=torch.float32), None, "simt"),
+    ("f32-d128", _F32, None, "tf32x3"),
     ("f32-d64-bshd-view", dict(d=64, dtype=torch.float32, layout="bshd"),
-     None, "simt"),
-    ("bf16-d80", dict(d=80, dtype=torch.bfloat16), None, "simt"),
+     None, "tf32x3"),
+    ("bf16-d80", _D80, None, "wgmma"),
     ("bf16-d32", dict(d=32, dtype=torch.bfloat16), None, "simt"),
     ("bf16-d128-misaligned-stride", dict(d=128, dtype=torch.bfloat16,
                                          layout="packed4"), None, "simt"),
@@ -222,15 +226,53 @@ _ROUTE_CASES = [
      ("stride", 2, (4096 * 128, 512 * 128, 256, 2)), "simt"),
     ("bf16-d128-broadcast-batch", dict(d=128, dtype=torch.bfloat16),
      ("stride", 0, (0, 512 * 128, 128, 1)), "simt"),
+    ("bf16-d80-danube-bshd-view", dict(_D80, layout="bshd", b=1, s=8192,
+                                       hkv=8), None, "wgmma"),
+    ("bf16-d80-hubert-bshd-view", dict(_D80, layout="bshd", hq=16, hkv=16),
+     None, "wgmma"),
+    ("bf16-d80-packed-aligned", dict(_D80, layout="packed8"), None, "wgmma"),
+    ("bf16-d80-odd-address", _D80, ("ptr", 1, 2), "simt"),
+    ("bf16-d80-misaligned-stride", dict(_D80, layout="packed4"), None,
+     "simt"),
+    ("bf16-d80-broadcast-batch", _D80, ("stride", 0, (0, 512 * 80, 80, 1)),
+     "simt"),
+    ("f32-d128-bshd-view", dict(_F32, layout="bshd"), None, "tf32x3"),
+    ("f32-d128-packed-aligned", dict(_F32, layout="packed4"), None,
+     "tf32x3"),
+    ("f32-d80", dict(_F32, d=80), None, "tf32x3"),
+    ("f32-d16", dict(_F32, d=16), None, "tf32x3"),
+    ("f32-d36", dict(_F32, d=36), None, "simt"),
+    ("f32-d136", dict(_F32, d=136), None, "simt"),
+    ("f32-d128-misaligned-stride", dict(_F32, layout="packed2"), None,
+     "simt"),
+    ("f32-d128-odd-address", _F32, ("ptr", 2, 4), "simt"),
+    ("f32-d80-odd-address", dict(_F32, d=80), ("ptr", 1, 4), "simt"),
+    ("f32-d128-strided-head-dim", _F32,
+     ("stride", 2, (4096 * 128, 512 * 128, 256, 2)), "simt"),
+    ("f32-d128-broadcast-batch", _F32, ("stride", 0, (0, 512 * 128, 128, 1)),
+     "simt"),
+    ("f32-d80-broadcast-batch", dict(_F32, d=80),
+     ("stride", 0, (0, 512 * 80, 80, 1)), "simt"),
+    ("f32-d128-yi6b-bshd-view", dict(_F32, layout="bshd", b=1, s=128),
+     None, "tf32x3"),
+    ("f32-d128-jamba-bshd-view", dict(_F32, layout="bshd", b=1, hq=64,
+                                      hkv=8), None, "tf32x3"),
+    ("f32-d8", dict(_F32, d=8), None, "tf32x3"),
+    ("f32-d120", dict(_F32, d=120), None, "tf32x3"),
+    ("f32-d132", dict(_F32, d=132), None, "simt"),
+    ("f32-d128-packed-odd", dict(_F32, layout="packed1"), None, "simt"),
+    ("f32-d128-zero-seq-stride", _F32, ("stride", 1, (512 * 128, 128, 0, 1)),
+     "simt"),
 ]
 
 
 @pytest.mark.parametrize("kw,edit,route", [c[1:] for c in _ROUTE_CASES],
                          ids=[c[0] for c in _ROUTE_CASES])
 def test_flash_attention_route(kw, edit, route):
-    """bf16 at D 64 / 128 with a contiguous head dim and 16-byte-aligned
-    addresses and strides (the forward's attention, as (B, H, S, D) tensors
-    or the model's transposed views) takes the tensor-core kernel;
+    """bf16 at D 64 / 80 / 128 and f32 at D a multiple of 8 up to 128, with
+    a contiguous head dim and 16-byte-aligned addresses and strides (the
+    models' attention, as (B, H, S, D) tensors or the model's transposed
+    views), take the two tensor-core kernels (``wgmma``, ``tf32x3``);
     everything else the CUDA-core one."""
     strides, ptrs = _route_strides(**kw)
     if edit is not None:

@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch``, not
 ``chip_smoke.py`` and not the tools that run on the card's machine
 (``tools/flash_decode_times.py``, ``tools/ssd_times.py``,
-``tools/paper_fig3_h100.py``) imports JAX or the JAX reference package, and
+``tools/flash_attention_times.py``, ``tools/paper_fig3_h100.py``) imports JAX or the JAX reference package, and
 importing the port's modules loads neither (nor triton, which is imported
 only inside the functions that launch a Triton kernel)."""
 
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _sources():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + [ROOT / "tools" / name for name in (
-            "flash_decode_times.py", "ssd_times.py", "paper_fig3_h100.py")]
+            "flash_decode_times.py", "ssd_times.py",
+            "flash_attention_times.py", "paper_fig3_h100.py")]
 
 
 def _imported_roots(path):

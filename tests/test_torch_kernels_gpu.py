@@ -415,12 +415,15 @@ def test_flash_attention_kernel_strided_and_masked_rows(card):
         assert got[dead].abs().max().item() == 0.0 if dead.any() else True
 
 
-# The tensor-core route (bf16, D 64 / 128): the prefill geometry as
+# The bf16 tensor-core route (D 64 / 80 / 128): the prefill geometry as
 # contiguous tensors and as the model's (B, S, H, D) transposed views, a
 # suffix (Sq < Skv), ragged lengths, a window, bidirectional, GQA 8:1 and
 # 1:1, windows that leave rows no key (0 or less), whose outputs must be
 # exactly 0, and kv loops long enough to wrap the ring of K / V stages
-# (three stages at D 64, two at D 128) more than once.
+# (three stages at D 64, two at D 128) more than once; at D 80 (the
+# 128-wide tile, columns 80-127 zero-filled) causal, window 20, window 0,
+# bidirectional, GQA 8 / 2 and 32 / 4 (h2o-danube's 32 / 8 too), ragged
+# Sq 77 / Skv 130, on views whose neighbouring head holds data.
 WGMMA_ATTN_CASES = [
     dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=128, causal=True),
     dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=64, causal=True),
@@ -436,6 +439,17 @@ WGMMA_ATTN_CASES = [
     dict(b=2, sq=77, skv=130, hq=4, hkv=2, d=64, causal=True, window=0),
     dict(b=1, sq=600, skv=600, hq=4, hkv=2, d=64, causal=True),
     dict(b=1, sq=700, skv=1000, hq=4, hkv=1, d=128, causal=True, window=300,
+         view=True),
+    dict(b=2, sq=256, skv=256, hq=8, hkv=2, d=80, causal=True, view=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=20),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=20,
+         view=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=0,
+         view=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=False, view=True),
+    dict(b=2, sq=130, skv=130, hq=16, hkv=16, d=80, causal=False, view=True),
+    dict(b=1, sq=300, skv=300, hq=32, hkv=4, d=80, causal=True, view=True),
+    dict(b=1, sq=600, skv=600, hq=32, hkv=8, d=80, causal=True, window=256,
          view=True),
 ]
 
@@ -459,37 +473,132 @@ def _attn_id(c):
     return "-".join(f"{k}{v}" for k, v in c.items())
 
 
-@pytest.mark.parametrize("case", WGMMA_ATTN_CASES, ids=_attn_id)
-def test_flash_attention_wgmma_route(card, case):
-    q, k, v = _attn_operands(card, case, torch.bfloat16)
+def _attn_on_route(card, case, dtype, route):
+    """One launch on ``route`` (the route counter moves there and nowhere
+    else), checked against the plain version at the dtype's bar, fully
+    masked rows exactly 0, and a repeat launch equal bit for bit."""
+    q, k, v = _attn_operands(card, case, dtype)
     kw = dict(causal=case["causal"], window=case.get("window"))
     before = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.route_launches == {
-        **before, "wgmma": before["wgmma"] + 1}
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        **before, route: before[route] + 2}
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
     want = attention_ref(q, k, v, **kw)
     dead = want.float().abs().amax(dim=-1) == 0
     if (~dead).any():
-        assert _row_err(got, want) <= TOL["bfloat16"]
+        assert _row_err(got, want) <= TOL[str(dtype).split(".")[1]]
     window = case.get("window")
     assert bool(dead.any()) == (window is not None and window <= 0)
     if dead.any():
         assert got[dead].abs().max().item() == 0.0
 
 
-# The CUDA-core route keeps f32 (true fp32, the 2e-5 bar), the head dims
-# the tensor-core tile lacks (D 32 of the reference tests, D 80 of
-# h2o-danube / hubert) and operands TMA cannot address.
+@pytest.mark.parametrize("case", WGMMA_ATTN_CASES, ids=_attn_id)
+def test_flash_attention_wgmma_route(card, case):
+    _attn_on_route(card, case, torch.bfloat16, "wgmma")
+
+
+# The f32 tensor-core route (3xTF32 mma.sync; D a multiple of 8 up to 128):
+# causal, window 20, window 0 and -5 (rows exactly 0), bidirectional, GQA
+# 8 / 2 and 32 / 4, ragged Sq 77 / Skv 130 and a suffix (Sq < Skv), the
+# yi-6b f32 check's 1 x 128 x 32 / 4 heads, contiguous and as transposed
+# views, jamba's f32 1 x 512 x 64 / 8, at D 128, 80, 64 and 16.
+TF32X3_ATTN_CASES = [
+    dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=128, causal=True),
+    dict(b=1, sq=128, skv=128, hq=32, hkv=4, d=128, causal=True),
+    dict(b=1, sq=128, skv=128, hq=32, hkv=4, d=128, causal=True, view=True),
+    dict(b=1, sq=512, skv=512, hq=64, hkv=8, d=128, causal=True, view=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=128, causal=True, window=20),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=128, causal=True, window=0),
+    dict(b=1, sq=200, skv=200, hq=8, hkv=1, d=128, causal=False, window=-5,
+         view=True),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=128, causal=False, view=True),
+    dict(b=2, sq=16, skv=128, hq=4, hkv=2, d=128, causal=True),
+    dict(b=1, sq=600, skv=600, hq=4, hkv=2, d=128, causal=True, window=300),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=False),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=20,
+         view=True),
+    dict(b=2, sq=130, skv=130, hq=4, hkv=4, d=64, causal=True),
+    dict(b=2, sq=70, skv=70, hq=4, hkv=2, d=16, causal=True, window=3,
+         view=True),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_ATTN_CASES, ids=_attn_id)
+def test_flash_attention_tf32x3_route(card, case):
+    _attn_on_route(card, case, torch.float32, "tf32x3")
+
+
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "wgmma"),
+                                         ("float32", "tf32x3")])
+def test_flash_attention_d80_stores_stop_at_the_head_dim(card, dtype, route):
+    """D 80 runs a 128-wide tile: launched through the C entry into an
+    output whose rows are 128 wide (a sentinel in columns 80-127), the
+    kernel writes columns 0-79 of each row and nothing else."""
+    import repro_torch.kernels.flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    case = dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True,
+                window=20, view=True)
+    q, k, v = _attn_operands(card, case, dt)
+    wide = torch.full((2, 8, 77, 128), 7.0, dtype=dt, device="cuda")
+    out = wide[..., :80]
+    err = fa._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   2, 8, 2, 77, 130, 80, 1, 1, 20, 80 ** -0.5,
+                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   *out.stride()[:3], fa._DTYPE_CODE[dt],
+                   fa.ROUTES.index(route),
+                   torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((wide[..., 80:] == 7.0).all())
+    want = attention_ref(q, k, v, causal=True, window=20)
+    assert _row_err(out, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("edit", ["bf16", "d136", "d36", "odd-address",
+                                  "odd-stride"])
+def test_flash_attention_tf32x3_refuses_what_the_route_refuses(card, edit):
+    """Named through the C entry, the f32 route refuses operands
+    flash_attention_route would not send it (cudaErrorInvalidValue) and
+    writes nothing: there is no fallback inside the kernel either."""
+    import repro_torch.kernels.flash_attention as fa
+
+    d = {"d136": 136, "d36": 36}.get(edit, 128)
+    dt = torch.bfloat16 if edit == "bf16" else torch.float32
+    case = dict(b=1, sq=64, skv=64, hq=4, hkv=2, d=d)
+    q, k, v = _attn_operands(card, case, dt)
+    if edit == "odd-address":
+        flat = torch.randn(k.numel() + 1, generator=card, device="cuda")
+        k = flat[1:].view(k.shape)
+    if edit == "odd-stride":
+        wide = torch.randn(1, 2, 64, d + 1, generator=card, device="cuda")
+        k = wide[..., :d]
+    out = torch.full(q.shape, 7.0, dtype=dt, device="cuda")
+    err = fa._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   1, 4, 2, 64, 64, d, 1, 0, 0, d ** -0.5,
+                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   *out.stride()[:3], fa._DTYPE_CODE[dt],
+                   fa.ROUTES.index("tf32x3"),
+                   torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1                     # cudaErrorInvalidValue
+    assert bool((out == 7.0).all())
+
+
+# The CUDA-core route keeps what neither tensor-core tile takes: bf16 D 32
+# (the reference tests), f32 at a D that is not a multiple of 8 or over
+# 128, and operands the 16-byte copies cannot address (below).
 SIMT_ATTN_CASES = [
-    dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=128, causal=True,
-         dtype="float32"),
     dict(b=2, sq=128, skv=128, hq=8, hkv=2, d=32, causal=True,
          dtype="bfloat16"),
-    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=True, window=20,
-         dtype="bfloat16"),
-    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=80, causal=False,
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=36, causal=True, window=20,
+         dtype="float32"),
+    dict(b=2, sq=77, skv=130, hq=8, hkv=2, d=136, causal=False,
          dtype="float32"),
 ]
 
@@ -507,20 +616,40 @@ def test_flash_attention_simt_route(card, case):
     assert _row_err(got, attention_ref(q, k, v, **kw)) <= TOL[dtype]
 
 
-def test_flash_attention_misaligned_operand_takes_simt(card):
-    """A k whose base address is off by one element (2 bytes) cannot be a
-    TMA operand: the bf16 D 128 call runs on the CUDA cores instead."""
-    case = dict(b=1, sq=64, skv=64, hq=4, hkv=2, d=128)
-    q, k, v = _attn_operands(card, case, torch.bfloat16)
-    flat = torch.randn(k.numel() + 1, generator=card, device="cuda").to(
-        torch.bfloat16)
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("bfloat16", 80),
+                                     ("float32", 128), ("float32", 80)])
+def test_flash_attention_misaligned_operand_takes_simt(card, dtype, d):
+    """A k whose base address is off by one element cannot be a TMA or a
+    16-byte cp.async operand: the call runs on the CUDA cores instead."""
+    dt = getattr(torch, dtype)
+    case = dict(b=1, sq=64, skv=64, hq=4, hkv=2, d=d)
+    q, k, v = _attn_operands(card, case, dt)
+    flat = torch.randn(k.numel() + 1, generator=card, device="cuda").to(dt)
     k_odd = flat[1:].view(k.shape)
     before = dict(flash_attention.route_launches)
     got = flash_attention(q, k_odd, v)
     torch.cuda.synchronize()
     assert flash_attention.route_launches == {
         **before, "simt": before["simt"] + 1}
-    assert _row_err(got, attention_ref(q, k_odd, v)) <= TOL["bfloat16"]
+    assert _row_err(got, attention_ref(q, k_odd, v)) <= TOL[dtype]
+
+
+def test_flash_attention_broadcast_batch_takes_simt(card):
+    """A k / v broadcast over the batch (stride 0) runs on the CUDA cores,
+    in bf16 and f32."""
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(2, 8, 77, 80, generator=card, device="cuda").to(dt)
+        k = torch.randn(1, 2, 130, 80, generator=card,
+                        device="cuda").to(dt).expand(2, -1, -1, -1)
+        v = torch.randn(1, 2, 130, 80, generator=card,
+                        device="cuda").to(dt).expand(2, -1, -1, -1)
+        before = dict(flash_attention.route_launches)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.route_launches == {
+            **before, "simt": before["simt"] + 1}
+        assert _row_err(got, attention_ref(q, k, v)) <= \
+            TOL[str(dt).split(".")[1]]
 
 
 # A column slice x[:, :k] of a wider matrix (row stride > k) as A and as B,
