@@ -86,6 +86,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               must validate, every ticket of the run (kept by the flight
               recorder) must have its span; written gzipped to
               ``DIR/serve_cluster_trace.json.gz``;
+5c. races   — every device's whole ticket stream of run (a) (kept by the
+              flight recorder) through ``analysis.races``'s happens-before
+              rules, and ``check_cluster`` on that run's engine (its
+              in-flight window, empty after ``serve_cluster``'s closing
+              sync): no violation (the second part runs in 10e);
 6. float32  — first-step decode logits and last-position forward logits of
               the same model with f32 weights, kernels against plain (the
               forward's GEMMs and attention on ``tf32x3``, the decode
@@ -94,6 +99,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 7. hnp      — the paper's path: the reference quickstart's graph, then one
               wave of two same-shape GEMMs at yi-6b width stacked into one
               batched-GEMM launch;
+7b. hnp-validated — phase 7 again under ``offload_region(validate=True)``
+              (the graph verifier before every dispatch): values bit for
+              bit, launches and routes equal to phase 7's; a seeded bad
+              ``dispatch_placed("gemm", ..., validate=True)`` (inner
+              dimensions that disagree, a dead handle) raises
+              ``GraphVerificationError`` with no launch; host ms validated
+              against plain, median of 3;
+7c. stream  — the streaming engine (``launch/streaming.py``, modeled: no
+              kernel runs) at yi-6b's config on the default ``h100-sxm``
+              platform row, 4 devices, 1 prefill lane, 8 slots, a bursty
+              trace at 2 x ``estimate_capacity`` for 1 s: two
+              ``serve_stream`` runs with equal events and reports, one
+              ``serve_lockstep``, slot refills and ticket streams
+              race-free; qwen3-moe with expert placement fed by the decode
+              traffic (decisions made, streams race-free);
 7a. paper-fig3 — the paper's Fig. 3 on the card
               (``tools/paper_fig3_h100.py``): host numpy against
               ``blas.gemm`` offloaded, n 16 to 128, f64 / f32 / bf16, copy /
@@ -139,7 +159,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               ``ExpertPlacementPolicy`` over 4 modeled lanes fed a Zipf(1.2)
               histogram stream: ``moe_ffn_placed`` must equal
               ``moe_ffn(moe_dispatch="grouped")`` bit for bit on the
-              kernels (run before 10d, on 10a's weights);
+              kernels (run before 10d, on 10a's weights); the races
+              phase's second part: the policy's migration edges and the
+              lanes' in-flight windows through ``analysis.races``;
 10d. moe-float32 — 2 layers at published widths in f32 (the depth cut):
               first decode step and last-position logits of a 1 x 128
               forward, kernels against plain, 1e-4 x max |logit|, and the
@@ -274,6 +296,13 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_PARAMS = 30_531_911_680
 MOE_F32_LAYERS = 2
 MOE_PLACED_LANES, MOE_PLACED_ZIPF, MOE_PLACED_STEPS = 4, 1.2, 16
+# Streaming engine (phase 7c, modeled): yi-6b's config over 4 modeled
+# devices (1 prefill lane, 8 decode slots a lane), a bursty trace at 2 x
+# the cost model's capacity estimate for 1 s; then qwen3-moe with expert
+# placement on a bursty 100 qps, 0.5 s trace.
+STREAM_DEVICES, STREAM_PREFILL_LANES, STREAM_SLOTS = 4, 1, 8
+STREAM_LOAD, STREAM_DURATION_S = 2.0, 1.0
+STREAM_MOE_QPS, STREAM_MOE_DURATION_S = 100.0, 0.5
 
 # The rest of the zoo (phases 12a-12h), weights built on the card from a
 # seeded generator after the previous model's are freed.  jamba at its
@@ -757,12 +786,18 @@ def main() -> None:
         cfg, tokens, prompts, zero_counts, read_counts)
 
     # ---- 7. hnp: the paper's path ---------------------------------------
-    hnp_phase = run_hnp(cfg, randn, zero_counts, read_counts)
+    hnp_phase, hnp_plain = run_hnp(cfg, randn, zero_counts, read_counts)
     launches["hnp"] = hnp_phase["launches"]
     routes["hnp-wave"] = hnp_phase["wave"]["routes"]
     max_abs["gemm_batched"] = max(max_abs["gemm_batched"],
                                   hnp_phase["wave"]["max_abs_err_vs_plain"])
     emit({"phase": "hnp", **hnp_phase})
+    # ---- 7b. the same path under validate=True ---------------------------
+    launches["hnp-validated"], routes["hnp-validated-wave"] = \
+        run_hnp_validated(hnp_plain, zero_counts, read_counts)
+    del hnp_plain
+    # ---- 7c. the streaming engine (modeled) -------------------------------
+    run_stream()
     fig3 = run_paper_fig3(zero_counts, read_counts)
     launches["paper-fig3"] = fig3["launches"]
     routes["paper-fig3"] = fig3["routes"]
@@ -1829,20 +1864,22 @@ def run_f32(cfg, tokens, prompts, zero_counts, read_counts):
     return out["routes"], long32["routes"]
 
 
-def run_hnp(cfg, randn, zero_counts, read_counts):
-    """Phase 7: the paper's path on the card — examples/quickstart.py's
-    graph under mode="device", 2 modeled devices, cost-aware; then one wave
-    of two same-shape GEMMs at yi-6b width, stacked into one launch."""
+HNP_POLICY = dict(mode="device", num_devices=2, scheduler="cost-aware",
+                  use_kernels=True, platform="h100-sxm")
+
+
+def hnp_quickstart(zero_counts, read_counts, validate=False):
+    """examples/quickstart.py's graph under mode="device", 2 modeled
+    devices, cost-aware, in an ``offload_region(validate=validate)``.
+    Returns (facts, values, launches, routes); ``facts["run_s"]`` is the
+    host time of the region, from the leaves to the last value on the
+    host."""
     import numpy as np
-    import torch
 
     import repro_torch.hnp as hnp
     from repro_torch.core.accounting import offload_trace
     from repro_torch.core.hero import engine, offload_policy
-    from repro_torch.kernels.ref import gemm_batched_ref
 
-    policy = dict(mode="device", num_devices=2, scheduler="cost-aware",
-                  use_kernels=True, platform="h100-sxm")
     rng = np.random.default_rng(0)
     x = rng.normal(size=(512, 256)).astype(np.float32)
     w1 = rng.normal(size=(256, 512)).astype(np.float32)
@@ -1850,14 +1887,16 @@ def run_hnp(cfg, randn, zero_counts, read_counts):
     w2 = rng.normal(size=(512, 128)).astype(np.float32)
     engine().reset()
     zero_counts()
-    with offload_policy(**policy), offload_trace() as t:
-        with hnp.offload_region("quickstart") as region:
+    t0 = time.perf_counter()
+    with offload_policy(**HNP_POLICY), offload_trace() as t:
+        with hnp.offload_region("quickstart", validate=validate) as region:
             h = hnp.tanh(hnp.linear(hnp.array(x), w1, b1))
             y = h @ w2
             sim = hnp.syrk(y)
             y_np = hnp.asnumpy(y)
             sim_np = hnp.asnumpy(sim)
-    quick_counts = read_counts()
+    run_s = time.perf_counter() - t0
+    counts, routes = read_counts(), read_routes()
     if y.node.value.device.type != "cuda":
         fail("hnp leaves did not land on the card")
     ref = (np.tanh(x.astype(np.float64) @ w1 + b1) @ w2)
@@ -1866,41 +1905,54 @@ def run_hnp(cfg, randn, zero_counts, read_counts):
                     / np.abs(ref @ ref.T).max())
     if not (y_err <= TOL["float32"] and sim_err <= TOL["float32"]):
         fail(f"hnp quickstart values off: y {y_err}, syrk {sim_err}")
-    if quick_counts["gemm"] != 2:
-        fail(f"hnp quickstart launches {quick_counts}")
-    quick = {
+    if counts["gemm"] != 2:
+        fail(f"hnp quickstart launches {counts}")
+    facts = {
         "summary": region.report.summary(),
         "launches_by_node": [
             {"op": r.op, "backend": r.backend, "device_id": r.device_id,
              "resident_fraction": r.resident_fraction,
              "readback_bytes": r.readback_bytes, "fused": list(r.fused)}
             for r in region.report.launches],
-        "records": [r.op for r in t.records], "kernel_launches": quick_counts,
+        "records": [r.op for r in t.records], "kernel_launches": counts,
         "max_rel_err_vs_float64": {"y": y_err, "syrk": sim_err},
+        "run_s": run_s,
     }
+    return facts, (y_np, sim_np), counts, routes
 
-    # One wave of two independent same-shape GEMMs at yi-6b width.
-    d, n = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
-    bf16 = torch.bfloat16
-    xa, wk, wv = randn(HNP_ROWS, d, dtype=bf16), randn(d, n, dtype=bf16), \
-        randn(d, n, dtype=bf16)
+
+def hnp_wave(operands, zero_counts, read_counts, validate=False):
+    """One wave of two independent same-shape GEMMs (``operands``: x, wk,
+    wv at yi-6b width), stacked into one batched-GEMM launch, in an
+    ``offload_region(validate=validate)``.  Returns (facts, value,
+    launches, routes); ``facts["run_s"]`` is the host time of the region
+    up to the card's synchronize."""
+    import numpy as np
+    import torch
+
+    import repro_torch.hnp as hnp
+    from repro_torch.core.accounting import offload_trace
+    from repro_torch.core.hero import engine, offload_policy
+    from repro_torch.kernels.ref import gemm_batched_ref
+
+    xa, wk, wv = operands
     engine().reset()
     zero_counts()
-    with offload_policy(**policy), offload_trace() as t:
-        with hnp.offload_region("yi-kv-wave") as region:
+    t0 = time.perf_counter()
+    with offload_policy(**HNP_POLICY), offload_trace() as t:
+        with hnp.offload_region("yi-kv-wave", validate=validate) as region:
             a = hnp.array(xa)
             yk, yv = a @ wk, a @ wv
             hnp.block_all(yk, yv)
             torch.cuda.synchronize()
             got = torch.stack([yk.node.value, yv.node.value])
-    wave_counts = read_counts()
-    wave_routes = read_routes()
-    require_route("hnp wave", wave_routes, "wgmma")
+    run_s = time.perf_counter() - t0
+    counts, routes = read_counts(), read_routes()
+    require_route("hnp wave", routes, "wgmma")
     ops = [r.op for r in t.records if r.op != "d2d_copy"]
-    if ops != ["gemm_batched"] or wave_counts["gemm_batched"] != 1 or \
-            wave_counts["gemm"] != 0:
-        fail(f"hnp wave did not take one batched launch: {ops} "
-             f"{wave_counts}")
+    if ops != ["gemm_batched"] or counts["gemm_batched"] != 1 or \
+            counts["gemm"] != 0:
+        fail(f"hnp wave did not take one batched launch: {ops} {counts}")
     if not all(r.batched for r in region.report.launches):
         fail("hnp wave report is not batched")
     xf = xa.float().cpu().numpy().astype(np.float64)
@@ -1913,28 +1965,245 @@ def run_hnp(cfg, randn, zero_counts, read_counts):
     if not (err64 <= TOL["bfloat16"] and err_plain <= TOL["bfloat16"]):
         fail(f"hnp wave values off: vs float64 {err64}, vs plain "
              f"{err_plain}")
-    wave = {
+    facts = {
         "summary": region.report.summary(), "records": ops,
-        "shape": [2, HNP_ROWS, d, n], "dtype": "bfloat16",
-        "kernel_launches": wave_counts, "routes": wave_routes,
-        "gemm_batched_launched": wave_counts["gemm_batched"] == 1,
+        "shape": [2, *xa.shape, wk.shape[1]], "dtype": "bfloat16",
+        "kernel_launches": counts, "routes": routes,
+        "gemm_batched_launched": counts["gemm_batched"] == 1,
         "max_rel_err_vs_float64": err64, "max_rel_err_vs_plain": err_plain,
-        "max_abs_err_vs_plain": abs_plain,
+        "max_abs_err_vs_plain": abs_plain, "run_s": run_s,
     }
+    return facts, got, counts, routes
+
+
+def run_hnp(cfg, randn, zero_counts, read_counts):
+    """Phase 7: the paper's path on the card — examples/quickstart.py's
+    graph, then one wave of two same-shape GEMMs at yi-6b width, stacked
+    into one launch.  Returns the phase's facts and, for phase 7b, the
+    wave's operands and both values."""
+    import torch
+
+    quick, quick_values, quick_counts, quick_routes = hnp_quickstart(
+        zero_counts, read_counts)
+    d, n = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
+    bf16 = torch.bfloat16
+    operands = (randn(HNP_ROWS, d, dtype=bf16), randn(d, n, dtype=bf16),
+                randn(d, n, dtype=bf16))
+    wave, wave_value, wave_counts, wave_routes = hnp_wave(
+        operands, zero_counts, read_counts)
+    plain = {"operands": operands, "quickstart": quick_values,
+             "wave": wave_value,
+             "launches": (quick_counts, wave_counts),
+             "routes": (quick_routes, wave_routes)}
     return {"quickstart": quick, "wave": wave, "launches": {
-        k: quick_counts[k] + wave_counts[k] for k in quick_counts}}
+        k: quick_counts[k] + wave_counts[k] for k in quick_counts}}, plain
+
+
+def run_hnp_validated(plain, zero_counts, read_counts):
+    """Phase 7b: phase 7 again under ``offload_region(validate=True)``
+    (``repro_torch.analysis.graph`` checks every forced graph before it
+    dispatches): values bit for bit, launch counts and routes equal to the
+    unvalidated run's; a seeded bad call (``dispatch_placed("gemm", ...,
+    validate=True)`` on operands whose inner dimensions disagree, and on a
+    dead handle) must raise ``GraphVerificationError`` before any launch;
+    host ms of the validated and the plain run, median of 3 in turns."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.graph import GraphVerificationError
+    from repro_torch.core.dispatch import dispatch_placed
+    from repro_torch.core.hero import offload_policy
+
+    def both(validate):
+        quick, qv, qc, qr = hnp_quickstart(zero_counts, read_counts,
+                                           validate=validate)
+        wave, wv, wc, wr = hnp_wave(plain["operands"], zero_counts,
+                                    read_counts, validate=validate)
+        return quick, wave, qv, wv, (qc, wc), (qr, wr)
+
+    quick, wave, qv, wv, counts, routes = both(True)
+    if not all(np.array_equal(g, w) for g, w in
+               zip(qv, plain["quickstart"], strict=True)):
+        fail("hnp-validated: quickstart values differ from the "
+             "unvalidated run's")
+    if not torch.equal(wv, plain["wave"]):
+        fail("hnp-validated: wave values differ from the unvalidated run's")
+    if counts != plain["launches"] or routes != plain["routes"]:
+        fail(f"hnp-validated: launches {counts} / routes {routes}, "
+             f"unvalidated {plain['launches']} / {plain['routes']}")
+    launches = {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+    xa, wk, _ = plain["operands"]
+    seeded = {}
+    with offload_policy(**HNP_POLICY) as cluster:
+        dead = cluster.pin_handle("dead", float(xa.nbytes), device_id=0)
+        cluster.unstage_handle(dead)
+        for label, args, kw in (
+                ("inner-dims-disagree", (xa, wk[:-1]), {}),
+                ("dead-handle", (xa, wk), {"handle": dead})):
+            zero_counts()
+            raised = None
+            try:
+                dispatch_placed("gemm", *args, validate=True, **kw)
+            except GraphVerificationError as e:
+                raised = e
+            torch.cuda.synchronize()
+            if raised is None:
+                fail(f"hnp-validated: seeded bad call ({label}) did not "
+                     "raise GraphVerificationError")
+            if any(read_counts().values()):
+                fail(f"hnp-validated: seeded bad call ({label}) launched "
+                     f"{read_counts()}")
+            seeded[label] = [v.rule for v in raised.violations]
+    if seeded != {"inner-dims-disagree": ["graph/shape-mismatch"],
+                  "dead-handle": ["graph/use-after-unstage"]}:
+        fail(f"hnp-validated: seeded bad calls named {seeded}")
+
+    plain_s, validated_s = [], []
+    for _ in range(3):
+        q, w, *_ = both(False)
+        plain_s.append(q["run_s"] + w["run_s"])
+        q, w, *_ = both(True)
+        validated_s.append(q["run_s"] + w["run_s"])
+    out = {"values_bit_equal_unvalidated": True,
+           "launches": launches, "quickstart_launches": counts[0],
+           "wave_launches": counts[1], "wave_routes": routes[1],
+           "quickstart_summary": quick["summary"],
+           "wave_summary": wave["summary"],
+           "seeded_bad_calls": seeded,
+           "host_ms": {"validated_median_of_3":
+                       statistics.median(validated_s) * 1e3,
+                       "plain_median_of_3": statistics.median(plain_s) * 1e3,
+                       "validated": [s * 1e3 for s in validated_s],
+                       "plain": [s * 1e3 for s in plain_s]},
+           "card": _card_name_and_power_limit()}
+    emit({"phase": "hnp-validated", **out})
+    return launches, routes[1]
+
+
+def run_stream():
+    """Phase 7c: the streaming engine at yi-6b's published config (full
+    width in the cost model) on the port's default platform: STREAM_DEVICES
+    modeled devices, STREAM_PREFILL_LANES prefill lane, STREAM_SLOTS slots,
+    a bursty trace at STREAM_LOAD x ``estimate_capacity`` for
+    STREAM_DURATION_S, seed SEED.  ``serve_stream`` twice (equal events and
+    ``point_dict()``), ``serve_lockstep`` once; the slot refills and every
+    device's ticket stream race-free.  Then qwen3-moe with expert placement
+    fed by the decode traffic: its decisions non-empty, its streams
+    race-free.  Every figure is modeled but the host seconds."""
+    from repro_torch.analysis import format_violations
+    from repro_torch.analysis.races import (check_slot_refills,
+                                            check_ticket_streams)
+    from repro_torch.core.placement import PlacementConfig
+    from repro_torch.launch.streaming import (StreamConfig, bursty_trace,
+                                              estimate_capacity,
+                                              serve_lockstep, serve_stream)
+
+    cfg = StreamConfig(num_devices=STREAM_DEVICES,
+                       prefill_lanes=STREAM_PREFILL_LANES,
+                       decode_slots=STREAM_SLOTS)
+    capacity = estimate_capacity(ARCH, cfg)
+    trace = bursty_trace(STREAM_LOAD * capacity, STREAM_DURATION_S,
+                         seed=SEED)
+    t0 = time.perf_counter()
+    cont = serve_stream(ARCH, trace, config=cfg)
+    host_s = time.perf_counter() - t0
+    again = serve_stream(ARCH, trace, config=cfg)
+    if cont.events != again.events or \
+            cont.point_dict() != again.point_dict():
+        fail("stream: two serve_stream runs of one trace differ")
+    t0 = time.perf_counter()
+    lock = serve_lockstep(ARCH, trace, config=cfg)
+    lock_host_s = time.perf_counter() - t0
+    violations = (check_slot_refills(cont.slot_refills)
+                  + check_ticket_streams(cont.ticket_log)
+                  + check_ticket_streams(lock.ticket_log))
+    if violations:
+        fail(f"stream: {format_violations(violations)}")
+
+    moe_cfg = StreamConfig(expert_placement=PlacementConfig())
+    moe = serve_stream(MOE_ARCH, bursty_trace(STREAM_MOE_QPS,
+                                              STREAM_MOE_DURATION_S,
+                                              seed=SEED), config=moe_cfg)
+    if not moe.placement_decisions:
+        fail("stream: qwen3-moe decode traffic made no placement decision")
+    violations = (check_ticket_streams(moe.ticket_log)
+                  + check_slot_refills(moe.slot_refills))
+    if violations:
+        fail(f"stream (qwen3-moe): {format_violations(violations)}")
+
+    def tails(rep):
+        o = rep.slo.overall
+        return {"sustained_qps": rep.sustained_qps,
+                "ttft_p99_ms": o.ttft.p99_s * 1e3,
+                "per_token_p99_ms": o.per_token.p99_s * 1e3,
+                "reject_rate": rep.reject_rate,
+                "meets_slo": rep.slo.meets_slo}
+
+    emit({"phase": "stream", "arch": ARCH, "platform": cfg.platform.name,
+          "devices": STREAM_DEVICES, "prefill_lanes": STREAM_PREFILL_LANES,
+          "decode_slots": STREAM_SLOTS, "seed": SEED,
+          "requests": len(trace.requests), "events": len(cont.events),
+          "events_equal_across_runs": True,
+          "slot_refills": len(cont.slot_refills), "race_violations": 0,
+          "host_s": {"serve_stream": host_s, "serve_lockstep": lock_host_s},
+          "modeled": {
+              "estimated_capacity_qps": capacity,
+              "offered_qps": trace.offered_qps,
+              "continuous": tails(cont), "lockstep": tails(lock),
+              "continuous_over_lockstep":
+                  cont.sustained_qps / lock.sustained_qps},
+          "moe": {"arch": MOE_ARCH, "offered_qps": STREAM_MOE_QPS,
+                  "duration_s": STREAM_MOE_DURATION_S,
+                  "placement_decisions": len(moe.placement_decisions),
+                  "slot_refills": len(moe.slot_refills),
+                  "race_violations": 0,
+                  "modeled": tails(moe)}})
+
+
+def record_tickets(run):
+    """Run ``run()`` with a flight recorder that keeps every ticket;
+    returns (its result, every device's ticket stream in issue order).
+    Fails if the recorder kept fewer tickets than the run issued."""
+    import types
+
+    from repro_torch.obs import flight, metrics
+
+    def tickets_issued():
+        return sum(v for k, v in metrics.snapshot().items()
+                   if k.startswith("stream.tickets{"))
+
+    flight.configure(1 << 22)
+    issued = tickets_issued()
+    try:
+        result = run()
+        recorded = flight.capture()["tickets"]
+    finally:
+        flight.configure(flight.DEFAULT_CAPACITY)
+    issued = tickets_issued() - issued
+    streams = {int(d): [types.SimpleNamespace(**t) for t in ts]
+               for d, ts in recorded.items()}
+    n_tickets = sum(len(v) for v in streams.values())
+    if n_tickets != issued:
+        fail(f"the flight recorder kept {n_tickets} of {issued} tickets")
+    return result, streams
 
 
 def run_serve_cluster(cfg, params, prompts, tokens0, zero_counts,
                       read_counts):
-    """Phases 5a and 5b: ``serve_cluster`` on the serve phase's weights,
-    CLUSTER_BATCHES batches (the first the serve phase's prompts) over
-    CLUSTER_DEVICES modeled devices, run (a) cost-aware with pinned caches
-    (counted) and run (b) round-robin with caches drained to host
-    (profiled); then run (a) again traced (``run_trace_export``)."""
+    """Phases 5a, 5b and 5c: ``serve_cluster`` on the serve phase's
+    weights, CLUSTER_BATCHES batches (the first the serve phase's prompts)
+    over CLUSTER_DEVICES modeled devices, run (a) cost-aware with pinned
+    caches (counted; every ticket kept for the race check) and run (b)
+    round-robin with caches drained to host (profiled); then run (a) again
+    traced (``run_trace_export``); then the races phase over run (a)."""
     import numpy as np
     import torch
 
+    from repro_torch.analysis import format_violations
+    from repro_torch.analysis.races import check_cluster, check_ticket_streams
     from repro_torch.core.accounting import offload_trace
     from repro_torch.core.hero import offload_policy
     from repro_torch.launch.serve import serve_batch, serve_cluster
@@ -1950,12 +2219,18 @@ def run_serve_cluster(cfg, params, prompts, tokens0, zero_counts,
     with offload_policy(**KERNEL_POLICY), torch.no_grad():
         want += [serve_batch(cfg.name, b, **kw).tokens for b in batches[1:]]
 
+    window = {}
+
     def cluster_run(scheduler, pin, label):
         pol = dict(KERNEL_POLICY, num_devices=CLUSTER_DEVICES,
                    scheduler=scheduler)
         t0 = time.perf_counter()
-        with offload_policy(**pol), offload_trace() as trace:
+        with offload_policy(**pol) as eng, offload_trace() as trace:
             res = serve_cluster(cfg.name, batches, pin_caches=pin, **kw)
+            # the engine's own in-flight window, read before the scope
+            # restores the outer devices
+            window[label] = (check_cluster(eng),
+                             sum(len(d.inflight) for d in eng.devices))
         wall = time.perf_counter() - t0
         for i, (r, w) in enumerate(zip(res.results, want, strict=True)):
             if not np.array_equal(r.tokens, w):
@@ -1978,7 +2253,8 @@ def run_serve_cluster(cfg, params, prompts, tokens0, zero_counts,
                             "restage_s": res.restage_s}}
 
     zero_counts()
-    res_a, wall_a, trace_a = cluster_run("cost-aware", True, "(a)")
+    (res_a, wall_a, trace_a), streams_a = record_tickets(
+        lambda: cluster_run("cost-aware", True, "(a)"))
     launches, routes = read_counts(), read_routes()
     per_step, ops = expected(cfg, "serve", "eager")
     steps = PROMPT_LEN + MAX_NEW
@@ -2031,6 +2307,18 @@ def run_serve_cluster(cfg, params, prompts, tokens0, zero_counts,
           "b_round_robin_unpinned": {**summary(res_b, out_b["wall"]),
                                      "profiled": profile_b}})
     run_trace_export(cfg, batches, want, kw)
+
+    # ---- 5c. races over run (a) -----------------------------------------
+    full = check_ticket_streams(streams_a)
+    in_window, window_tickets = window["(a)"]
+    if full or in_window:
+        fail(f"races (serve-cluster): {format_violations(full + in_window)}")
+    emit({"phase": "races", "path": "serve-cluster (a)",
+          "tickets": sum(len(v) for v in streams_a.values()),
+          "tickets_by_device": {d: len(v) for d, v in streams_a.items()},
+          "kinds": sorted({t.kind for v in streams_a.values() for t in v}),
+          "violations": 0, "inflight_window_tickets": window_tickets,
+          "inflight_window_violations": 0})
     return {"launches": launches, "routes": routes}
 
 
@@ -2039,38 +2327,27 @@ def run_trace_export(cfg, batches, want, kw):
     with a flight recorder that keeps every ticket; the Chrome trace must
     validate and every ticket must have its span (``ticket_spans`` of the
     recorded tickets against the tracer's ticket spans)."""
-    import types
-
     import numpy as np
 
     from repro_torch.core.hero import offload_policy
     from repro_torch.launch.serve import serve_cluster
-    from repro_torch.obs import flight, metrics, spans, trace_export
-
-    def tickets_issued():
-        return sum(v for k, v in metrics.snapshot().items()
-                   if k.startswith("stream.tickets{"))
+    from repro_torch.obs import spans, trace_export
 
     pol = dict(KERNEL_POLICY, num_devices=CLUSTER_DEVICES,
                scheduler="cost-aware")
-    flight.configure(1 << 22)
-    issued = tickets_issued()
+
+    def run():
+        with offload_policy(**pol), spans.span_trace("serve-cluster") as tr:
+            res = serve_cluster(cfg.name, batches, pin_caches=True, **kw)
+        return res, tr
+
     t0 = time.perf_counter()
-    with offload_policy(**pol), spans.span_trace("serve-cluster") as tr:
-        res = serve_cluster(cfg.name, batches, pin_caches=True, **kw)
+    (res, tr), streams = record_tickets(run)
     wall = time.perf_counter() - t0
-    issued = tickets_issued() - issued
-    recorded = flight.capture()["tickets"]
-    flight.configure(flight.DEFAULT_CAPACITY)
     for i, (r, w) in enumerate(zip(res.results, want, strict=True)):
         if not np.array_equal(r.tokens, w):
             fail(f"trace-export: batch {i} greedy tokens differ")
-    streams = {int(d): [types.SimpleNamespace(**t) for t in ts]
-               for d, ts in recorded.items()}
     n_tickets = sum(len(v) for v in streams.values())
-    if n_tickets != issued:
-        fail(f"trace-export: the flight recorder kept {n_tickets} of "
-             f"{issued} tickets")
     t_spans = trace_export.ticket_spans(streams)
 
     def key(attrs, dev):
@@ -2420,6 +2697,9 @@ def run_moe_placed(cfg, layer, zero_counts, read_counts):
 
     import torch
 
+    from repro_torch.analysis import format_violations
+    from repro_torch.analysis.races import (check_cluster,
+                                            check_expert_migrations)
     from repro_torch.core.accounting import offload_trace
     from repro_torch.core.hero import offload_policy
     from repro_torch.core.placement import (ExpertPlacementPolicy,
@@ -2452,6 +2732,18 @@ def run_moe_placed(cfg, layer, zero_counts, read_counts):
                         if r.note.startswith("expert-placed")})
         backends = sorted({r.backend for r in trace.records
                            if r.op == "moe_expert_ffn"})
+        # the races phase's second part: the policy's migrations and the
+        # lanes' in-flight windows, read inside the cluster's scope
+        races = (check_expert_migrations(pol.migration_edges)
+                 + check_cluster(cluster))
+        window_tickets = sum(len(d.inflight) for d in cluster.devices)
+    if races:
+        fail(f"races (moe-placed): {format_violations(races)}")
+    if not pol.migration_edges:
+        fail("races (moe-placed): the placement made no migration to check")
+    emit({"phase": "races", "path": "moe-placed",
+          "migration_edges": len(pol.migration_edges),
+          "inflight_window_tickets": window_tickets, "violations": 0})
     if not (torch.equal(got, want) and torch.equal(aux, want_aux)):
         fail("moe_ffn_placed differs from the grouped moe_ffn on the card")
     if counts["gemm_batched"] != 3 or routes["gemm_batched"]["wgmma"] != 3:
@@ -3461,6 +3753,7 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "moe_serve_library_ms": moe_step["library_ms"],
          "moe_serve_bound_ms": moe_step["bound_ms"],
          "moe_forward_launches": launches["moe-forward"]["gemm"],
+         "hnp_validated_launches": launches["hnp-validated"]["gemm"],
          "route_launches": {path: r["gemm"] for path, r in routes.items()}},
         {"name": "gemm_tf32x3", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -3526,6 +3819,7 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "moe_max_abs_err": max_abs["gemm_batched:moe"],
          "moe_decode_step": per_moe["decode"],
          "moe_forward": per_moe["forward"],
+         "hnp_validated_launches": launches["hnp-validated"]["gemm_batched"],
          "route_launches": {path: r["gemm_batched"]
                             for path, r in routes.items()}},
         {"name": "flash_attention", "route": "cuda",

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from repro_torch.core.cost_model import OpCost, RegionBreakdown
 
@@ -25,14 +25,20 @@ __all__ = [
     "DeviceAggregate",
     "DeviceTimeline",
     "GraphAggregate",
+    "LatencyStats",
     "OffloadRecord",
     "OffloadTrace",
+    "RequestMetrics",
+    "SLOReport",
+    "SLOStats",
     "offload_trace",
     "current_trace",
     "scaled",
     "current_scale",
     "graph_region",
     "current_graph",
+    "percentile",
+    "slo_report",
 ]
 
 
@@ -400,3 +406,194 @@ def record(rec: OffloadRecord) -> None:
                 rec, count=current_scale(), graph=rec.graph or current_graph()
             )
         )
+
+
+# ---------------------------------------------------------------------------
+# Per-request SLO accounting (the streaming serve engine's ledger).
+#
+# ``serve_cluster`` reports one makespan; production serving is judged per
+# *request*: time to first token (TTFT), per-token decode latency, and their
+# tail percentiles per request class.  These records are modeled seconds off
+# the LaunchTicket event clocks — never wall clock — so two runs with the
+# same seed produce byte-identical reports.
+# ---------------------------------------------------------------------------
+
+def percentile(values: Sequence[float], q: float) -> float:
+    """Deterministic linear-interpolation percentile (``q`` in [0, 100]).
+
+    Stdlib-only twin of ``numpy.percentile(..., method="linear")`` so the
+    accounting layer stays import-light and the SLO math has no backend
+    drift.  Empty input returns 0.0 (an empty class shows empty stats, not
+    a crash)."""
+    vals = sorted(float(v) for v in values)
+    if not vals:
+        return 0.0
+    if len(vals) == 1:
+        return vals[0]
+    q = min(max(float(q), 0.0), 100.0)
+    pos = (len(vals) - 1) * (q / 100.0)
+    lo = int(pos)
+    hi = min(lo + 1, len(vals) - 1)
+    frac = pos - lo
+    return vals[lo] * (1.0 - frac) + vals[hi] * frac
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencyStats:
+    """p50/p95/p99 + mean over one latency population (modeled seconds)."""
+
+    n: int
+    mean_s: float
+    p50_s: float
+    p95_s: float
+    p99_s: float
+    max_s: float
+
+    @classmethod
+    def from_values(cls, values: Sequence[float]) -> "LatencyStats":
+        vals = [float(v) for v in values]
+        if not vals:
+            return cls(0, 0.0, 0.0, 0.0, 0.0, 0.0)
+        return cls(
+            n=len(vals),
+            mean_s=sum(vals) / len(vals),
+            p50_s=percentile(vals, 50),
+            p95_s=percentile(vals, 95),
+            p99_s=percentile(vals, 99),
+            max_s=max(vals),
+        )
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "n": self.n, "mean_s": self.mean_s, "p50_s": self.p50_s,
+            "p95_s": self.p95_s, "p99_s": self.p99_s, "max_s": self.max_s,
+        }
+
+
+@dataclasses.dataclass
+class RequestMetrics:
+    """One served (or rejected) request's modeled lifecycle timestamps."""
+
+    rid: int
+    req_class: str
+    arrival_s: float
+    prompt_len: int
+    output_len: int
+    admitted: bool = True
+    prefill_done_s: float = 0.0
+    first_token_s: float = 0.0
+    finish_s: float = 0.0
+    tokens_out: int = 0
+    # Completion-to-completion gap of each decode token after the first
+    # (the population the per-token percentiles are computed over).
+    token_latencies_s: List[float] = dataclasses.field(default_factory=list)
+
+    @property
+    def completed(self) -> bool:
+        return self.admitted and self.tokens_out >= self.output_len
+
+    @property
+    def ttft_s(self) -> float:
+        """Arrival -> first emitted token (queueing + prefill + first step)."""
+        return self.first_token_s - self.arrival_s
+
+    @property
+    def e2e_s(self) -> float:
+        return self.finish_s - self.arrival_s
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOStats:
+    """Latency rollup for one request class (or ``"all"``)."""
+
+    req_class: str
+    requests: int               # admitted requests of this class
+    completed: int
+    ttft: LatencyStats
+    per_token: LatencyStats
+    e2e: LatencyStats
+
+    def as_dict(self) -> dict:
+        return {
+            "class": self.req_class,
+            "requests": self.requests,
+            "completed": self.completed,
+            "ttft": self.ttft.as_dict(),
+            "per_token": self.per_token.as_dict(),
+            "e2e": self.e2e.as_dict(),
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOReport:
+    """Per-class + overall SLO accounting for one serving run.
+
+    ``meets_slo`` is the serving acceptance question: did the p99 tails of
+    the *completed* population stay inside the stated TTFT and per-token
+    budgets?  (Rejected requests are counted by the engine's reject rate,
+    not here — an admission-controlled server keeps its served tails inside
+    SLO precisely by shedding load.)"""
+
+    classes: Dict[str, SLOStats]
+    ttft_slo_s: float = 0.0
+    per_token_slo_s: float = 0.0
+
+    @property
+    def overall(self) -> SLOStats:
+        return self.classes["all"]
+
+    @property
+    def meets_slo(self) -> bool:
+        o = self.overall
+        if o.completed == 0:
+            return False
+        ok = True
+        if self.ttft_slo_s > 0:
+            ok = ok and o.ttft.p99_s <= self.ttft_slo_s
+        if self.per_token_slo_s > 0:
+            ok = ok and o.per_token.p99_s <= self.per_token_slo_s
+        return ok
+
+    def as_dict(self) -> dict:
+        return {
+            "ttft_slo_s": self.ttft_slo_s,
+            "per_token_slo_s": self.per_token_slo_s,
+            "meets_slo": self.meets_slo,
+            "classes": {k: v.as_dict() for k, v in self.classes.items()},
+        }
+
+
+def _class_stats(req_class: str, metrics: List[RequestMetrics]) -> SLOStats:
+    done = [m for m in metrics if m.completed]
+    return SLOStats(
+        req_class=req_class,
+        requests=len(metrics),
+        completed=len(done),
+        ttft=LatencyStats.from_values([m.ttft_s for m in done]),
+        per_token=LatencyStats.from_values(
+            [lat for m in done for lat in m.token_latencies_s]
+        ),
+        e2e=LatencyStats.from_values([m.e2e_s for m in done]),
+    )
+
+
+def slo_report(
+    metrics: Sequence[RequestMetrics],
+    *,
+    ttft_slo_s: float = 0.0,
+    per_token_slo_s: float = 0.0,
+) -> SLOReport:
+    """Roll per-request metrics up into per-class p50/p95/p99 SLO stats.
+
+    Rejected requests (``admitted=False``) are excluded from the latency
+    populations — they never produced a token; the engine reports them as
+    its reject rate."""
+    admitted = [m for m in metrics if m.admitted]
+    classes: Dict[str, List[RequestMetrics]] = {}
+    for m in admitted:
+        classes.setdefault(m.req_class, []).append(m)
+    out = {c: _class_stats(c, ms) for c, ms in sorted(classes.items())}
+    out["all"] = _class_stats("all", admitted)
+    return SLOReport(
+        classes=out, ttft_slo_s=ttft_slo_s, per_token_slo_s=per_token_slo_s
+    )

@@ -210,15 +210,18 @@ def dispatch_placed(
     (:meth:`~repro_torch.core.hero.HeroCluster.launch_fanout`) under this
     one dispatch; the lowering is the unplaced call's — the kernel when the
     policy enables it and the op is eligible — so the placed result equals
-    the unplaced one bit for bit.  ``validate=True`` (the reference's
-    pre-dispatch graph checks) raises ``NotImplementedError``: it waits
-    for the port of ``analysis/``.
+    the unplaced one bit for bit.
+
+    ``validate=True`` runs the :mod:`repro_torch.analysis.graph`
+    pre-dispatch checks on this call — op known, ``handle`` alive and
+    engine-owned, operand specs accepted by the host lowering on meta
+    tensors — raising ``GraphVerificationError`` with named violations
+    before any cost is scored, any record written or any kernel launched.
     """
     if validate:
-        raise NotImplementedError(
-            "dispatch(validate=True) needs repro_torch.analysis, which is "
-            "not ported yet"
-        )
+        from repro_torch.analysis.graph import assert_call_valid
+
+        assert_call_valid(name, args, kwargs, handle=handle)
     tr = _spans.current_tracer()
     if tr is None:
         return _dispatch_impl(name, args, kwargs, handle, resident_fraction,

@@ -147,8 +147,8 @@ class GraphRegion:
         self.residency: Dict[int, Any] = {}   # node id -> DeviceHandle
         self.owned: set = set()               # handle names we pinned
         self.report = GraphReport(self.name)
-        # validate=True (the reference's analysis.graph checks before
-        # anything dispatches) waits for the port of analysis/
+        # validate=True runs repro_torch.analysis.graph over every graph
+        # forced inside this region before anything dispatches
         self.validate = bool(validate)
 
     # -- residency ----------------------------------------------------------
@@ -692,9 +692,9 @@ def _prefetch_next_wave(
 
 def _schedule(roots: Sequence[Node], region: GraphRegion) -> None:
     if region.validate:
-        raise NotImplementedError(
-            "offload_region(validate=True) needs repro_torch.analysis, which "
-            "is not ported yet")
+        from repro_torch.analysis.graph import assert_valid
+
+        assert_valid(roots, region)
     order = _collect(roots)
     if not order:
         return

@@ -29,8 +29,9 @@ the modeled-parallel makespan — the max device lane, not the sum.  The
 devices are modeled lanes: every batch computes on the one torch device.
 
 Runs on the card unless the caller passes ``device="cpu"``; asking for the
-card where there is none raises.  The streaming engine (``--stream``)
-arrives with ``launch/streaming.py``.  ``forward_mode="graph"``
+card where there is none raises.  ``--stream`` runs the streaming engine
+(``launch/streaming.py``) on a bursty trace instead, on modeled time alone.
+``forward_mode="graph"``
 (``--forward-mode graph``) runs each decode step's dense FFN as an ``hnp``
 graph with the residual fused into its launch, as the reference serves in
 graph mode.  The CLI serves the arch's reduced config, as the reference's
@@ -38,6 +39,7 @@ CLI does, with every eligible op on the kernels:
 
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 [--forward-mode graph]
     python -m repro_torch.launch.serve --arch mamba2-370m
+    python -m repro_torch.launch.serve --arch yi-6b --stream --qps 100 --duration 1
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b [--device cpu]
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b
     python -m repro_torch.launch.serve --arch gemma3-27b
@@ -423,7 +425,34 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="offload routing policy for the cluster run")
     ap.add_argument("--no-pin-caches", action="store_true",
                     help="baseline: caches drain to host between phases")
+    # Streaming mode: the continuous-batching engine over a live arrival
+    # process (modeled: no model is built and nothing runs on a device).
+    ap.add_argument("--stream", action="store_true",
+                    help="run the streaming engine on a bursty trace")
+    ap.add_argument("--qps", type=float, default=100.0,
+                    help="offered load for --stream (requests/s)")
+    ap.add_argument("--duration", type=float, default=1.0,
+                    help="trace duration for --stream (modeled seconds)")
     args = ap.parse_args(argv)
+    if args.stream:
+        from repro_torch.launch.streaming import (
+            StreamConfig, bursty_trace, serve_stream,
+        )
+
+        # 1 prefill lane + >=1 decode lanes: at least 4 modeled devices.
+        cfg = StreamConfig(
+            num_devices=max(args.devices, 4), scheduler=args.scheduler
+        )
+        trace = bursty_trace(args.qps, args.duration, seed=args.seed)
+        rep = serve_stream(args.arch, trace, config=cfg)
+        o = rep.slo.overall
+        print(f"streaming {args.arch}: offered {rep.offered_qps:.4g} qps "
+              f"-> sustained {rep.sustained_qps:.4g} qps "
+              f"(reject {rep.reject_rate:.1%}, "
+              f"ttft p99 {o.ttft.p99_s * 1e3:.1f}ms, "
+              f"per-token p99 {o.per_token.p99_s * 1e3:.2f}ms, "
+              f"meets SLO: {rep.slo.meets_slo}) (modeled)")
+        return
     rng = np.random.default_rng(args.seed)
     if args.devices > 1 or args.num_batches > 1:
         batches = [

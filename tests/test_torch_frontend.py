@@ -581,19 +581,27 @@ def test_leaves_land_on_the_card_unless_told():
 
 
 def test_validate_and_placement_wait_for_their_slices():
-    """``validate=True`` waits for ``analysis/``; placement came with the
-    MoE slice: a plan with no sub-launches (here an object without any)
+    """Both came with their slices.  ``validate=True`` runs
+    ``repro_torch.analysis.graph`` before the graph dispatches (a clean
+    graph gives the unvalidated value; tests/test_torch_analysis.py holds
+    the rules).  A plan with no sub-launches (here an object without any)
     launches as the unplaced call does, as in the reference
     (tests/test_torch_placement.py holds the fan-out itself)."""
+    from repro_torch.analysis.graph import GraphVerificationError
     from repro_torch.core.dispatch import dispatch_placed
 
     a = torch.ones(8, 8)
     placed, placed_launch = dispatch_placed("gemm", a, a, placement=object())
     assert torch.equal(placed, a @ a)
     assert placed_launch.backend in ("host", "device")
-    with pytest.raises(NotImplementedError, match="analysis"):
-        with thnp.offload_region("v", validate=True):
-            thnp.asnumpy(thnp.array(a) @ a)
+    with thnp.offload_region("v", validate=True):
+        got = thnp.asnumpy(thnp.array(a) @ a)
+    np.testing.assert_array_equal(got, (a @ a).numpy())
+    with thnp.offload_region("v", validate=True):
+        y = thnp.array(a) @ a
+        y.node.shape = (8, 9)
+        with pytest.raises(GraphVerificationError, match="shape-mismatch"):
+            thnp.asnumpy(y)
     out, launch = dispatch_placed("gemm", a, a)
     assert launch.backend in ("host", "device") and out.shape == (8, 8)
 

@@ -52,7 +52,9 @@ def test_port_import_loads_no_jax_reference_or_triton():
         "repro_torch.launch.costing, repro_torch.obs.trace_export, "
         "repro_torch.configs.paper_gemm, repro_torch.models.moe, "
         "repro_torch.core.placement, repro_torch.configs.qwen3_moe_30b_a3b, "
-        "repro_torch.configs.arctic_480b\n"
+        "repro_torch.configs.arctic_480b, repro_torch.analysis, "
+        "repro_torch.analysis.base, repro_torch.analysis.races, "
+        "repro_torch.analysis.graph, repro_torch.launch.streaming\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"

@@ -1392,3 +1392,34 @@ def test_moe_serve_reduced_on_kernels(card, mode):
     with offload_policy(mode="device", use_kernels=False):
         want = serve_batch("qwen3-moe-30b-a3b", prompts, max_new_tokens=4)
     np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_validate_launches_once_and_equals_unvalidated(card, dtype):
+    """``dispatch("gemm", ..., validate=True)`` on CUDA tensors: the graph
+    checks run on meta tensors, then the kernel launches once and the
+    result equals the unvalidated call's bit for bit.  A dead handle or
+    operands that disagree raise before any launch."""
+    from repro_torch.analysis.graph import GraphVerificationError
+    from repro_torch.core.dispatch import dispatch
+    from repro_torch.core.hero import offload_policy
+
+    dt = getattr(torch, dtype)
+    a = torch.randn(128, 256, generator=card, device="cuda").to(dt)
+    b = torch.randn(256, 64, generator=card, device="cuda").to(dt)
+    with offload_policy(mode="device", use_kernels=True) as cluster:
+        plain = dispatch("gemm", a, b)
+        before = gemm.launches
+        got = dispatch("gemm", a, b, validate=True)
+        torch.cuda.synchronize()
+        assert gemm.launches == before + 1
+        assert torch.equal(got, plain)
+        dead = cluster.pin_handle("dead", float(a.nbytes), device_id=0)
+        cluster.unstage_handle(dead)
+        before = gemm.launches
+        with pytest.raises(GraphVerificationError, match="use-after-unstage"):
+            dispatch("gemm", a, b, handle=dead, validate=True)
+        with pytest.raises(GraphVerificationError, match="shape-mismatch"):
+            dispatch("gemm", a, b[:-1], validate=True)
+        torch.cuda.synchronize()
+        assert gemm.launches == before

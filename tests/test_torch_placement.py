@@ -229,8 +229,18 @@ def test_dispatch_placed_with_a_plan_fans_out_and_lowers_once():
     assert {r.device_id for r in fanned} == set(pol.home)
     # CPU tensors: the wrapper's plain version, counted nowhere.
     assert gemm_batched.launches == before
-    with pytest.raises(NotImplementedError, match="analysis"):
-        tdispatch.dispatch_placed("moe_expert_ffn", x, *ws, validate=True)
+    # validate=True runs the graph checks first: a clean call lowers as
+    # before, operands that disagree raise before anything is recorded.
+    from repro_torch.analysis.graph import GraphVerificationError
+
+    checked, _ = tdispatch.dispatch_placed("moe_expert_ffn", x, *ws,
+                                           validate=True)
+    assert torch.equal(checked, want)
+    with tacct.offload_trace() as trace, \
+            pytest.raises(GraphVerificationError, match="shape-mismatch"):
+        tdispatch.dispatch_placed("moe_expert_ffn", x[..., :-1], *ws,
+                                  validate=True)
+    assert trace.records == []
 
 
 def _moe_setup(b=2, s=8, seed=0):
