@@ -21,7 +21,10 @@ Kernel path  : the hand-written CUDA kernels of :mod:`repro_torch.kernels`
                (backend ``"device-kernel"``, the reference's
                ``"device-pallas"``), selected when the policy enables them
                (``use_kernels``) and the shape is eligible.  A kernel wrapper
-               takes its plain version only for CPU tensors.
+               takes its plain version only for CPU tensors.  Under grad
+               each launch runs inside an autograd Function whose backward
+               launches the GEMM kernel again (attention and the SSD term:
+               recompute their plain versions).
 
 The descriptors carry no tensor-parallel ``plan`` yet (the reference's
 shard_map forms, ``moe_expert_ffn``'s expert-parallel plan among them):
@@ -77,10 +80,12 @@ _CHUNKED_ATTN_BLOCK = 1024
 _NEG_INF = -1e30
 
 
-def _kops():
-    from repro_torch.kernels import ops as kops  # lazy: avoid import cycle
+def _lowering(name: str):
+    """Row ``name`` of the kernel lowering table, differentiable under
+    grad (:mod:`repro_torch.kernels.autograd`)."""
+    from repro_torch.kernels import autograd  # lazy: avoid import cycle
 
-    return kops
+    return autograd.lowering(name)
 
 
 def _kernel_gemm_eligible(m: int, n: int, k: int, dtype) -> bool:
@@ -176,7 +181,7 @@ def _gemm_kernel(a, b, *, transpose_a=False, transpose_b=False, out_dtype=None):
     # A transpose is a stride swap: the kernel reads either layout in place.
     aa = a.T if transpose_a else a
     bb = b.T if transpose_b else b
-    return _kops().kernel_lowering("gemm")(
+    return _lowering("gemm")(
         aa, bb, out_dtype=_result_dtype(a, b, out_dtype))
 
 
@@ -215,7 +220,7 @@ def _matmul_host(x, w, *, out_dtype=None):
 
 def _matmul_kernel(x, w, *, out_dtype=None):
     m, k, n = _matmul_dims(x, w)
-    out = _kops().kernel_lowering("matmul")(
+    out = _lowering("matmul")(
         x.reshape(m, k), w, out_dtype=_result_dtype(x, w, out_dtype))
     return out.reshape(*x.shape[:-1], n)
 
@@ -293,7 +298,7 @@ def _mlp_host(x, w_up, w_down, gate=None, b_up=None, b_down=None, *,
 def _mlp_kernel(x, w_up, w_down, gate=None, b_up=None, b_down=None, *,
                 kind="swiglu"):
     m, d, d_ff = _mlp_dims(x, w_up, w_down, gate, kind)
-    mm = _kops().kernel_lowering("matmul")
+    mm = _lowering("matmul")
     xm = x.reshape(m, d)
     if kind == "swiglu":
         g = mm(xm, gate, out_dtype=x.dtype)
@@ -371,7 +376,7 @@ def _qkv_host(x, wq, wk, wv, *, bq=None, bk=None, bv=None):
 def _qkv_kernel(x, wq, wk, wv, *, bq=None, bk=None, bv=None):
     m, d, n = _qkv_dims(x, wq, wk, wv, bq=bq, bk=bk, bv=bv)
     w, b = _qkv_concat(x, wq, wk, wv, bq, bk, bv)
-    y = _kops().kernel_lowering("qkv_project")(
+    y = _lowering("qkv_project")(
         x.reshape(m, d), w, out_dtype=x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
@@ -416,7 +421,7 @@ def _gemm_batched_host(a, b, *, out_dtype=None):
 
 
 def _gemm_batched_kernel(a, b, *, out_dtype=None):
-    return _kops().kernel_lowering("gemm_batched")(
+    return _lowering("gemm_batched")(
         a, b, out_dtype=_result_dtype(a, b, out_dtype))
 
 
@@ -464,7 +469,7 @@ def _expert_kernel(x, w, *, out_dtype=None):
     e, m, k, n = _expert_dims(x, w)
     # The free dims fold into the GEMM's m: a copy where they are a view
     # that does not fold (the grouped MoE's transposed (E, G, C, d) buffer).
-    out = _kops().kernel_lowering("moe_gemm")(
+    out = _lowering("moe_gemm")(
         x.reshape(e, m, k), w, out_dtype=out_dtype or x.dtype)
     return out.reshape(*x.shape[:-1], n)
 
@@ -530,7 +535,7 @@ def _moe_ffn_kernel(x, wg, wu, wd):
     """Three launches of the batched GEMM kernel (gate, up, down), the
     SiLU·up product between them."""
     e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
-    mm = _kops().kernel_lowering("moe_expert_ffn")
+    mm = _lowering("moe_expert_ffn")
     xe = x.reshape(e, m, d)   # copies a transposed (E, G, C, d) view
     g = mm(xe, wg, out_dtype=x.dtype)
     u = mm(xe, wu, out_dtype=x.dtype)
@@ -619,7 +624,7 @@ def _attention_kernel(q, k, v, *, causal=True, window=None, sm_scale=None,
                       kv_mask=None):
     skv = k.shape[2]
     eff_window = None if (window is None or window >= skv) else window
-    return _kops().kernel_lowering("attention")(
+    return _lowering("attention")(
         q, k, v, causal=causal, window=eff_window, sm_scale=sm_scale)
 
 
@@ -673,7 +678,7 @@ def _decode_attn_host(q, k, v, lo, hi):
 
 def _decode_attn_kernel(q, k, v, lo, hi):
     b = q.shape[0]
-    out = _kops().kernel_lowering("decode_attention")(
+    out = _lowering("decode_attention")(
         q[:, :, 0, :], k, v, _bounds(lo, b, q.device), _bounds(hi, b, q.device)
     )
     return out[:, :, None, :]
@@ -779,7 +784,7 @@ def _ssd_host(xh, dt, a, bh, ch, d_skip, *, chunk):
 
 
 def _ssd_kernel(xh, dt, a, bh, ch, d_skip, *, chunk):
-    kernel = _kops().kernel_lowering("ssd_scan")
+    kernel = _lowering("ssd_scan")
 
     def diag(x_bh, cum_bh, b_bh, c_bh):
         # The kernel takes one dtype; the log-decays are fp32 in the kernel

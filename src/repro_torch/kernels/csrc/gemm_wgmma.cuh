@@ -403,8 +403,17 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled out of libcuda, looked up through the runtime so
-// that the library needs no -lcuda.
+// that the library needs no -lcuda.  The encoder fails on a thread with no
+// current context, and a thread whose first CUDA call is this one has none
+// (autograd's device thread runs a backward's GEMMs; its torch calls do not
+// bind the context of this library's own runtime): each thread binds the
+// device's primary context once first, as the runtime's first call on a
+// thread does (cudaFree(nullptr) frees nothing).
 inline EncodeTiledFn encode_tiled() {
+  thread_local bool bound = false;
+  if (!bound) {
+    bound = cudaFree(nullptr) == cudaSuccess;
+  }
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -3,9 +3,8 @@ one-token decode.
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods are functions of
 (params, inputs).  Parameters are plain dicts and lists of tensors with the
-reference's names, on the device the caller chose.
-
-``loss`` arrives with the training slice.
+reference's names, on the device the caller chose; ``loss`` is
+differentiable in them (the train step takes its gradients with autograd).
 """
 
 from __future__ import annotations
@@ -20,11 +19,25 @@ from repro_torch.core import blas
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
-__all__ = ["Model", "build_model"]
+__all__ = ["AUX_LOSS_WEIGHT", "Model", "build_model", "cross_entropy"]
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _dtype_of(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE in fp32.  logits: (B, S, V); labels: (B, S) int.
+
+    The reference picks the label's log-prob with a one-hot mask and a sum
+    (which partitions over a vocab-sharded axis); on one device a gather
+    reads the same value exactly (a sum of one term and zeros)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +113,12 @@ class Model:
         x, aux = T.apply_stack(params["stack"], x, self.cfg,
                                positions=positions)
         return self._head(params, x), aux
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean token CE of the forward's logits against ``batch["labels"]``
+        plus ``AUX_LOSS_WEIGHT`` times the MoE router's loss (fp32)."""
+        logits, aux = self.forward(params, batch)
+        return cross_entropy(logits, batch["labels"]) + AUX_LOSS_WEIGHT * aux
 
     # ---- decode --------------------------------------------------------------
     def init_decode_cache(self, batch_size: int, cache_len: int, *, device):

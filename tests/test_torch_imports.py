@@ -54,7 +54,10 @@ def test_port_import_loads_no_jax_reference_or_triton():
         "repro_torch.core.placement, repro_torch.configs.qwen3_moe_30b_a3b, "
         "repro_torch.configs.arctic_480b, repro_torch.analysis, "
         "repro_torch.analysis.base, repro_torch.analysis.races, "
-        "repro_torch.analysis.graph, repro_torch.launch.streaming\n"
+        "repro_torch.analysis.graph, repro_torch.launch.streaming, "
+        "repro_torch.optim, repro_torch.checkpoint, repro_torch.data, "
+        "repro_torch.launch.train, repro_torch.kernels.autograd, "
+        "repro_torch.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"

@@ -1423,3 +1423,198 @@ def test_dispatch_validate_launches_once_and_equals_unvalidated(card, dtype):
             dispatch("gemm", a, b[:-1], validate=True)
         torch.cuda.synchronize()
         assert gemm.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernels (repro_torch.kernels.autograd): the GEMM
+# Function's backward is two more launches of the GEMM kernel, bf16 on the
+# tensor-core route (never the CUDA-core ``tiled`` one: dB reads a
+# row-major copy of Aᵀ), f32 on ``tf32x3``; attention's and the SSD term's
+# backwards recompute their plain versions.
+# ---------------------------------------------------------------------------
+
+# (m, n, k): m, the tokens, is dB's contraction, which the tensor-core
+# route's TMA reads in 8-element units: a multiple of 8 (as a train step's
+# m is); n and k ragged.
+GRAD_GEMM_SHAPES = [(64, 96, 128), (136, 72, 104), (512, 5120, 4096),
+                    (512, 4096, 11008)]
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+@pytest.mark.parametrize("m,n,k", GRAD_GEMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_function_backward_on_the_kernel(card, m, n, k, dtype):
+    from repro_torch.kernels import autograd as kgrad
+
+    dt = getattr(torch, dtype)
+    a = torch.randn(m, k, generator=card, device="cuda").to(dt)
+    b = (torch.randn(k, n, generator=card, device="cuda") * k ** -0.5).to(dt)
+    dc = torch.randn(m, n, generator=card, device="cuda").to(dt)
+    ak, bk = _leaf(a), _leaf(b)
+    y = kgrad.lowering("gemm")(ak, bk)
+    torch.cuda.synchronize()
+    before = gemm.launches
+    routes = dict(gemm.route_launches)
+    y.backward(dc)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + 2
+    used = {r: gemm.route_launches[r] - routes[r] for r in routes}
+    assert used["tiled"] == 0
+    assert used["wgmma" if dtype == "bfloat16" else "tf32x3"] == 2
+    ap, bp = _leaf(a), _leaf(b)
+    gemm_ref(ap, bp).backward(dc)
+    assert ak.grad.dtype == dt and bk.grad.dtype == dt
+    assert _err(ak.grad, ap.grad) <= TOL[dtype]
+    assert _err(bk.grad, bp.grad) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_batched_function_backward_on_the_kernel(card, dtype):
+    from repro_torch.kernels import autograd as kgrad
+
+    dt = getattr(torch, dtype)
+    a = torch.randn(8, 64, 256, generator=card, device="cuda").to(dt)
+    b = (torch.randn(8, 256, 96, generator=card, device="cuda")
+         * 256 ** -0.5).to(dt)
+    dc = torch.randn(8, 64, 96, generator=card, device="cuda").to(dt)
+    ak, bk = _leaf(a), _leaf(b)
+    y = kgrad.lowering("moe_gemm")(ak, bk)
+    before = gemm_batched.launches
+    y.backward(dc)
+    torch.cuda.synchronize()
+    assert gemm_batched.launches == before + 2
+    ap, bp = _leaf(a), _leaf(b)
+    gemm_batched_ref(ap, bp).backward(dc)
+    assert _err(ak.grad, ap.grad) <= TOL[dtype]
+    assert _err(bk.grad, bp.grad) <= TOL[dtype]
+
+
+def test_gemm_function_backward_repeats_bit_for_bit(card):
+    from repro_torch.kernels import autograd as kgrad
+
+    a = torch.randn(512, 4096, generator=card, device="cuda").bfloat16()
+    b = torch.randn(4096, 1024, generator=card, device="cuda").bfloat16()
+    dc = torch.randn(512, 1024, generator=card, device="cuda").bfloat16()
+    grads = []
+    for _ in range(2):
+        ak, bk = _leaf(a), _leaf(b)
+        kgrad.lowering("gemm")(ak, bk).backward(dc)
+        grads.append((ak.grad, bk.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_function_backward_on_the_card(card, dtype):
+    from repro_torch.kernels import autograd as kgrad
+
+    dt = getattr(torch, dtype)
+    q = torch.randn(1, 8, 256, 128, generator=card, device="cuda").to(dt)
+    k = torch.randn(1, 2, 256, 128, generator=card, device="cuda").to(dt)
+    v = torch.randn(1, 2, 256, 128, generator=card, device="cuda").to(dt)
+    do = torch.randn(1, 8, 256, 128, generator=card, device="cuda").to(dt)
+    before = flash_attention.launches
+    ins = [_leaf(t) for t in (q, k, v)]
+    out = kgrad.lowering("attention")(*ins, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_ins = [_leaf(t) for t in (q, k, v)]
+    ref = attention_ref(*ref_ins, causal=True)
+    ref.backward(do)
+    assert _row_err(out.detach(), ref.detach()) <= TOL[dtype]
+    for got, want in zip(ins, ref_ins):
+        assert torch.equal(got.grad, want.grad)     # the same recompute
+
+
+def test_ssd_function_backward_on_the_card(card):
+    from repro_torch.kernels import autograd as kgrad
+
+    g = card
+    x = torch.randn(4, 2, 64, 64, generator=g, device="cuda")
+    dt_a = torch.cumsum(-0.1 * torch.rand(4, 2, 64, generator=g,
+                                          device="cuda"), dim=-1)
+    b = torch.randn(4, 2, 64, 128, generator=g, device="cuda")
+    c = torch.randn(4, 2, 64, 128, generator=g, device="cuda")
+    dy = torch.randn(4, 2, 64, 64, generator=g, device="cuda")
+    before = ssd_chunk_diag.launches
+    ins = [_leaf(t) for t in (x, dt_a, b, c)]
+    y = kgrad.lowering("ssd_scan")(*ins)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert ssd_chunk_diag.launches == before + 1
+    ref_ins = [_leaf(t) for t in (x, dt_a, b, c)]
+    ssd_chunk_diag_ref(*ref_ins).backward(dy)
+    for got, want in zip(ins, ref_ins):
+        assert torch.equal(got.grad, want.grad)
+
+
+def test_decode_attention_refuses_grad_on_the_card(card):
+    from repro_torch.kernels import autograd as kgrad
+
+    q = torch.randn(8, 4, 64, generator=card, device="cuda").requires_grad_()
+    k = torch.randn(8, 2, 32, 64, generator=card, device="cuda")
+    lo = torch.zeros(8, dtype=torch.int32, device="cuda")
+    hi = torch.full((8,), 32, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        kgrad.lowering("decode_attention")(q, k, k, lo, hi)
+
+
+def test_train_step_on_the_kernels_matches_the_plain_path(card):
+    """One train step of reduced yi-6b (f32, 2 microbatches) on the card:
+    loss and gradients with the kernels against the plain path (f32 2e-5
+    of max |plain|), every GEMM launch on tf32x3 or skinny."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch("yi-6b").reduced(), num_microbatches=2)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=card,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    routes = dict(gemm.route_launches)
+    with offload_policy(mode="device", use_kernels=True):
+        lk, gk = steps._loss_and_grads(model, params, batch)
+    used = {r: gemm.route_launches[r] - routes[r] for r in routes}
+    assert used["tf32x3"] > 0 and used["tiled"] == 0 and used["wgmma"] == 0
+    with offload_policy(mode="device", use_kernels=False):
+        lp, gp = steps._loss_and_grads(model, params, batch)
+    assert abs(float(lk) - float(lp)) <= 2e-5 * abs(float(lp))
+    for g, w in zip(tree.leaves(gk), tree.leaves(gp)):
+        assert _err(g, w) <= TOL["float32"] or \
+            float(w.abs().max()) == 0.0
+
+
+def test_wgmma_launch_from_a_fresh_thread(card):
+    """A thread whose first CUDA call is a tensor-core launch (autograd's
+    device thread runs the backward's GEMMs) encodes its TMA maps: the
+    library binds the thread's context first."""
+    import threading
+
+    a = torch.randn(512, 4096, generator=card, device="cuda").bfloat16()
+    b = torch.randn(5120, 4096, generator=card, device="cuda").bfloat16().T
+    want = gemm(a, b)
+    got = {}
+
+    def run():
+        try:
+            got["c"] = gemm(a, b)
+        except RuntimeError as exc:     # reported by the assertion below
+            got["error"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and "error" not in got, got
+    torch.cuda.synchronize()
+    assert torch.equal(got["c"], want)
