@@ -26,15 +26,28 @@ Kernel path  : the hand-written CUDA kernels of :mod:`repro_torch.kernels`
                launches the GEMM kernel again (attention and the SSD term:
                recompute their plain versions).
 
-The descriptors carry no tensor-parallel ``plan`` yet (the reference's
-shard_map forms, ``moe_expert_ffn``'s expert-parallel plan among them):
-the distributed layer is ported last, and without a mesh the reference
-takes none either.
+Tensor-parallel plans.  Under an ambient mesh with a ``model`` axis of
+more than one device (:mod:`repro_torch.sharding.spmd`), five descriptors
+take a ``plan`` that wins over the kernel, as in the reference:
+``matmul`` with ``tp_mode="row"`` / ``"col"``, ``mlp_block`` (one psum a
+block, in :func:`psum_cast_dtype`), ``qkv_project`` (each shard projects
+its slice of the sequence, then an all-gather), ``moe_expert_ffn``
+(experts sharded over ``model``, nothing exchanged) and ``ssd_scan``
+(heads sharded over ``model``).  Their ``plan_lower`` runs the reference's
+``shard_map`` body on the emulated mesh.  Where the reference's bodies
+run raw ``lax.dot_general`` and the SSD term's plain version, each body
+here runs the lowering the unsharded op would take at the *local* shape:
+the GEMM kernel (``gemm`` / ``gemm_batched``) or the SSD kernel when the
+policy runs kernels (``use_kernels``, mode not ``"host"``) and the local
+shape is eligible, the plain version otherwise.  The bodies call the
+kernel wrappers directly, so the only record is the one ``dispatch``
+writes before ``plan_lower`` (note ``tp-plan``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional
 
 import torch
@@ -50,11 +63,13 @@ __all__ = [
     "matmul",
     "gemm_batched",
     "linear",
+    "local_matmul",
     "mlp_block",
     "qkv_project",
     "attention",
     "attention_math",
     "decode_attention",
+    "psum_cast_dtype",
     "ssd_scan",
     "moe_expert_ffn",
     "moe_expert_ffn_placed",
@@ -204,25 +219,143 @@ def _matmul_dims(x, w):
     return _lead(x), k, n
 
 
-def _matmul_cost(x, w, *, out_dtype=None):
+def _matmul_cost(x, w, *, out_dtype=None, tp_mode=None):
     m, k, n = _matmul_dims(x, w)
     return cm.gemm_cost(m, n, k, x.element_size())
 
 
-def _matmul_eligible(x, w, *, out_dtype=None):
+def _matmul_eligible(x, w, *, out_dtype=None, tp_mode=None):
     m, k, n = _matmul_dims(x, w)
     return _kernel_gemm_eligible(m, n, k, x.dtype)
 
 
-def _matmul_host(x, w, *, out_dtype=None):
+def _matmul_host(x, w, *, out_dtype=None, tp_mode=None):
     return _accum_mm(x, w, _result_dtype(x, w, out_dtype))
 
 
-def _matmul_kernel(x, w, *, out_dtype=None):
+def _matmul_kernel(x, w, *, out_dtype=None, tp_mode=None):
     m, k, n = _matmul_dims(x, w)
     out = _lowering("matmul")(
         x.reshape(m, k), w, out_dtype=_result_dtype(x, w, out_dtype))
     return out.reshape(*x.shape[:-1], n)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel plans: the shared prologue and the bodies' lowering.
+# ---------------------------------------------------------------------------
+
+def _tp_mesh_info():
+    """Ambient model-parallel topology, or None when no TP plan can apply.
+
+    Returns ``(mesh, n_model, dp_axes, n_dp)`` — the shared applicability
+    prologue of every descriptor's TP ``plan`` (pure inspection).  A
+    single-device model axis counts as "no topology"; so does a
+    ``shard_map`` body, which has no ambient mesh."""
+    from repro_torch.sharding.annotate import _ambient_mesh
+
+    mesh = _ambient_mesh()
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
+        return None
+    n_model = mesh.shape["model"]
+    if n_model <= 1:
+        return None
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.shape[a]
+    return mesh, n_model, dp, n_dp
+
+
+def _plan_kernels() -> bool:
+    """Whether a plan body's local work runs on the kernels: the policy
+    enables them and does not keep the call on the host."""
+    pol = engine().policy
+    return bool(pol.use_kernels) and pol.mode != "host"
+
+
+def _local_mm(x, w, out_dtype, kernels: bool):
+    """(..., k) @ (k, n) in a plan body: the lowering the unsharded
+    ``matmul`` takes at this local shape (the GEMM kernel when ``kernels``
+    and eligible, else the plain version), fp32 accumulation, one
+    rounding to ``out_dtype``."""
+    m, k, n = _matmul_dims(x, w)
+    if kernels and _kernel_gemm_eligible(m, n, k, x.dtype):
+        return _matmul_kernel(x, w, out_dtype=out_dtype)
+    return _matmul_host(x, w, out_dtype=out_dtype)
+
+
+def local_matmul(x, w, *, out_dtype=None):
+    """(..., k) @ (k, n) inside a ``shard_map`` body, with no dispatch and
+    no record (the reference's bodies run raw dot products): the lowering
+    the unsharded ``matmul`` takes at this local shape under the current
+    policy."""
+    return _local_mm(x, w, _result_dtype(x, w, out_dtype), _plan_kernels())
+
+
+def _tp_plan(x, w, mode: str):
+    """``(mesh, dp_axes)`` when the explicit-TP shard_map path applies,
+    else None.  Pure inspection, so the dispatcher resolves routing before
+    it records a backend."""
+    if mode not in ("row", "col"):
+        return None
+    info = _tp_mesh_info()
+    if info is None or x.ndim != 3:
+        return None
+    mesh, n_model, dp, n_dp = info
+    if x.shape[0] % n_dp:
+        return None
+    if x.shape[-1] != w.shape[0]:
+        return None
+    if mode == "row" and w.shape[0] % n_model:
+        return None
+    if mode == "col" and w.shape[1] % n_model:
+        return None
+    return mesh, dp
+
+
+def _tp_shard_map_matmul(x, w, mode: str, out_dtype, plan):
+    """Explicit tensor-parallel matmul: local matmul with fp32
+    accumulation -> cast -> psum in the output dtype.  ``row``: w's first
+    (contracting) dim is model-sharded, psum in forward; ``col``: w's last
+    dim is model-sharded, no collective forward (the backward's dX sum is
+    autograd's, over the gathered graph)."""
+    from repro_torch.sharding.spmd import P, psum, shard_map
+
+    mesh, dp = plan
+    out_dtype = _result_dtype(x, w, out_dtype)
+    kernels = _plan_kernels()
+    if mode == "row":
+
+        def local(xl, wl):
+            y = _local_mm(xl, wl, out_dtype, kernels)
+            return psum(y, "model")
+
+        return shard_map(
+            local,
+            mesh=mesh,
+            in_specs=(P(dp, None, "model"), P("model", None)),
+            out_specs=P(dp, None, None),
+        )(x, w)
+
+    def local_col(xl, wl):
+        return _local_mm(xl, wl, out_dtype, kernels)
+
+    return shard_map(
+        local_col,
+        mesh=mesh,
+        in_specs=(P(dp, None, None), P(None, "model")),
+        out_specs=P(dp, None, "model"),
+    )(x, w)
+
+
+def _matmul_plan(x, w, *, out_dtype=None, tp_mode=None):
+    # A tensor-parallel matmul runs the shard_map path, so routing must
+    # resolve before the record is written.
+    return _tp_plan(x, w, tp_mode) if tp_mode in ("row", "col") else None
+
+
+def _matmul_plan_lower(plan, x, w, *, out_dtype=None, tp_mode=None):
+    return _tp_shard_map_matmul(x, w, tp_mode, out_dtype, plan)
 
 
 register(OffloadOp(
@@ -231,7 +364,18 @@ register(OffloadOp(
     host=_matmul_host,
     kernel=_matmul_kernel,
     eligible=_matmul_eligible,
+    plan=_matmul_plan,
+    plan_lower=_matmul_plan_lower,
 ))
+
+
+def psum_cast_dtype(dtype, device):
+    """Reduction dtype for TP psums: the dtype itself on the card (bf16
+    halves the bytes); f32 for a bf16 operand on the CPU, as the
+    reference's rule for its CPU backend gives."""
+    if torch.device(device).type == "cpu" and dtype == torch.bfloat16:
+        return torch.float32
+    return dtype
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +458,74 @@ def _mlp_kernel(x, w_up, w_down, gate=None, b_up=None, b_down=None, *,
     return y.reshape(*x.shape[:-1], d)
 
 
+def _mlp_plan(x, w_up, w_down, gate=None, b_up=None, b_down=None, *,
+              kind="swiglu"):
+    """Whole-block tensor-parallel applicability (pure inspection):
+    ``(mesh, dp_axes)`` when the d_ff column / row slices can stay local
+    under an ambient model-parallel mesh, else None."""
+    if os.environ.get("REPRO_DISABLE_TP_MLP"):
+        return None
+    info = _tp_mesh_info()
+    if info is None or x.ndim != 3:
+        return None
+    mesh, n_model, dp, n_dp = info
+    d_ff = w_up.shape[1]
+    if x.shape[0] % n_dp or d_ff % n_model:
+        return None
+    return mesh, dp
+
+
+def _mlp_plan_lower(plan, x, w_up, w_down, gate=None, b_up=None, b_down=None,
+                    *, kind="swiglu"):
+    """The whole MLP under one shard_map: the d_ff column / row slices stay
+    local, one psum forward."""
+    from repro_torch.sharding.spmd import P, psum, shard_map
+
+    mesh, dp = plan
+    kernels = _plan_kernels()
+    f32 = torch.float32
+    if kind == "swiglu":
+
+        def local(xl, wg, wu, wd):
+            g = _local_mm(xl, wg, f32, kernels)
+            u = _local_mm(xl, wu, f32, kernels)
+            h = (F.silu(g) * u).to(xl.dtype)
+            y = _local_mm(h, wd, f32, kernels)
+            y = psum(y.to(psum_cast_dtype(xl.dtype, xl.device)), "model")
+            return y.to(xl.dtype)
+
+        fn = shard_map(
+            local, mesh=mesh,
+            in_specs=(P(dp, None, None), P(None, "model"), P(None, "model"),
+                      P("model", None)),
+            out_specs=P(dp, None, None),
+        )
+        return fn(x, gate, w_up, w_down)
+
+    def local_gelu(xl, wu, bu, wd, bd):
+        h = _local_mm(xl, wu, f32, kernels) + bu
+        h = F.gelu(h, approximate="tanh").to(xl.dtype)
+        y = _local_mm(h, wd, f32, kernels)
+        y = psum(y.to(psum_cast_dtype(xl.dtype, xl.device)), "model")
+        return y.to(xl.dtype) + bd.to(xl.dtype)
+
+    fn = shard_map(
+        local_gelu, mesh=mesh,
+        in_specs=(P(dp, None, None), P(None, "model"), P("model"),
+                  P("model", None), P(None)),
+        out_specs=P(dp, None, None),
+    )
+    return fn(x, w_up, b_up, w_down, b_down)
+
+
 register(OffloadOp(
     name="mlp_block",
     cost=_mlp_cost,
     host=_mlp_host,
     kernel=_mlp_kernel,
     eligible=_mlp_eligible,
+    plan=_mlp_plan,
+    plan_lower=_mlp_plan_lower,
 ))
 
 
@@ -383,12 +589,56 @@ def _qkv_kernel(x, wq, wk, wv, *, bq=None, bk=None, bv=None):
     return y.reshape(*x.shape[:-1], n)
 
 
+def _qkv_plan(x, wq, wk, wv, *, bq=None, bk=None, bv=None):
+    """Sequence-sharded TP applicability (pure inspection): each model
+    shard projects its sequence slice and the small qkv activations are
+    all-gathered — replicated compute would pay n_model x the FLOPs."""
+    if os.environ.get("REPRO_DISABLE_TP_ATTN"):
+        return None
+    info = _tp_mesh_info()
+    if info is None or x.ndim != 3:
+        return None
+    mesh, n_model, dp, n_dp = info
+    if x.shape[0] % n_dp or x.shape[1] % n_model:
+        return None
+    return mesh, dp
+
+
+def _qkv_plan_lower(plan, x, wq, wk, wv, *, bq=None, bk=None, bv=None):
+    from repro_torch.sharding.spmd import P, all_gather, axis_index, shard_map
+
+    mesh, dp = plan
+    n_model = mesh.shape["model"]
+    kernels = _plan_kernels()
+    w, b = _qkv_concat(x, wq, wk, wv, bq, bk, bv)
+    if b is None:
+        b = torch.zeros(w.shape[1], dtype=x.dtype, device=x.device)
+
+    def local(xl, wl, bl):
+        s = xl.shape[1]
+        seg = s // n_model
+        idx = axis_index("model")
+        xs = xl.narrow(1, idx * seg, seg)
+        y = _local_mm(xs, wl, xl.dtype, kernels) + bl.to(xl.dtype)
+        return all_gather(y, "model", dim=1)
+
+    fn = shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(P(dp, None, None), P(None, None), P(None)),
+        out_specs=P(dp, None, None),
+    )
+    return fn(x, w, b)
+
+
 register(OffloadOp(
     name="qkv_project",
     cost=_qkv_cost,
     host=_qkv_host,
     kernel=_qkv_kernel,
     eligible=_qkv_eligible,
+    plan=_qkv_plan,
+    plan_lower=_qkv_plan_lower,
 ))
 
 
@@ -485,9 +735,9 @@ register(OffloadOp(
 
 # ---------------------------------------------------------------------------
 # moe_expert_ffn — the whole grouped expert FFN (gate/up/silu/down) behind
-# one descriptor: the cost model sees the expert block at once.  (The
-# reference's expert-parallel shard_map plan arrives with the distributed
-# layer.)
+# one descriptor: the cost model sees the expert block at once, and the
+# expert-parallel shard_map — experts model-sharded, every GEMM local,
+# zero collectives — is its ``plan``.
 # ---------------------------------------------------------------------------
 
 def _moe_ffn_dims(x, wg, wu, wd):
@@ -543,12 +793,51 @@ def _moe_ffn_kernel(x, wg, wu, wd):
     return y.reshape(x.shape)
 
 
+def _moe_ffn_plan(x, wg, wu, wd):
+    """Expert-parallel applicability: experts shard over the model axis and
+    every GEMM stays local (zero collectives inside the plan).  The first
+    free dim also shards over the data axes when it divides."""
+    info = _tp_mesh_info()
+    if info is None:
+        return None
+    mesh, n_model, dp, n_dp = info
+    if x.shape[0] % n_model:
+        return None
+    shard_free = bool(dp) and x.ndim >= 3 and x.shape[1] % n_dp == 0
+    return mesh, (dp if shard_free else ())
+
+
+def _moe_ffn_plan_lower(plan, x, wg, wu, wd):
+    from repro_torch.sharding.spmd import P, shard_map
+
+    mesh, dp = plan
+    kernels = _plan_kernels()
+
+    def local(xl, wgl, wul, wdl):
+        if kernels and _moe_ffn_eligible(xl, wgl, wul, wdl):
+            return _moe_ffn_kernel(xl, wgl, wul, wdl)
+        return _moe_ffn_host(xl, wgl, wul, wdl)
+
+    free = (dp if dp else None,) + (None,) * (x.ndim - 2)
+    spec_x = P("model", *free)
+    spec_w = P("model", None, None)
+    fn = shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(spec_x, spec_w, spec_w, spec_w),
+        out_specs=spec_x,
+    )
+    return fn(x, wg, wu, wd)
+
+
 register(OffloadOp(
     name="moe_expert_ffn",
     cost=_moe_ffn_cost,
     host=_moe_ffn_host,
     kernel=_moe_ffn_kernel,
     eligible=_moe_ffn_eligible,
+    plan=_moe_ffn_plan,
+    plan_lower=_moe_ffn_plan_lower,
 ))
 
 
@@ -795,12 +1084,51 @@ def _ssd_kernel(xh, dt, a, bh, ch, d_skip, *, chunk):
     return _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk, diag)
 
 
+def _ssd_plan(xh, dt, a, bh, ch, d_skip, *, chunk):
+    """Head-sharded TP applicability: every piece of the SSD math is
+    per-head and therefore local under a model-sharded head axis."""
+    info = _tp_mesh_info()
+    if info is None or xh.ndim != 4:
+        return None
+    mesh, n_model, dp, n_dp = info
+    bsz, s, h, _ = xh.shape
+    if h % n_model or bsz % n_dp or s % min(int(chunk), s):
+        return None
+    return mesh, dp
+
+
+def _ssd_plan_lower(plan, xh, dt, a, bh, ch, d_skip, *, chunk):
+    from repro_torch.sharding.spmd import P, shard_map
+
+    mesh, dp = plan
+    kernels = _plan_kernels()
+
+    def local(xl, dtl, al, bl, cl, dl):
+        if kernels and _ssd_eligible(xl, dtl, al, bl, cl, dl, chunk=chunk):
+            return _ssd_kernel(xl, dtl, al, bl, cl, dl, chunk=chunk)
+        return _ssd_host(xl, dtl, al, bl, cl, dl, chunk=chunk)
+
+    fn = shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(
+            P(dp, None, "model", None), P(dp, None, "model"), P("model"),
+            P(dp, None, "model", None), P(dp, None, "model", None),
+            P("model"),
+        ),
+        out_specs=P(dp, None, "model", None),
+    )
+    return fn(xh, dt, a, bh, ch, d_skip)
+
+
 register(OffloadOp(
     name="ssd_scan",
     cost=_ssd_cost,
     host=_ssd_host,
     kernel=_ssd_kernel,
     eligible=_ssd_eligible,
+    plan=_ssd_plan,
+    plan_lower=_ssd_plan_lower,
 ))
 
 
@@ -960,15 +1288,21 @@ def matmul(
     w: torch.Tensor,
     *,
     out_dtype=None,
+    tp_mode: Optional[str] = None,
     handle: Optional[DeviceHandle] = None,
 ) -> torch.Tensor:
     """General (leading-batch, k) @ (k, n) — the framework's workhorse.
 
     Collapses leading dims into the GEMM ``m`` dimension, exactly how a BLAS
-    binding flattens a NumPy ``ndarray @ matrix``.  (The reference's
-    ``tp_mode`` arrives with the distributed layer.)
+    binding flattens a NumPy ``ndarray @ matrix``.
+
+    ``tp_mode`` ("row" / "col") opts into the explicit tensor-parallel
+    shard_map form when an ambient mesh has a model axis (a 3-D ``x``):
+    "row" shards w's contracting dim and psums the output once, "col"
+    shards w's output dim.  Ignored without a mesh.
     """
-    return dispatch("matmul", x, w, out_dtype=out_dtype, handle=handle)
+    return dispatch("matmul", x, w, out_dtype=out_dtype, tp_mode=tp_mode,
+                    handle=handle)
 
 
 def gemm_batched(

@@ -27,9 +27,10 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["KERNEL_SOURCES", "build_all", "library"]
+__all__ = ["KERNEL_SOURCES", "build_all", "count_launch", "library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
@@ -42,6 +43,20 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# Guards every wrapper's launch counters: a launch may come from any thread
+# (a mesh device's shard_map body, autograd's backward thread), and
+# ``+= 1`` on a shared counter is a read-modify-write.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, route: str) -> None:
+    """One launch of ``wrapper``'s kernel on ``route``: adds one to
+    ``wrapper.launches`` and ``wrapper.route_launches[route]``."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.route_launches[route] += 1
+
 
 # Loaded libraries by kernel name (a process-wide cache of dlopen handles:
 # loading the same .so twice would only return the same handle).

@@ -159,8 +159,7 @@ def flash_attention(
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed ({route} "
                            f"route): cudaError {err}")
-    flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    _build.count_launch(flash_attention, route)
     return out
 
 

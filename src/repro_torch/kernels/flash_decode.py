@@ -225,8 +225,7 @@ def flash_decode(
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed ({route}, "
                            f"{plan}): cudaError {err}")
-    flash_decode.launches += 1
-    flash_decode.route_launches[route] += 1
+    _build.count_launch(flash_decode, route)
     return out
 
 

@@ -448,8 +448,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     route = _launch(a, b, c, m, n, k, 1, (0, *a.stride()), (0, *b.stride()),
                     (0, n))
-    gemm.launches += 1
-    gemm.route_launches[route] += 1
+    _build.count_launch(gemm, route)
     return c
 
 
@@ -481,8 +480,7 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
         return c
     _check_kernel_operands("gemm_batched", a, b, out_dtype, (a[0], b[0]))
     route = _launch(a, b, c, m, n, k, z, a.stride(), b.stride(), (m * n, n))
-    gemm_batched.launches += 1
-    gemm_batched.route_launches[route] += 1
+    _build.count_launch(gemm_batched, route)
     return c
 
 

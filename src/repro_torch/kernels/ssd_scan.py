@@ -186,8 +186,7 @@ def ssd_chunk_diag(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     if err:
         raise RuntimeError(f"ssd_chunk_diag kernel ({route}) launch failed: "
                            f"cudaError {err}")
-    ssd_chunk_diag.launches += 1
-    ssd_chunk_diag.route_launches[route] += 1
+    _build.count_launch(ssd_chunk_diag, route)
     return out
 
 

@@ -14,9 +14,9 @@ The port of ``src/repro/launch/train.py``.  Its steps run under
 ``offload_policy(mode="device", use_kernels=True)``, so every eligible op
 of the forward runs on the hand-written kernels and the GEMMs of the
 backward too (:mod:`repro_torch.kernels.autograd`); on the CPU the
-kernels' plain versions run.  One device and no mesh: the reference
-builds parameter shardings it never uses, and the mesh arrives with the
-distributed layer.  Departures: ``--num-layers`` cuts the depth at
+kernels' plain versions run.  As in the reference, the driver builds
+the local mesh (:func:`~repro_torch.launch.mesh.make_local_mesh`) and the
+parameter shardings on it, and the step uses neither.  Departures: ``--num-layers`` cuts the depth at
 published widths (the whole yi-6b's train state, about 97 GB, exceeds the
 card's 80 GB); ``--device`` picks the device, the card by default, and a
 missing card raises; ``ckpt_dir=None`` (``--ckpt-dir ''``) trains without
@@ -39,10 +39,12 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_arch
 from repro_torch.core.hero import offload_policy
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import (TrainOptions, init_train_state,
                                       make_train_step)
 from repro_torch.models import build_model
+from repro_torch.sharding import named, param_pspecs
 
 __all__ = ["train", "main"]
 
@@ -83,6 +85,7 @@ def train(
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     model = build_model(cfg)
+    mesh = make_local_mesh(dev)
     if peak_lr is None:
         # The reduced smoke models move less per step at the full-size
         # default than the synthetic stream's batch-to-batch loss noise,
@@ -104,6 +107,7 @@ def train(
         print(f"resumed from step {start_step}")
 
     data = SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed=17)
+    p_shard = named(mesh, param_pspecs(params, mesh))  # noqa: F841 (as the reference)
     step_fn = make_train_step(model, opts)
 
     losses: List[float] = []

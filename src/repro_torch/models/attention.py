@@ -14,6 +14,7 @@ both ways.  qwen2-vl rotates by M-RoPE on (3, B, S) positions.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -84,14 +85,22 @@ def attention_block(
     """Full-sequence attention (training / prefill). x: (B, S, D);
     positions: (B, S) int, or (3, B, S) for M-RoPE.  q/k/v reach the
     ``attention`` descriptor as (B, H, S, hd) transposed views (the kernel
-    reads them in place)."""
+    reads them in place).
+
+    Under an ambient model-parallel mesh the seam resolves the TP forms as
+    descriptor plans: ``qkv_project`` sequence-shards the input projection
+    (one all-gather of the qkv activations), the attention runs unsharded,
+    and the output projection's ``tp_mode="row"`` psums once."""
     b, s, _ = x.shape
     rope_theta = rope_theta if rope_theta is not None else cfg.rope_theta
     q, k, v = _project_qkv(p, x, cfg, positions, rope_theta)
     out = blas.attention(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=cfg.causal, window=window)
     out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return blas.matmul(out, p["wo"])
+    # The kill-switch disables both TP forms of this block (the
+    # qkv_project plan honors it inside the seam).
+    tp_mode = None if os.environ.get("REPRO_DISABLE_TP_ATTN") else "row"
+    return blas.matmul(out, p["wo"], tp_mode=tp_mode)
 
 
 def decode_attention_block(

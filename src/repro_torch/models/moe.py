@@ -7,10 +7,15 @@ of the batched GEMM kernel, experts as the batch) and gathered back
 weighted by the router gates.  The twin of the reference's
 ``src/repro/models/moe.py``.
 
-On one card there is no mesh: ``moe_dispatch="auto"`` takes the grouped
-path, as the reference does with no ambient mesh; its expert-parallel
-``shard_map`` form and the sharding constraints (the identity on one
-device) arrive with the distributed layer.
+Under an ambient mesh with a ``model`` axis (:mod:`repro_torch.sharding.
+spmd`), ``moe_dispatch="auto"`` takes the expert-parallel form
+(:func:`_moe_shard_map`): every mesh device routes and packs its own
+tokens, one ``all_to_all`` carries each routed copy to its expert's
+owner and one carries the results back; the expert FFN between them is
+one ``moe_expert_ffn`` dispatch whose plan keeps the experts where the
+pack left them.  Without a mesh ``"auto"`` takes the grouped path, as the
+reference does.  The sharding constraints around the grouped path's
+transpose are the identity on the emulated mesh.
 
 Three decisions keep the port's answers those of the reference, and its
 repeated runs equal:
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import blas
+from repro_torch.sharding.annotate import constrain
 from repro_torch.models import layers as L
 from repro_torch.obs import metrics as _metrics
 
@@ -282,12 +288,12 @@ def _moe_grouped(p, xf, gates, idx, cfg, expert_fn=None):
     buf = torch.zeros((g_, e * cap_g + 1, d), dtype=xf.dtype, device=dev)
     buf[gi, slot] = xg[gi, sorted_token] * keep_f[..., None]
 
-    # (G, E·Cg, d) -> (E, G, Cg, d): experts lead.  The sharding
-    # constraints the reference places around this transpose are the
-    # identity on one device.
+    # (G, E·Cg, d) -> (E, G, Cg, d): experts lead.
     ebuf = buf[:, : e * cap_g].reshape(g_, e, cap_g, d).transpose(0, 1)
+    ebuf = constrain(ebuf, "model", None, None, None)
     y = (expert_fn or _expert_mlp)(p, ebuf)               # (E, G, Cg, d)
-    y_flat = y.transpose(0, 1).reshape(g_, e * cap_g, d)
+    y_back = constrain(y.transpose(0, 1), "dp", None, None, None)
+    y_flat = y_back.reshape(g_, e * cap_g, d)
 
     slot_c = torch.clamp(slot, max=e * cap_g - 1)
     w = (sorted_gate * keep).to(y_flat.dtype)
@@ -296,11 +302,121 @@ def _moe_grouped(p, xf, gates, idx, cfg, expert_fn=None):
     return out.reshape(t, d)
 
 
+def _moe_shard_map(p, xf, cfg, mesh):
+    """Explicit-collective dispatch.
+
+    Tokens are sharded over (dp × model): every mesh device routes and
+    packs its own T / devices tokens locally, then ONE ``all_to_all`` over
+    the model axis carries each routed token copy to its expert's owner
+    and one carries the results back.  Route + pack ends at an out_spec
+    that *is* the ``moe_expert_ffn`` plan's in_spec (experts
+    model-sharded, peer rows dp-sharded), so the descriptor dispatch
+    between the two shard_maps moves no data.  The router GEMM runs at
+    the local shape (``blas.local_matmul``: no record, as the reference's
+    raw product); the pack writes dropped copies to a spare zero row and
+    the unpack sums each token's copies in the grouped path's fixed order
+    (:func:`_combine`)."""
+    from repro_torch.sharding.spmd import P, all_to_all, pmean, shard_map
+
+    t, d = xf.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    n_model = mesh.shape["model"]
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.shape[a]
+    tij = t // (n_dp * n_model)
+    cap_ij = expert_capacity(tij, cfg)
+    e_loc = e // n_model
+    tok_spec = P(dp + ("model",), None)
+    flat_spec = P(dp + ("model",))
+
+    def route_pack(xf_loc, router):
+        # ---- route + pack: all local ------------------------------------
+        dev = xf_loc.device
+        logits = blas.local_matmul(xf_loc, router.to(xf_loc.dtype)).float()
+        gates, idx = _top_k_gates(logits, k)
+        gates = gates.to(xf_loc.dtype)
+        probs = torch.softmax(logits, dim=-1)
+        me = probs.mean(dim=0)
+        ce = torch.nn.functional.one_hot(idx[:, 0], e).float().mean(dim=0)
+        aux = e * torch.sum(me * ce)
+        aux = pmean(aux, dp + ("model",))
+
+        flat_e = idx.reshape(tij * k)
+        flat_g = gates.reshape(tij * k)
+        order = torch.argsort(flat_e, stable=True)
+        se = flat_e[order]
+        st_ = order // k
+        sg = flat_g[order]
+        counts = torch.bincount(flat_e, minlength=e)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(tij * k, device=dev) - starts[se]
+        keep = rank < cap_ij
+        slot = torch.where(keep, se * cap_ij + rank,
+                           torch.full_like(rank, e * cap_ij))
+        buf = torch.zeros((e * cap_ij + 1, d), dtype=xf_loc.dtype,
+                          device=dev)
+        buf[slot] = xf_loc[st_] * keep[:, None].to(xf_loc.dtype)
+
+        # ---- THE all-to-all: expert blocks to their model-shard owners ----
+        buf = buf[: e * cap_ij].reshape(n_model, e_loc * cap_ij, d)
+        ex = all_to_all(buf, "model", 0, 0)
+        # (n_model peers, e_loc·cap_ij, d) -> (e_loc, n_model·cap_ij, d)
+        ex = ex.reshape(n_model, e_loc, cap_ij, d).transpose(0, 1)
+        ex = ex.reshape(e_loc, n_model * cap_ij, d)
+        sgk = sg * keep.to(sg.dtype)
+        return ex, torch.clamp(slot, max=e * cap_ij - 1), order, sgk, aux
+
+    ex, slot, order, sgk, aux = shard_map(
+        route_pack,
+        mesh=mesh,
+        in_specs=(tok_spec, P(None, None)),
+        out_specs=(P("model", dp, None), flat_spec, flat_spec, flat_spec, P()),
+    )(xf, p["router"])
+
+    # ---- expert FFN through the seam: one recorded dispatch whose plan
+    # shard_maps experts exactly where the pack stage left them ------------
+    y = _expert_mlp(p, ex)
+
+    def combine(y_loc, slot_l, order_l, sgk_l):
+        # ---- return trip + local unpack -----------------------------------
+        y_ = y_loc.reshape(e_loc, n_model, cap_ij, d).transpose(0, 1)
+        y_ = y_.reshape(n_model, e_loc * cap_ij, d)
+        y_ = all_to_all(y_, "model", 0, 0)
+        y_ = y_.reshape(e * cap_ij, d)
+        contrib = y_[slot_l] * sgk_l[:, None]
+        return _combine(contrib[None], order_l[None], tij, k)[0]
+
+    out = shard_map(
+        combine,
+        mesh=mesh,
+        in_specs=(P("model", dp, None), flat_spec, flat_spec, flat_spec),
+        out_specs=tok_spec,
+    )(y, slot, order, sgk)
+    return out, aux
+
+
+def _shard_map_usable(cfg, t: int) -> bool:
+    from repro_torch.sharding.annotate import _ambient_mesh
+
+    mesh = _ambient_mesh()
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
+        return False
+    n = 1
+    for a in tuple(a for a in ("pod", "data") if a in mesh.axis_names) \
+            + ("model",):
+        n *= mesh.shape[a]
+    return (t % n == 0 and cfg.num_experts % mesh.shape["model"] == 0
+            and t // n >= 1)
+
+
 def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss).  Static-capacity dispatch.
 
     Dispatch mode (``cfg.moe_dispatch``):
-      "auto"    — the grouped path (one card has no mesh);
+      "auto"    — the expert-parallel shard_map when a compatible mesh is
+                  ambient, else the grouped path;
       "grouped" — group-local dispatch;
       "global"  — one sort over every token (the naive baseline).
     """
@@ -309,6 +425,13 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     mode = cfg.moe_dispatch
     if mode not in ("auto", "grouped", "global"):
         raise ValueError(f"unknown moe_dispatch {mode!r}")
+    if mode == "auto" and _shard_map_usable(cfg, b * s):
+        from repro_torch.sharding.annotate import _ambient_mesh
+
+        out, aux_loss = _moe_shard_map(p, xf, cfg, _ambient_mesh())
+        if cfg.dense_residual:
+            out = out + L.mlp_apply(p["dense"], xf, cfg.mlp_kind)
+        return out.reshape(b, s, d), aux_loss
     gates, idx, aux_loss = _router(p, xf, cfg)
     if mode == "global":
         out = _moe_global(p, xf, gates, idx, cfg)

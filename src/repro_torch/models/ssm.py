@@ -116,8 +116,10 @@ def mamba_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence SSD pass. x: (B, S, D) -> (B, S, D).
 
     Every heavy piece dispatches through a descriptor: the five input
-    projections (``matmul``), the chunked SSD core (``ssd_scan``) and the
-    output projection (``matmul``)."""
+    projections (``matmul``), the chunked SSD core (``ssd_scan``: its plan
+    shards the heads over an ambient mesh's model axis) and the output
+    projection (``matmul`` with the ``tp_mode="row"`` single-psum TP
+    form)."""
     bsz, s, _ = x.shape
     z, xin, b_, c_, dt = _project(p, x)
     xh, dt_f, a, bh_, ch_ = conv_and_inputs(p, xin, b_, c_, dt, cfg)
@@ -125,7 +127,7 @@ def mamba_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     y = y.reshape(bsz, s, cfg.d_inner)
     y = y * blas.silu(z.float())
     y = L.rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
-    return blas.matmul(y, p["wo"])
+    return blas.matmul(y, p["wo"], tp_mode="row")
 
 
 def mamba_state_shapes(cfg, batch: int):

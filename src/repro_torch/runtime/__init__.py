@@ -1,10 +1,7 @@
-"""repro_torch.runtime — fault tolerance, stragglers, elastic cluster resize.
+"""repro_torch.runtime — fault tolerance, stragglers, elastic scaling."""
 
-The mesh half of elastic scaling (``replan`` / ``ElasticPlan``) reads
-sharding specs and arrives with the distributed slice.
-"""
-
-from repro_torch.runtime.elastic import ResizeEvent, resize_cluster
+from repro_torch.runtime.elastic import (ElasticPlan, ResizeEvent, replan,
+                                         resize_cluster)
 from repro_torch.runtime.fault_tolerance import (
     ClusterSupervisor,
     DeviceLossEvent,
@@ -17,7 +14,9 @@ from repro_torch.runtime.fault_tolerance import (
 __all__ = [
     "ClusterSupervisor",
     "DeviceLossEvent",
+    "ElasticPlan",
     "ResizeEvent",
+    "replan",
     "resize_cluster",
     "HeartbeatMonitor",
     "StragglerMonitor",

@@ -3,7 +3,9 @@
 (``tools/flash_decode_times.py``, ``tools/ssd_times.py``,
 ``tools/flash_attention_times.py``, ``tools/paper_fig3_h100.py``) imports JAX or the JAX reference package, and
 importing the port's modules loads neither (nor triton, which is imported
-only inside the functions that launch a Triton kernel)."""
+only inside the functions that launch a Triton kernel), loads no kernel
+library and starts no thread (the mesh starts its threads at its first
+``shard_map``)."""
 
 import ast
 import os
@@ -57,9 +59,16 @@ def test_port_import_loads_no_jax_reference_or_triton():
         "repro_torch.analysis.graph, repro_torch.launch.streaming, "
         "repro_torch.optim, repro_torch.checkpoint, repro_torch.data, "
         "repro_torch.launch.train, repro_torch.kernels.autograd, "
-        "repro_torch.tree\n"
+        "repro_torch.tree, repro_torch.sharding, repro_torch.sharding.spmd, "
+        "repro_torch.sharding.annotate, repro_torch.sharding.partition, "
+        "repro_torch.sharding.collective_matmul, repro_torch.launch.mesh, "
+        "repro_torch.launch.pipeline, threading\n"
+        "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "bad += [f'kernel library {k}' for k in _build._LIBS]\n"
+        "bad += [t.name for t in threading.enumerate()\n"
+        "        if t is not threading.main_thread()]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -1618,3 +1618,139 @@ def test_wgmma_launch_from_a_fresh_thread(card):
     assert not t.is_alive() and "error" not in got, got
     torch.cuda.synchronize()
     assert torch.equal(got["c"], want)
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer: plan bodies on an emulated mesh launch the kernels
+# per shard, from the mesh's own threads.
+# ---------------------------------------------------------------------------
+
+def _mesh(*shape):
+    from repro_torch.sharding.spmd import Mesh
+
+    axes = ("data", "model") if len(shape) == 2 else ("model",)
+    return Mesh(shape, axes, device="cuda")
+
+
+def _kernel_policy():
+    from repro_torch.core.hero import offload_policy
+
+    return offload_policy(mode="device", use_kernels=True)
+
+
+@pytest.mark.parametrize("mode", ["row", "col"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tp_matmul_plan_launches_the_gemm_per_shard(card, mode, dtype):
+    from repro_torch.core import blas
+
+    dt = getattr(torch, dtype)
+    x = torch.randn(4, 128, 512, generator=card, device="cuda").to(dt)
+    w = (torch.randn(512, 1024, generator=card, device="cuda")
+         * 512 ** -0.5).to(dt)
+    mesh = _mesh(2, 4)
+    before = gemm.launches
+    with _kernel_policy(), mesh:
+        got = blas.matmul(x, w, tp_mode=mode)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + mesh.size
+    assert _err(got, gemm_ref(x.reshape(-1, 512), w).reshape(got.shape)) \
+        <= TOL[dtype]
+    mesh.close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ep_expert_ffn_plan_launches_three_batched_gemms_per_shard(card,
+                                                                   dtype):
+    from repro_torch.core import blas
+
+    dt = getattr(torch, dtype)
+    e, g, c, d, f = 16, 2, 64, 256, 128
+    x = torch.randn(e, g, c, d, generator=card, device="cuda").to(dt)
+    ws = [(torch.randn(*s, generator=card, device="cuda")
+           * s[1] ** -0.5).to(dt) for s in ((e, d, f), (e, d, f), (e, f, d))]
+    mesh = _mesh(2, 4)
+    before = gemm_batched.launches
+    with _kernel_policy(), mesh:
+        got = blas.moe_expert_ffn(x, *ws)
+    torch.cuda.synchronize()
+    assert gemm_batched.launches == before + 3 * mesh.size
+    from repro_torch.core.hero import offload_policy
+    with offload_policy(mode="device", use_kernels=False):
+        want = blas.moe_expert_ffn(x, *ws)
+    assert _err(got, want) <= TOL[dtype]
+    mesh.close()
+
+
+def test_head_sharded_ssd_plan_launches_the_ssd_kernel_per_shard(card):
+    from repro_torch.core import blas
+
+    b, s, h, p, n = 2, 512, 16, 64, 128
+    xh = torch.randn(b, s, h, p, generator=card, device="cuda")
+    dt = torch.rand(b, s, h, generator=card, device="cuda") * 0.1
+    a = -torch.rand(h, generator=card, device="cuda")
+    bh = torch.randn(b, s, h, n, generator=card, device="cuda")
+    ch = torch.randn(b, s, h, n, generator=card, device="cuda")
+    dsk = torch.randn(h, generator=card, device="cuda")
+    mesh = _mesh(2, 4)
+    before = ssd_chunk_diag.launches
+    with _kernel_policy(), mesh:
+        got = blas.ssd_scan(xh, dt, a, bh, ch, dsk, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd_chunk_diag.launches == before + mesh.size
+    from repro_torch.core.hero import offload_policy
+    with offload_policy(mode="device", use_kernels=False):
+        want = blas.ssd_scan(xh, dt, a, bh, ch, dsk, chunk=256)
+    assert _row_err(got, want) <= 1e-4
+    mesh.close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_ag_matmul_on_the_card(card, dtype):
+    from repro_torch.sharding.collective_matmul import ring_ag_matmul
+    from repro_torch.sharding.spmd import P, shard_map
+
+    dt = getattr(torch, dtype)
+    x = torch.randn(2, 256, 512, generator=card, device="cuda").to(dt)
+    w = (torch.randn(512, 768, generator=card, device="cuda")
+         * 512 ** -0.5).to(dt)
+    mesh = _mesh(4)
+    fn = shard_map(lambda xs, wl: ring_ag_matmul(xs, wl, "model"), mesh=mesh,
+                   in_specs=(P(None, "model", None), P(None, "model")),
+                   out_specs=P(None, None, "model"))
+    before = gemm.launches
+    with _kernel_policy():
+        got = fn(x, w)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + 16
+    assert _err(got, gemm(x.reshape(-1, 512), w).reshape(got.shape)) \
+        <= TOL[dtype]
+    mesh.close()
+
+
+def test_gpipe_on_the_card_equals_its_stages_bit_for_bit(card):
+    import torch.nn.functional as F
+
+    from repro_torch import tree
+    from repro_torch.core import blas
+    from repro_torch.launch.pipeline import pipeline_apply
+
+    params = {"w": (torch.randn(4, 256, 256, generator=card, device="cuda")
+                    * 256 ** -0.5).bfloat16(),
+              "b": torch.randn(4, 256, generator=card,
+                               device="cuda").bfloat16()}
+    x = torch.randn(8, 64, 256, generator=card, device="cuda").bfloat16()
+
+    def stage(p, xmb):
+        return F.gelu(blas.matmul(xmb, p["w"]) + p["b"], approximate="tanh")
+
+    mesh = _mesh(4)
+    with _kernel_policy(), torch.no_grad():
+        got = pipeline_apply(params, x, stage, mesh, num_microbatches=8)
+        seq = []
+        for j in range(8):
+            h = x[j:j + 1]
+            for i in range(4):
+                h = stage(tree.tree_map(lambda a: a[i], params), h)
+            seq.append(h)
+    assert torch.equal(got, torch.cat(seq))
+    mesh.close()

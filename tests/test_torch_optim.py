@@ -255,4 +255,4 @@ def test_make_optimizer_follows_the_config():
     assert isinstance(st8.mu["w"], tadamw.QTensor)
     st = T.make_optimizer(get_arch("yi-6b"), 1e-3)[0]({"w": torch.zeros(4)})
     assert st.mu["w"].dtype == torch.float32
-    assert set(T.__all__) == set(J.__all__) - {"compressed_psum"}
+    assert set(T.__all__) == set(J.__all__)
