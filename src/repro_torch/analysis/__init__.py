@@ -7,10 +7,11 @@ seam, twins of the reference's ``analysis/`` package:
   RAW/WAR hazards);
 * :mod:`repro_torch.analysis.races` — happens-before checker over the
   ``LaunchTicket`` event streams the modeled devices emit, the streaming
-  engine's slot refills and the expert-placement migrations.
+  engine's slot refills and the expert-placement migrations;
+* :mod:`repro_torch.analysis.lint` — the AST lint over the port's own
+  source (``tools/repro_torch_lint.py`` drives it).
 
-The reference's third pass, the AST lint over its own source, has no twin
-yet.  Every pass reports :class:`~repro_torch.analysis.base.Violation`
+Every pass reports :class:`~repro_torch.analysis.base.Violation`
 records under the reference's rule names and raises
 :class:`~repro_torch.analysis.base.AnalysisError` subclasses from its
 ``assert_*`` entry points.

@@ -30,8 +30,10 @@ Shape keys and record dtypes use the reference's dtype names
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from repro_torch.core.cost_model import OpCost
 from repro_torch.core.hero import DeviceHandle, engine
@@ -44,6 +46,8 @@ __all__ = [
     "dispatch_placed",
     "dtype_name",
     "get_op",
+    "in_lowering",
+    "observe_lowerings",
     "register",
     "registered_ops",
 ]
@@ -98,6 +102,43 @@ class OffloadOp:
 
 
 _REGISTRY: Dict[str, OffloadOp] = {}
+
+# Observers of the lowerings (the roofline's op counter): each is called,
+# on the lowering's thread, with the cost of every host or kernel lowering
+# that runs outside another one; ``in_lowering()`` tells that lowering's
+# own ops from the code around it.
+_LOWERING_OBSERVERS: List[Callable[[OpCost], None]] = []
+_LOWERING = threading.local()
+
+
+def in_lowering() -> bool:
+    """Whether the calling thread runs a host or kernel lowering."""
+    return getattr(_LOWERING, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def observe_lowerings(fn: Callable[[OpCost], None]) -> Iterator[None]:
+    """Call ``fn(cost)`` as each outermost host or kernel lowering starts,
+    on any thread, for the scope's duration."""
+    _LOWERING_OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _LOWERING_OBSERVERS.remove(fn)
+
+
+def _lower(fn, cost: OpCost, args: tuple, kwargs: dict):
+    if not _LOWERING_OBSERVERS:
+        return fn(*args, **kwargs)
+    depth = getattr(_LOWERING, "depth", 0)
+    if depth == 0:
+        for observe in list(_LOWERING_OBSERVERS):
+            observe(cost)
+    _LOWERING.depth = depth + 1
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _LOWERING.depth = depth
 
 
 def _descriptor_sig(op: OffloadOp) -> tuple:
@@ -308,10 +349,10 @@ def _dispatch_impl(
         out = op.plan_lower(plan, *args, **kwargs)
         lowering = "plan"
     elif launch.backend == "device-kernel":
-        out = op.kernel(*args, **kwargs)
+        out = _lower(op.kernel, cost, args, kwargs)
         lowering = "kernel"
     else:
-        out = op.host(*args, **kwargs)
+        out = _lower(op.host, cost, args, kwargs)
         lowering = "host"
     if tr is not None:
         tr.instant("lower", cat="dispatch", lane="host",

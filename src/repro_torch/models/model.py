@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import blas
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -65,6 +65,11 @@ class Model:
             params["head"] = L.init_dense(
                 gen, cfg.d_model, cfg.vocab_size, dtype, device=device)
         return params
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The parameters' shapes and dtypes as meta tensors (the
+        reference's ``ShapeDtypeStruct`` tree; one leaf a layer)."""
+        return self.init_params(torch.Generator(), device="meta")
 
     # ---- pieces -------------------------------------------------------------
     def _embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,6 +141,41 @@ class Model:
                                   cfg)
         logits = self._head(params, x)
         return logits[:, 0, :], cache
+
+    # ---- dry-run input specs ---------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Meta-tensor stand-ins for every model input of this cell, under
+        the reference's keys.  A decode cell's ``cache_index`` is a 0-d
+        int32 CPU tensor holding the cache's last slot (``seq_len - 1``):
+        the decode path reads it on the host, which a meta tensor cannot
+        give."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        dt = _dtype_of(cfg)
+
+        def spec(*dims, dtype=i32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            specs: Dict[str, Any] = {}
+            if cfg.embed_inputs:
+                specs["tokens"] = spec(b, s)
+            else:
+                specs["embeds"] = spec(b, s, cfg.d_model, dtype=dt)
+            if cfg.mrope:
+                specs["positions"] = spec(3, b, s)
+            if shape.kind == "train":
+                specs["labels"] = spec(b, s)
+            return specs
+        # decode: one new token against a cache of length s
+        tok = spec(b, 1) if cfg.embed_inputs else spec(b, 1, cfg.d_model,
+                                                        dtype=dt)
+        return {
+            "tokens": tok,
+            "cache": self.init_decode_cache(b, s, device="meta"),
+            "cache_index": torch.tensor(s - 1, dtype=i32),
+        }
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -97,7 +97,10 @@ def _note_moe_step(counts: torch.Tensor, cap: int) -> None:
     """Record the route/pack histogram and the dropped-token books.
 
     ``counts`` is the per-(group,)expert histogram; reading it back to the
-    host waits for the device (one sync per MoE layer)."""
+    host waits for the device (one sync per MoE layer).  A meta tensor
+    (a dry run's shapes) has no histogram: nothing is booked."""
+    if counts.device.type == "meta":
+        return
     c = np.atleast_2d(counts.cpu().numpy().astype(np.int64))   # (G, E)
     hist = c.sum(axis=0)
     dropped = np.maximum(c - int(cap), 0).sum(axis=0)
@@ -442,9 +445,11 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     return out.reshape(b, s, d), aux_loss
 
 
-def _host_histogram(idx: torch.Tensor, e: int) -> List[int]:
+def _host_histogram(idx: torch.Tensor, e: int) -> Optional[List[int]]:
     """Per-expert routed-copy counts as host ints (placement decisions are
-    host-side)."""
+    host-side); None for a meta tensor, which has no counts."""
+    if idx.device.type == "meta":
+        return None
     flat = idx.reshape(-1).cpu().numpy()
     return [int(v) for v in np.bincount(flat, minlength=e)[:e]]
 
@@ -480,8 +485,10 @@ def moe_ffn_placed(
     xf = x.reshape(b * s, d)
     gates, idx, aux_loss = _router(p, xf, cfg)
     expert_fn = None
-    if policy is not None and policy.enabled and policy.attached:
-        hist = _host_histogram(idx, cfg.num_experts)
+    hist = (_host_histogram(idx, cfg.num_experts)
+            if policy is not None and policy.enabled and policy.attached
+            else None)
+    if hist is not None:
         policy.step(hist)
         g_ = _dispatch_groups(b * s, cfg)
         cap = expert_capacity((b * s) // g_, cfg) * g_

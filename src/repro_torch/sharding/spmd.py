@@ -43,7 +43,9 @@ passes the baton back to device 0.  So
   module-level policy and trace stacks of :mod:`repro_torch.core` and the
   records a body's dispatches write see one thread at a time, in device
   order; on the card every launch goes to the calling thread's stream;
-* each body runs under the caller's grad mode, inference mode and, on the
+* each body runs under the caller's grad mode, inference mode, torch
+  dispatch modes (a ``TorchDispatchMode`` is thread-local: a counter the
+  caller entered sees every body's ops and each collective's) and, on the
   card, the caller's current stream.
 
 A body must call the same collectives in the same order on every device
@@ -55,7 +57,11 @@ the descriptors it reaches take no plan of their own, and it may not call
 :func:`shard_map` itself.
 
 Each mesh counts every collective's calls and operand bytes per mesh
-device (:attr:`Mesh.collectives`).  On one card a collective is a copy
+device (:attr:`Mesh.collectives`) and its result bytes
+(:attr:`Mesh.collective_results`: an all-gather's result is its group's
+size times its operand).  While the last device computes a collective,
+:func:`computing_collective` names it, so a counter can tell the
+collective's math from the body's.  On one card a collective is a copy
 inside one memory: it says nothing of a wire between chips.
 """
 
@@ -68,11 +74,13 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch import tree
 
 __all__ = ["Mesh", "P", "all_gather", "all_to_all", "ambient_mesh",
-           "axis_index", "axis_size", "pmax", "pmean", "ppermute", "psum",
+           "axis_index", "axis_size", "computing_collective",
+           "current_shard", "pmax", "pmean", "ppermute", "psum",
            "shard_map"]
 
 
@@ -107,7 +115,8 @@ def _axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-_LOCAL = threading.local()     # .meshes (ambient stack), .shard (in a body)
+_LOCAL = threading.local()     # .meshes (ambient stack), .shard (in a body),
+                               # .collective (while computing one)
 
 
 def ambient_mesh() -> Optional["Mesh"]:
@@ -115,6 +124,18 @@ def ambient_mesh() -> Optional["Mesh"]:
     a ``shard_map`` body, whose axes are manual)."""
     meshes = getattr(_LOCAL, "meshes", None)
     return meshes[-1] if meshes else None
+
+
+def current_shard() -> Optional[int]:
+    """The mesh device whose body the calling thread runs, or None."""
+    ctx = getattr(_LOCAL, "shard", None)
+    return None if ctx is None else ctx[2]
+
+
+def computing_collective() -> Optional[str]:
+    """The collective the calling thread is computing for its mesh (the
+    last device's thread, between the bodies' turns), or None."""
+    return getattr(_LOCAL, "collective", None)
 
 
 class _Aborted(BaseException):
@@ -142,6 +163,7 @@ class Mesh:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._coords = [self._unravel(i) for i in range(self.size)]
         self.collectives: Dict[str, Dict[str, List[int]]] = {}
+        self.collective_results: Dict[str, List[int]] = {}
         self.shard_map_calls = 0
         self._pool: Optional[_Pool] = None
         self._group_cache: Dict[Any, List[List[int]]] = {}
@@ -203,15 +225,18 @@ class Mesh:
         _LOCAL.meshes.pop()
 
     # ---- books ---------------------------------------------------------------
-    def _count(self, kind: str, devs, nbytes) -> None:
+    def _count(self, kind: str, devs, nbytes, rbytes) -> None:
         book = self.collectives.setdefault(
             kind, {"calls": [0] * self.size, "bytes": [0] * self.size})
-        for dev, nb in zip(devs, nbytes):
+        res = self.collective_results.setdefault(kind, [0] * self.size)
+        for dev, nb, rb in zip(devs, nbytes, rbytes):
             book["calls"][dev] += 1
             book["bytes"][dev] += int(nb)
+            res[dev] += int(rb)
 
     def reset_collectives(self) -> None:
         self.collectives = {}
+        self.collective_results = {}
         self.shard_map_calls = 0
 
     def collective_totals(self) -> Dict[str, Dict[str, int]]:
@@ -226,7 +251,8 @@ class Mesh:
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
         call = _Call(self, fn, local_args, torch.is_grad_enabled(),
-                     torch.is_inference_mode_enabled(), stream)
+                     torch.is_inference_mode_enabled(), stream,
+                     _get_current_dispatch_mode_stack())
         return self._pool.run(call)
 
     def close(self) -> None:
@@ -240,10 +266,11 @@ class _Call:
     """One ``shard_map`` call's rendezvous state; guarded by the pool's
     lock, except what the baton's holder alone touches."""
 
-    def __init__(self, mesh, fn, local_args, grad, inference, stream):
+    def __init__(self, mesh, fn, local_args, grad, inference, stream, modes):
         n = mesh.size
         self.mesh, self.fn, self.local_args = mesh, fn, local_args
         self.grad, self.inference, self.stream = grad, inference, stream
+        self.modes = modes                      # the caller's, outermost first
         self.turn = 0
         self.slots: List[Any] = [None] * n      # the meeting's operands
         self.results: List[Any] = [None] * n    # the last meeting's results
@@ -335,6 +362,8 @@ class _Pool:
                     stack.enter_context(torch.inference_mode())
                 if call.stream is not None:
                     stack.enter_context(torch.cuda.stream(call.stream))
+                for mode in call.modes:
+                    stack.enter_context(mode)
                 out = call.fn(*call.local_args[dev])
             self.meet(call, dev, "end", out, None)
         except _Aborted:
@@ -359,12 +388,15 @@ class _Pool:
             if not last:
                 self._give(call, dev + 1)
         if last:
+            _LOCAL.collective = kind
             try:
                 results = _compute(call)
             except BaseException as err:        # noqa: BLE001 - re-raised by run
                 with self.lock:
                     self._abort(call, err)
                 raise _Aborted from None
+            finally:
+                _LOCAL.collective = None
             with self.lock:
                 if kind == "end":
                     call.outputs = results
@@ -398,10 +430,16 @@ def _compute(call: _Call) -> List[Any]:
     out: List[Any] = [None] * mesh.size
     for group in mesh._groups(axis):
         vals = [payloads[d] for d in group]
-        mesh._count(kind, group, [v.numel() * v.element_size() for v in vals])
-        for d, r in zip(group, _COLLECTIVES[kind](vals, *extra)):
+        res = _COLLECTIVES[kind](vals, *extra)
+        mesh._count(kind, group, [_nbytes(v) for v in vals],
+                    [_nbytes(r) for r in res])
+        for d, r in zip(group, res):
             out[d] = r
     return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not the tools that run on the card's machine
-(``tools/flash_decode_times.py``, ``tools/ssd_times.py``,
-``tools/flash_attention_times.py``, ``tools/paper_fig3_h100.py``) imports JAX or the JAX reference package, and
+``chip_smoke.py`` and not the port's tools (``tools/flash_decode_times.py``,
+``tools/ssd_times.py``, ``tools/flash_attention_times.py``,
+``tools/paper_fig3_h100.py``, ``tools/repro_torch_lint.py``) imports JAX
+or the JAX reference package, and
 importing the port's modules loads neither (nor triton, which is imported
 only inside the functions that launch a Triton kernel), loads no kernel
 library and starts no thread (the mesh starts its threads at its first
@@ -24,7 +25,8 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + [ROOT / "tools" / name for name in (
             "flash_decode_times.py", "ssd_times.py",
-            "flash_attention_times.py", "paper_fig3_h100.py")]
+            "flash_attention_times.py", "paper_fig3_h100.py",
+            "repro_torch_lint.py")]
 
 
 def _imported_roots(path):
@@ -62,7 +64,10 @@ def test_port_import_loads_no_jax_reference_or_triton():
         "repro_torch.tree, repro_torch.sharding, repro_torch.sharding.spmd, "
         "repro_torch.sharding.annotate, repro_torch.sharding.partition, "
         "repro_torch.sharding.collective_matmul, repro_torch.launch.mesh, "
-        "repro_torch.launch.pipeline, threading\n"
+        "repro_torch.launch.pipeline, repro_torch.launch.dryrun, "
+        "repro_torch.launch.info, repro_torch.roofline, "
+        "repro_torch.roofline.analysis, repro_torch.roofline.op_count, "
+        "repro_torch.analysis.lint, threading\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"

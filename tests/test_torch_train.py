@@ -20,7 +20,6 @@ Two comparisons are not elementwise at 2e-5, and why:
   records every microbatch.  Count-weighted totals are compared.
 """
 
-import ast
 import dataclasses
 import functools
 import pathlib
@@ -41,6 +40,7 @@ from repro.models import build_model as jbuild
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.optim import warmup_cosine as jwarmup_cosine
 from repro_torch import tree
+from repro_torch.analysis.lint import RULES, FileView, run_lint
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.core import blas
@@ -729,21 +729,13 @@ def test_num_layers_cuts_depth_at_published_widths(tmp_path):
 
 # The one-step SSM decode's small einsums (one token's state update and
 # read-out) are not GEMMs; the reference's rule leaves ``einsum`` alone.
-_RAW_GEMM_CALLS = {"matmul", "mm", "bmm"}
-
 
 def _raw_gemm_sites(path):
-    tree_ = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree_):
-        if isinstance(node, (ast.BinOp, ast.AugAssign)) and \
-                isinstance(node.op, ast.MatMult):
-            yield node.lineno, "@"
-        elif isinstance(node, ast.Call) and \
-                isinstance(node.func, ast.Attribute) and \
-                node.func.attr in _RAW_GEMM_CALLS and \
-                isinstance(node.func.value, ast.Name) and \
-                node.func.value.id == "torch":
-            yield node.lineno, f"torch.{node.func.attr}"
+    """(line, form) of every raw GEMM the lint rule
+    ``models-no-raw-matmul`` (``repro_torch.analysis.lint``) finds."""
+    (rule,) = [r for r in RULES if r.name == "models-no-raw-matmul"]
+    for v in rule.check(FileView.load(path, ROOT)):
+        yield int(v.where.rsplit(":", 1)[1]), v.message.split("(")[1].split(")")[0]
 
 
 @pytest.mark.parametrize(
@@ -753,9 +745,10 @@ def test_models_route_every_gemm_through_blas(path):
     """No ``torch.matmul`` / ``torch.mm`` / ``torch.bmm`` and no ``@``
     under ``models/``: every GEMM goes through ``core/blas``, so the loss
     reaches the kernels (the reference's lint rule
-    ``models-no-dot-general``, ``src/repro/analysis/lint.py``)."""
+    ``models-no-dot-general``; here the port's ``models-no-raw-matmul``)."""
     bad = list(_raw_gemm_sites(path))
     assert not bad, f"{path.name}: raw GEMMs at {bad}"
+    assert run_lint(ROOT, paths=[path], repo_rules=False) == []
 
 
 def test_raw_gemm_walk_finds_each_form(tmp_path):
