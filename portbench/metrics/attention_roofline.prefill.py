@@ -1,0 +1,8 @@
+"""The attention kernel's share of its roofline in the traced forwards (see
+``metrics.roofline_share``; kernel names in ``attention_roofline.prefill.json``)."""
+
+from portbench.metrics import roofline_share
+
+
+def read(r):
+    return roofline_share(r, "attention_roofline.prefill")
