@@ -1626,6 +1626,10 @@ def _profile(fn, cuda_only=False):
                 waits[ev.name]["ms"] += ev.time_range.elapsed_us() / 1e3
                 waits[ev.name]["calls"] += 1
             continue
+        if ev.is_user_annotation:
+            # The device's mirror of a host range (the program's own under
+            # the profiler): no operation of the device.
+            continue
         fam = next((f for f, keys in KERNEL_FAMILIES.items()
                     if any(k in ev.name for k in keys)), "other")
         ms = ev.time_range.elapsed_us() / 1e3

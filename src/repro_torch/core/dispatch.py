@@ -218,6 +218,11 @@ def dispatch(
        :class:`~repro_torch.core.accounting.OffloadRecord` (always carrying
        the placement) and queues the modeled ticket;
     4. the winning lowering runs: plan > kernel > host.
+
+    Under ``torch.profiler`` the call is a ``dispatch:<name>`` range and
+    its lowering a ``lower:<plan|kernel|host>`` range inside it
+    (:func:`repro_torch.obs.spans.measured`), so the seam's own host time
+    is the dispatch range less its lowering.
     """
     out, _ = dispatch_placed(
         name, *args, handle=handle, resident_fraction=resident_fraction,
@@ -259,17 +264,18 @@ def dispatch_placed(
     tensors — raising ``GraphVerificationError`` with named violations
     before any cost is scored, any record written or any kernel launched.
     """
-    if validate:
-        from repro_torch.analysis.graph import assert_call_valid
+    with _spans.measured("dispatch", name):
+        if validate:
+            from repro_torch.analysis.graph import assert_call_valid
 
-        assert_call_valid(name, args, kwargs, handle=handle)
-    tr = _spans.current_tracer()
-    if tr is None:
-        return _dispatch_impl(name, args, kwargs, handle, resident_fraction,
-                              None, placement)
-    with tr.span(f"dispatch:{name}", cat="dispatch", lane="host"):
-        return _dispatch_impl(name, args, kwargs, handle, resident_fraction,
-                              tr, placement)
+            assert_call_valid(name, args, kwargs, handle=handle)
+        tr = _spans.current_tracer()
+        if tr is None:
+            return _dispatch_impl(name, args, kwargs, handle,
+                                  resident_fraction, None, placement)
+        with tr.span(f"dispatch:{name}", cat="dispatch", lane="host"):
+            return _dispatch_impl(name, args, kwargs, handle,
+                                  resident_fraction, tr, placement)
 
 
 def _dispatch_impl(
@@ -346,14 +352,17 @@ def _dispatch_impl(
                           "device_id": launch.device_id},
                    device_id=launch.device_id)
     if plan is not None:
-        out = op.plan_lower(plan, *args, **kwargs)
         lowering = "plan"
+        with _spans.measured("lower", lowering):
+            out = op.plan_lower(plan, *args, **kwargs)
     elif launch.backend == "device-kernel":
-        out = _lower(op.kernel, cost, args, kwargs)
         lowering = "kernel"
+        with _spans.measured("lower", lowering):
+            out = _lower(op.kernel, cost, args, kwargs)
     else:
-        out = _lower(op.host, cost, args, kwargs)
         lowering = "host"
+        with _spans.measured("lower", lowering):
+            out = _lower(op.host, cost, args, kwargs)
     if tr is not None:
         tr.instant("lower", cat="dispatch", lane="host",
                    t=_spans.modeled_now(),

@@ -42,6 +42,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemm import _TMA_ALIGN
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.obs.spans import measured
 
 __all__ = ["ROUTES", "attention_ref", "flash_attention",
            "flash_attention_route"]
@@ -128,38 +129,44 @@ def flash_attention(
                              sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: all operands must be on one device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes one of f32/bf16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not (1 <= d <= _MAX_D):
-        raise ValueError(f"flash_attention kernel takes 1 <= D <= {_MAX_D}, "
-                         f"got {d}")
-    if any(t.stride(3) != 1 for t in (q, k, v) if t.numel()):
-        raise ValueError("flash_attention kernel needs a contiguous head dim")
-    scale = sm_scale if sm_scale is not None else d ** -0.5
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
     operands = (q, k, v, out)
+    # The route reads the output's address; under a profiler the rest of
+    # the card path is one range, checks to count.
     route = flash_attention_route(q.dtype, d, [t.stride() for t in operands],
                                   [t.data_ptr() for t in operands])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, sq, skv, d, int(bool(causal)),
-            int(window is not None), 0 if window is None else int(window),
-            float(scale),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], _DTYPE_CODE[q.dtype], ROUTES.index(route),
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
-                           f"route): cudaError {err}")
-    _build.count_launch(flash_attention, route)
+    with measured("kernel", "flash_attention", route):
+        if k.device != q.device or v.device != q.device:
+            raise ValueError(
+                "flash_attention: all operands must be on one device")
+        if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+                or v.dtype != q.dtype:
+            raise TypeError(f"flash_attention kernel takes one of f32/bf16, "
+                            f"got {q.dtype}, {k.dtype}, {v.dtype}")
+        if not (1 <= d <= _MAX_D):
+            raise ValueError(f"flash_attention kernel takes 1 <= D <= "
+                             f"{_MAX_D}, got {d}")
+        if any(t.stride(3) != 1 for t in (q, k, v) if t.numel()):
+            raise ValueError(
+                "flash_attention kernel needs a contiguous head dim")
+        if out.numel() == 0:
+            return out
+        scale = sm_scale if sm_scale is not None else d ** -0.5
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, hq, hkv, sq, skv, d, int(bool(causal)),
+                int(window is not None), 0 if window is None else int(window),
+                float(scale),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], _DTYPE_CODE[q.dtype], ROUTES.index(route),
+                stream,
+            )
+        if err:
+            raise RuntimeError(f"flash_attention kernel launch failed "
+                               f"({route} route): cudaError {err}")
+        _build.count_launch(flash_attention, route)
     return out
 
 

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.obs.spans import measured
 
 __all__ = ["ROUTES", "DecodePlan", "cluster_capacity", "decode_attention_ref",
            "decode_plan", "flash_decode", "flash_decode_route", "smem_bytes"]
@@ -190,42 +191,49 @@ def flash_decode(
         return decode_attention_ref(q, k, v, lo, hi, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
-    if any(t.device != q.device for t in (k, v, lo, hi)):
-        raise ValueError("flash_decode: all operands must be on one device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_decode kernel takes one of f32/bf16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if lo.dtype != torch.int32 or hi.dtype != torch.int32:
-        raise TypeError("flash_decode: lo/hi must be int32")
-    if not (8 <= d <= 256):
-        raise ValueError(f"flash_decode kernel takes 8 <= D <= 256, got {d}")
-    if b > 65535:
-        raise ValueError(f"flash_decode kernel takes B <= 65535, got {b}")
-    if not all(t.is_contiguous() for t in (q, k, v, lo, hi)):
-        raise ValueError("flash_decode kernel takes contiguous operands")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     route = flash_decode_route(q.dtype, d, ptrs)
-    plan = decode_plan(b, hq, hkv, s, d, q.dtype, route, cluster_capacity(
-        route, q.dtype, d, q.device.index))
-    isz = q.element_size()
-    if smem_bytes(route, d, isz, plan.step) > _MAX_SMEM:
-        raise ValueError(f"flash_decode: D {d} needs more shared memory "
-                         f"than one block has")
-    vec16 = int((d * isz) % 16 == 0 and all(p % 16 == 0 for p in ptrs[1:]))
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, float(scale),
-            _DTYPE_CODE[q.dtype], ROUTES.index(route), plan.splits, plan.per,
-            plan.step, vec16, stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_decode kernel launch failed ({route}, "
-                           f"{plan}): cudaError {err}")
-    _build.count_launch(flash_decode, route)
+    # Under a profiler the wrapper's card path is one range, checks to count.
+    with measured("kernel", "flash_decode", route):
+        if any(t.device != q.device for t in (k, v, lo, hi)):
+            raise ValueError(
+                "flash_decode: all operands must be on one device")
+        if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+                or v.dtype != q.dtype:
+            raise TypeError(f"flash_decode kernel takes one of f32/bf16, got "
+                            f"{q.dtype}, {k.dtype}, {v.dtype}")
+        if lo.dtype != torch.int32 or hi.dtype != torch.int32:
+            raise TypeError("flash_decode: lo/hi must be int32")
+        if not (8 <= d <= 256):
+            raise ValueError(
+                f"flash_decode kernel takes 8 <= D <= 256, got {d}")
+        if b > 65535:
+            raise ValueError(f"flash_decode kernel takes B <= 65535, got {b}")
+        if not all(t.is_contiguous() for t in (q, k, v, lo, hi)):
+            raise ValueError("flash_decode kernel takes contiguous operands")
+        plan = decode_plan(b, hq, hkv, s, d, q.dtype, route,
+                           cluster_capacity(route, q.dtype, d,
+                                            q.device.index))
+        isz = q.element_size()
+        if smem_bytes(route, d, isz, plan.step) > _MAX_SMEM:
+            raise ValueError(f"flash_decode: D {d} needs more shared memory "
+                             f"than one block has")
+        vec16 = int((d * isz) % 16 == 0
+                    and all(p % 16 == 0 for p in ptrs[1:]))
+        scale = sm_scale if sm_scale is not None else d ** -0.5
+        out = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+                hi.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, float(scale),
+                _DTYPE_CODE[q.dtype], ROUTES.index(route), plan.splits,
+                plan.per, plan.step, vec16, stream,
+            )
+        if err:
+            raise RuntimeError(f"flash_decode kernel launch failed ({route}, "
+                               f"{plan}): cudaError {err}")
+        _build.count_launch(flash_decode, route)
     return out
 
 

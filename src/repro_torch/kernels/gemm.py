@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gemm_batched_ref, gemm_ref
+from repro_torch.obs.spans import measured
 
 __all__ = ["ROUTES", "SkinnyPlan", "Tf32x3Plan", "gemm", "gemm_batched",
            "gemm_batched_ref", "gemm_ref", "gemm_route", "skinny_plan",
@@ -409,10 +410,9 @@ def _launch_gemm(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
     )
 
 
-def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides) -> str:
-    """Launch the route :func:`gemm_route` names; returns the route."""
-    route = gemm_route(m, n, k, batch, a.dtype, a_strides, b_strides,
-                       a.data_ptr(), b.data_ptr())
+def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
+            route) -> None:
+    """Launch ``route``'s kernel, as :func:`gemm_route` named it."""
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "skinny":
@@ -424,7 +424,6 @@ def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides) -> str:
     if err:
         raise RuntimeError(
             f"gemm kernel launch failed ({route} route): cudaError {err}")
-    return route
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
@@ -442,13 +441,17 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     if a.device.type == "cpu":
         return gemm_ref(a, b, out_dtype=out_dtype)
-    _check_kernel_operands("gemm", a, b, out_dtype, (a, b))
     m, k = a.shape
     n = b.shape[1]
-    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    route = _launch(a, b, c, m, n, k, 1, (0, *a.stride()), (0, *b.stride()),
-                    (0, n))
-    _build.count_launch(gemm, route)
+    a_strides, b_strides = (0, *a.stride()), (0, *b.stride())
+    route = gemm_route(m, n, k, 1, a.dtype, a_strides, b_strides,
+                       a.data_ptr(), b.data_ptr())
+    # Under a profiler the wrapper's card path is one range, checks to count.
+    with measured("kernel", "gemm", route):
+        _check_kernel_operands("gemm", a, b, out_dtype, (a, b))
+        c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        _launch(a, b, c, m, n, k, 1, a_strides, b_strides, (0, n), route)
+        _build.count_launch(gemm, route)
     return c
 
 
@@ -475,12 +478,16 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
         return gemm_batched_ref(a, b, out_dtype=out_dtype)
     z, m, k = a.shape
     n = b.shape[2]
-    c = torch.empty((z, m, n), dtype=out_dtype, device=a.device)
     if z == 0:
-        return c
-    _check_kernel_operands("gemm_batched", a, b, out_dtype, (a[0], b[0]))
-    route = _launch(a, b, c, m, n, k, z, a.stride(), b.stride(), (m * n, n))
-    _build.count_launch(gemm_batched, route)
+        return torch.empty((z, m, n), dtype=out_dtype, device=a.device)
+    route = gemm_route(m, n, k, z, a.dtype, a.stride(), b.stride(),
+                       a.data_ptr(), b.data_ptr())
+    with measured("kernel", "gemm", route):
+        _check_kernel_operands("gemm_batched", a, b, out_dtype, (a[0], b[0]))
+        c = torch.empty((z, m, n), dtype=out_dtype, device=a.device)
+        _launch(a, b, c, m, n, k, z, a.stride(), b.stride(), (m * n, n),
+                route)
+        _build.count_launch(gemm_batched, route)
     return c
 
 

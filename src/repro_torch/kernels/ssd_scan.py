@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_chunk_diag_ref
+from repro_torch.obs.spans import measured
 
 __all__ = ["ROUTES", "SsdPlan", "mma_smem_bytes", "ssd_chunk_diag",
            "ssd_chunk_diag_ref", "ssd_plan", "ssd_route"]
@@ -157,36 +158,40 @@ def ssd_chunk_diag(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_diag: no kernel for device {x.device}")
     ops = (x, dt_a, b, c)
-    if any(t.device != x.device for t in ops):
-        raise ValueError("ssd_chunk_diag: all operands must be on one device")
-    if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype for t in ops):
-        raise TypeError(f"ssd_chunk_diag kernel takes one of f32/bf16, got "
-                        f"{[str(t.dtype) for t in ops]}")
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("ssd_chunk_diag kernel takes contiguous operands")
     n = b.shape[3]
-    if not (1 <= p <= _MAX_P) or n < 1:
-        raise ValueError(f"ssd_chunk_diag kernel takes 1 <= P <= {_MAX_P} "
-                         f"and N >= 1, got P {p}, N {n}")
-    if bh * nc > _MAX_CELLS:
-        raise ValueError(f"ssd_chunk_diag kernel takes < 2^31 cells, got "
-                         f"{bh * nc}")
     out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
+    # The route reads the output's address; under a profiler the rest of
+    # the card path is one range, checks to count.
     route = ssd_route(x.dtype, p, n, [t.data_ptr() for t in (*ops, out)])
-    plan = ssd_plan(q)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(
-            x.data_ptr(), dt_a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            out.data_ptr(), bh * nc, q, p, n, _DTYPE_CODE[x.dtype],
-            ROUTES.index(route), plan.tiles, len(plan.blocks), stream,
-        )
-    if err:
-        raise RuntimeError(f"ssd_chunk_diag kernel ({route}) launch failed: "
-                           f"cudaError {err}")
-    _build.count_launch(ssd_chunk_diag, route)
+    with measured("kernel", "ssd_scan", route):
+        if any(t.device != x.device for t in ops):
+            raise ValueError(
+                "ssd_chunk_diag: all operands must be on one device")
+        if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype for t in ops):
+            raise TypeError(f"ssd_chunk_diag kernel takes one of f32/bf16, "
+                            f"got {[str(t.dtype) for t in ops]}")
+        if not all(t.is_contiguous() for t in ops):
+            raise ValueError("ssd_chunk_diag kernel takes contiguous operands")
+        if not (1 <= p <= _MAX_P) or n < 1:
+            raise ValueError(f"ssd_chunk_diag kernel takes 1 <= P <= "
+                             f"{_MAX_P} and N >= 1, got P {p}, N {n}")
+        if bh * nc > _MAX_CELLS:
+            raise ValueError(f"ssd_chunk_diag kernel takes < 2^31 cells, got "
+                             f"{bh * nc}")
+        if out.numel() == 0:
+            return out
+        plan = ssd_plan(q)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _fn()(
+                x.data_ptr(), dt_a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                out.data_ptr(), bh * nc, q, p, n, _DTYPE_CODE[x.dtype],
+                ROUTES.index(route), plan.tiles, len(plan.blocks), stream,
+            )
+        if err:
+            raise RuntimeError(f"ssd_chunk_diag kernel ({route}) launch "
+                               f"failed: cudaError {err}")
+        _build.count_launch(ssd_chunk_diag, route)
     return out
 
 

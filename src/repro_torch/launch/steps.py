@@ -32,6 +32,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models.model import Model
+from repro_torch.obs.spans import measured
 from repro_torch.optim import compression as C
 from repro_torch.optim.adamw import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
@@ -137,9 +138,11 @@ def make_prefill_step(model: Model):
     """``prefill_step(params, batch) -> logits (B, S, V)``: one
     ``Model.forward`` over the whole prompt.  ``batch`` is the reference's
     dict (``tokens`` (B, S) int or ``embeds`` (B, S, D), optional
-    ``positions``) or a (B, S) token tensor."""
+    ``positions``) or a (B, S) token tensor.  Under ``torch.profiler`` a
+    call is one ``step:prefill`` range."""
     def prefill_step(params, batch):
-        return model.forward(params, batch)[0]
+        with measured("step", "prefill"):
+            return model.forward(params, batch)[0]
 
     return prefill_step
 

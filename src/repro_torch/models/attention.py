@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import blas
 from repro_torch.models import layers as L
+from repro_torch.obs.spans import measured
 
 __all__ = ["init_attention", "split_qkv", "rotate_qk", "attention_block",
            "decode_attention_block"]
@@ -65,12 +66,14 @@ def _project_qkv(p, x, cfg, positions, rope_theta):
 
 def rotate_qk(q, k, cfg, positions, rope_theta):
     """RoPE on q and k — M-RoPE on (3, B, S) positions for qwen2-vl; other
-    archs take (B, S) positions, or the first stream of (3, B, S) ones."""
-    if cfg.mrope:
-        return (L.mrope(q, positions, rope_theta),
-                L.mrope(k, positions, rope_theta))
-    pos2d = positions if positions.ndim == 2 else positions[0]
-    return L.rope(q, pos2d, rope_theta), L.rope(k, pos2d, rope_theta)
+    archs take (B, S) positions, or the first stream of (3, B, S) ones.
+    Under ``torch.profiler`` the pair is one ``glue:rope`` range."""
+    with measured("glue", "rope"):
+        if cfg.mrope:
+            return (L.mrope(q, positions, rope_theta),
+                    L.mrope(k, positions, rope_theta))
+        pos2d = positions if positions.ndim == 2 else positions[0]
+        return L.rope(q, pos2d, rope_theta), L.rope(k, pos2d, rope_theta)
 
 
 def attention_block(

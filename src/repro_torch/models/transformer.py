@@ -44,6 +44,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.obs.spans import measured
 
 __all__ = [
     "init_stack",
@@ -104,32 +105,35 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, is_moe: bool, *,
                  positions, window, rope_theta):
     """One pre-norm residual block (training / prefill): attention or the
     Mamba mixer, then the FFN (dense or MoE; none in an SSM stack).
-    Returns ``(x, aux_loss)``: the MoE router's loss, else 0."""
-    if cfg.forward_mode == "graph":
-        # Whole-block graph capture: the hnp scheduler fuses elementwise
-        # epilogues, batches independent projections and threads residency
-        # across the block (models/forward.py).  Same descriptors, same math.
-        from repro_torch.models import forward as F
+    Returns ``(x, aux_loss)``: the MoE router's loss, else 0.  Under
+    ``torch.profiler`` a block is one ``layer:<kind>`` range."""
+    with measured("layer", kind):
+        if cfg.forward_mode == "graph":
+            # Whole-block graph capture: the hnp scheduler fuses
+            # elementwise epilogues, batches independent projections and
+            # threads residency across the block (models/forward.py).
+            # Same descriptors, same math.
+            from repro_torch.models import forward as F
 
-        return F.graph_block(
-            p, x, cfg, kind, is_moe,
-            positions=positions, window=window, rope_theta=rope_theta,
-        )
-    h = L.apply_norm(x, p["norm1"], cfg.norm_eps, cfg.norm_kind)
-    if kind == "attn":
-        x = x + A.attention_block(p["mixer"], h, cfg, positions=positions,
-                                  window=window, rope_theta=rope_theta)
-    else:
-        x = x + S.mamba_block(p["mixer"], h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "ssm":
-        return x, aux
-    h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
-    if is_moe:
-        f, aux = M.moe_ffn(p["ffn"], h, cfg)
-    else:
-        f = L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
-    return x + f, aux
+            return F.graph_block(
+                p, x, cfg, kind, is_moe,
+                positions=positions, window=window, rope_theta=rope_theta,
+            )
+        h = L.apply_norm(x, p["norm1"], cfg.norm_eps, cfg.norm_kind)
+        if kind == "attn":
+            x = x + A.attention_block(p["mixer"], h, cfg, positions=positions,
+                                      window=window, rope_theta=rope_theta)
+        else:
+            x = x + S.mamba_block(p["mixer"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "ssm":
+            return x, aux
+        h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
+        if is_moe:
+            f, aux = M.moe_ffn(p["ffn"], h, cfg)
+        else:
+            f = L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
+        return x + f, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,15 @@
-"""repro_torch.obs — observability over the modeled runtime.
+"""repro_torch.obs — observability over the runtime, on two clocks.
 
-Four pieces, all on modeled time (never wall clock):
+Modeled time is what the runtime's cost model and stream simulation
+stamp; the span tracer, the Chrome export, the counters and the flight
+recorder write only to it (never the wall clock).  The profiler's clock is
+the one ``torch.profiler`` stamps the card's activity on; only
+:func:`~repro_torch.obs.spans.measured` writes to it, with
+``record_function`` ranges opened while the profiler records.
 
 * :mod:`repro_torch.obs.spans` — zero-cost-when-disabled span tracer
-  (``span_trace()`` / ``current_tracer()`` / ``@traced``).
+  (``span_trace()`` / ``current_tracer()`` / ``@traced``) on modeled time,
+  and ``measured(kind, name)``, a range on the profiler's clock.
 * :mod:`repro_torch.obs.trace_export` — Chrome trace-event JSON export
   (Perfetto-loadable) of spans + raw ticket streams.
 * :mod:`repro_torch.obs.metrics` — process-local counters/gauges/histograms
@@ -19,6 +25,7 @@ from repro_torch.obs.metrics import collect, counter, gauge, histogram, snapshot
 from repro_torch.obs.spans import (
     SpanTracer,
     current_tracer,
+    measured,
     modeled_now,
     span_trace,
     traced,
@@ -40,6 +47,7 @@ __all__ = [
     "current_tracer",
     "gauge",
     "histogram",
+    "measured",
     "modeled_now",
     "self_time",
     "snapshot",

@@ -1,23 +1,35 @@
-"""Span tracing on modeled time — zero-cost when disabled.
+"""Span tracing on two clocks: modeled time, and the profiler's.
 
-The runtime already stamps every interesting event onto modeled clocks
-(`LaunchTicket` event pairs, stream-sim heap times, device stream clocks).
-This module turns those stamps into a queryable span set: each
-:class:`Span` carries a name, category, lane (``host``, ``dev3/dma``,
-``dev3/compute``, ``requests``, ...), a ``[t0_s, t1_s]`` window in modeled
-seconds, free-form attrs, and a parent link for nesting.
+**Modeled time** (:class:`SpanTracer`, :func:`span_trace`, :func:`traced`,
+:func:`modeled_now`).  The runtime already stamps every interesting event
+onto modeled clocks (`LaunchTicket` event pairs, stream-sim heap times,
+device stream clocks).  This half turns those stamps into a queryable span
+set: each :class:`Span` carries a name, category, lane (``host``,
+``dev3/dma``, ``dev3/compute``, ``requests``, ...), a ``[t0_s, t1_s]``
+window in modeled seconds, free-form attrs, and a parent link for nesting.
 
-Design contract (enforced by tests/test_obs.py):
+**The profiler's clock** (:func:`measured`).  A ``<kind>:<name>`` range
+(``step:prefill``, ``layer:attn``, ``glue:rope``, ``dispatch:<op>``,
+``lower:<kernel|host|plan>``, ``kernel:<module>.<route>``) opened as a
+``torch.profiler.record_function`` while ``torch.profiler`` records, so
+the profiler stamps it on the clock of the card's own activity.  The
+``dispatch:<op>`` range has the modeled span's name and opens beside it.
+
+Design contract (enforced by tests/test_obs.py and
+tests/test_torch_obs_measured.py):
 
 * **Zero cost when disabled.**  Instrumentation sites guard on
   ``current_tracer() is None`` and never compute span arguments when no
   tracer is installed, so a tracer-off run is bitwise-identical to a run
-  of the uninstrumented code.
+  of the uninstrumented code.  :func:`measured` asks the profiler one flag
+  and, with the profiler off, returns one shared null context: it formats
+  no name and enters no ``record_function``.
 * **Observation only.**  A tracer records; it never touches device
   clocks, RNG, or scheduling state, so a tracer-on run produces the same
-  numerical results as a tracer-off run.
-* **Modeled time only.**  Timestamps come from ticket fields, sim event
-  times, or :func:`modeled_now` — never ``time.*`` / ``datetime`` (the
+  numerical results as a tracer-off run.  The same holds for a range.
+* **No clock read here.**  Modeled timestamps come from ticket fields, sim
+  event times, or :func:`modeled_now`; a measured range is stamped by the
+  profiler.  Neither half calls ``time.*`` / ``datetime`` (the
   ``obs-modeled-time-only`` lint rule patrols this file and the
   instrumented call sites).
 
@@ -27,9 +39,13 @@ Usage::
         y = blas.gemm(a, b)
     print(len(tr.spans), tr.lanes())
 
+    with measured("glue", "rope"):     # a range only under the profiler
+        ...
+
 Module-scope imports are stdlib-only: ``repro_torch.core.hero`` and the
 frontend import this module at module scope, and the frontend's
-import-light contract (tools/check_import_time.py) extends to it.
+import-light contract (tools/check_import_time.py) extends to it;
+:func:`measured` finds torch in ``sys.modules``.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import sys
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 __all__ = [
@@ -44,6 +61,7 @@ __all__ = [
     "Span",
     "SpanTracer",
     "current_tracer",
+    "measured",
     "modeled_now",
     "span_trace",
     "traced",
@@ -311,3 +329,22 @@ def traced(name: Optional[str] = None, cat: str = "host",
                 return fn(*args, **kwargs)
         return wrapper
     return deco
+
+
+# ---------------------------------------------------------------------------
+# Ranges on the profiler's clock
+# ---------------------------------------------------------------------------
+
+_NULL = contextlib.nullcontext()
+
+
+def measured(kind: str, name: str, *parts: str):
+    """A ``record_function`` range named ``<kind>:<name>``, with ``parts``
+    joined on by dots (``measured("kernel", "gemm", route)`` is
+    ``kernel:gemm.<route>``), while ``torch.profiler`` records on this
+    thread; else one shared null context, with no name formatted."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(
+        f"{kind}:{'.'.join((name, *parts))}")
