@@ -668,15 +668,24 @@ def _routed():
 
 
 def zero_routes():
-    for fn in _routed().values():
+    routed = _routed()
+    for fn in routed.values():
         fn.route_launches.update(dict.fromkeys(fn.route_launches, 0))
+    for k in ("gemm", "gemm_batched"):
+        routed[k].grouped_launches = 0
 
 
 def read_routes():
     """{"gemm": {route: launches}, "gemm_batched": {...},
     "flash_attention": {...}, "flash_decode": {...}, "ssd_chunk_diag":
-    {...}} since the last ``zero_routes``."""
-    return {k: dict(fn.route_launches) for k, fn in _routed().items()}
+    {...}, "grouped": {"gemm": n, "gemm_batched": n}} since the last
+    ``zero_routes``; "grouped" counts the ``wgmma`` launches that ran in a
+    tile order other than the plain one (``kernels/gemm.py::wgmma_plan``)."""
+    routed = _routed()
+    out = {k: dict(fn.route_launches) for k, fn in routed.items()}
+    out["grouped"] = {k: routed[k].grouped_launches
+                      for k in ("gemm", "gemm_batched")}
+    return out
 
 
 def require_route(label, routes, route, decode=None, batched=None,
@@ -690,7 +699,7 @@ def require_route(label, routes, route, decode=None, batched=None,
             "gemm_batched": batched or route,
             "flash_attention": attn or route}
     stray = {k: {r: n for r, n in v.items() if r != want.get(k, route) and n}
-             for k, v in routes.items()}
+             for k, v in routes.items() if k != "grouped"}
     if any(stray.values()):
         fail(f"{label}: kernel launches off the {route} / {attn or route} / "
              f"{decode} / mma routes: {routes}")
@@ -5094,7 +5103,9 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "train_launches": launches["train"]["gemm"],
          "train_max_abs_err": max(max_abs["gemm:train"],
                                   max_abs["gemm:train-step"]),
-         "route_launches": {path: r["gemm"] for path, r in routes.items()}},
+         "route_launches": {path: r["gemm"] for path, r in routes.items()},
+         "grouped_launches": {path: r["grouped"]["gemm"]
+                              for path, r in routes.items()}},
         {"name": "gemm_tf32x3", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemm.cu",
          "tile_source": "src/repro_torch/kernels/csrc/gemm_tf32x3.cuh",
@@ -5162,7 +5173,9 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "moe_forward": per_moe["forward"],
          "hnp_validated_launches": launches["hnp-validated"]["gemm_batched"],
          "route_launches": {path: r["gemm_batched"]
-                            for path, r in routes.items()}},
+                            for path, r in routes.items()},
+         "grouped_launches": {path: r["grouped"]["gemm_batched"]
+                              for path, r in routes.items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:37",

@@ -50,12 +50,16 @@ NVCC_FLAGS: Tuple[str, ...] = (
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, route: str) -> None:
+def count_launch(wrapper, route: str, grouped: bool = False) -> None:
     """One launch of ``wrapper``'s kernel on ``route``: adds one to
-    ``wrapper.launches`` and ``wrapper.route_launches[route]``."""
+    ``wrapper.launches`` and ``wrapper.route_launches[route]``, and to
+    ``wrapper.grouped_launches`` when ``grouped`` (a GEMM tile order other
+    than the plain one)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.route_launches[route] += 1
+        if grouped:
+            wrapper.grouped_launches += 1
 
 
 # Loaded libraries by kernel name (a process-wide cache of dlopen handles:

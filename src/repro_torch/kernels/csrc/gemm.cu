@@ -17,7 +17,9 @@
 //   wgmma (gemm_wgmma.cuh) — bf16 operands with m > 16: the forward's,
 //     graph forward's and hnp's GEMMs.  Tensor cores (`wgmma`) on bf16
 //     tiles staged by TMA through a ring of mbarrier-guarded stages, fp32
-//     accumulators in registers; bound by 989 TFLOP/s of bf16 work.
+//     accumulators in registers, blocks over the tiles in grouped order
+//     (kernels/gemm.py::wgmma_plan) so the L2 serves most panel reads;
+//     bound by 989 TFLOP/s of bf16 work.
 //   tf32x3 (gemm_tf32x3.cuh) — f32 operands with m > 16, any layout and
 //     alignment: 3xTF32 `mma.sync` tiles fed by a cp.async ring, the mma
 //     accumulator restarted every 32-deep k tile into an fp32 register sum,
@@ -170,9 +172,11 @@ cudaError_t launch(const void* a, const void* b, void* c, const GemmArgs& g,
 // (bit 0: A staged k-contiguous, i.e. row-major; bit 1: B staged
 // k-contiguous, i.e. K-major), splits (blocks of a cluster along k, at
 // most 8), kc (k rows per split, a multiple of 8) and vec (bit 0: A in
-// 16-byte copies; bit 1: B).  Returns a cudaError_t as int
-// (cudaErrorInvalidValue for a dtype pair, plan or operands the route does
-// not take).
+// 16-byte copies; bit 1: B).  The int after them is the wgmma plan of
+// kernels/gemm.py::wgmma_plan (the other routes ignore it): group, the m
+// tiles a group of the tile order (at least 1; the m tiles or more: the
+// plain order).  Returns a cudaError_t as int (cudaErrorInvalidValue for a
+// dtype pair, plan or operands the route does not take).
 extern "C" int repro_gemm(const void* a, const void* b, void* c,
                           int M, int N, int K, int batch,
                           long long sa_b, long long sa_m, long long sa_k,
@@ -180,7 +184,7 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c,
                           long long sc_b, long long sc_m,
                           int in_dtype, int out_dtype, int route,
                           int tile, int layout, int splits, int kc, int vec,
-                          void* stream) {
+                          int group, void* stream) {
   GemmArgs g{M, N, K, sa_b, sa_m, sa_k, sb_b, sb_k, sb_n, sc_b, sc_m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || batch <= 0) return 0;
@@ -199,11 +203,12 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c,
     const auto* B = static_cast<const __nv_bfloat16*>(b);
     if (out_dtype == 0)
       e = wg::launch<float>(A, B, static_cast<float*>(c), M, N, K, batch,
-                            sa_b, sa_m, sb_b, sb_k, sb_n, sc_b, sc_m, s);
+                            sa_b, sa_m, sb_b, sb_k, sb_n, sc_b, sc_m, group,
+                            s);
     else if (out_dtype == 1)
       e = wg::launch<__nv_bfloat16>(A, B, static_cast<__nv_bfloat16*>(c), M,
                                     N, K, batch, sa_b, sa_m, sb_b, sb_k, sb_n,
-                                    sc_b, sc_m, s);
+                                    sc_b, sc_m, group, s);
     else
       e = cudaErrorInvalidValue;
   } else if (in_dtype == 1 && out_dtype == 0) {

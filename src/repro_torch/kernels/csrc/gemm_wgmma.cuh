@@ -31,12 +31,30 @@
 //   * Epilogue: each consumer thread holds its 64 x BN fragment in
 //     registers and writes it once, rounded to bf16 (round to nearest even)
 //     or as fp32, with masked stores.
+//   * Tile order: the blocks of one batch entry visit the output tiles in
+//     groups of `group` consecutive m tiles (kernels/gemm.py::wgmma_plan
+//     picks it, and writes the map out): within a group m fastest, then n,
+//     then the next group; the last group may be short.  A group that
+//     spans every m tile is the plain order, m fastest over the whole grid.
+//     Only which block computes which tile changes, never a tile's
+//     arithmetic, so C is the same bits in every order.
 //
-// Bound on an H100: at the forward's shapes (m 1024 or 4096) a GEMM does
-// hundreds of FLOPs per byte, above the card's ~295 FLOP/byte ridge, so the
-// bound is 989 TFLOP/s of bf16 tensor-core work.  Not in this tile yet:
-// persistent blocks, clusters with TMA multicast, a TMA-store epilogue
-// overlapped with the next tile, wider (BN 256) tiles.
+// Bound on an H100: a whole GEMM at the forward's shapes does hundreds of
+// FLOPs per byte, above the card's ~295 FLOP/byte ridge, so the bound is
+// 989 TFLOP/s of bf16 tensor-core work.  One tile alone does 2*128*BN*k
+// FLOPs over the (128 + BN) * k * 2 bytes of its A and B panels, 64
+// FLOP/byte at BN 128, so a kernel reaches that bound only where the 50 MB
+// L2 serves most panel reads, i.e. where the blocks on the card at once
+// share panels.  In the plain order one wave of 132 blocks (one a SM) at m
+// 16384 is a strip of 128 m tiles by about one n tile: it reads all of A
+// (134 MB at k 4096) from HBM once a column of n tiles, which caps the
+// kernel near 128 FLOP/byte.  A wave in grouped order is a patch of group
+// x 132 / group tiles, whose blocks read about group + 132 / group panels
+// from HBM instead of about 133: at yi-6b's prefill GEMMs (m 16384) that
+// takes the kernel from about 340 to about 600 TFLOP/s on an H100
+// (tools/gemm_bf16_times.py).  Not in this tile yet: persistent blocks,
+// clusters with TMA multicast, a TMA-store epilogue overlapped with the
+// next tile, wider (BN 256) tiles.
 //
 // TMA needs 16-byte-aligned base addresses and strides: kernels/gemm.py's
 // gemm_route sends only such operands here.  A wait on an mbarrier that
@@ -67,6 +85,7 @@ struct Args {
   int M, N, K;
   int a_z, b_z;              // 1: the operand's batch coordinate is z; 0: broadcast
   long long sc_b, sc_m;      // C strides (elements): batch, row
+  int group;                 // m tiles a group of the tile order, 1..m tiles
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -297,7 +316,15 @@ gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
   uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_STAGE);
   uint64_t* empty = full + STAGES;
 
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, z = blockIdx.z;
+  // The block's tile in grouped order: the card starts a launch's blocks in
+  // the order of id (x fastest, in practice), and a group of g.group m
+  // tiles takes g.group * gridDim.y consecutive ids.
+  const int id = blockIdx.y * gridDim.x + blockIdx.x;
+  const int span = g.group * gridDim.y;
+  const int first = id / span * g.group;
+  const int rows = min(static_cast<int>(gridDim.x) - first, g.group);
+  const int r = id - id / span * span;
+  const int m0 = (first + r % rows) * BM, n0 = r / rows * BN, z = blockIdx.z;
   const int ktiles = (g.K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
@@ -491,14 +518,17 @@ cudaError_t launch_tile(const CUtensorMap& ma, const CUtensorMap& mb, TO* C,
 
 // C[z] = A[z] @ B[z] on the tensor cores.  A row-major (sa_k == 1); B
 // MN-major (sb_n == 1) or K-major (sb_k == 1).  Strides in elements; a batch
-// stride of 0 broadcasts the operand.  Returns cudaErrorInvalidValue when a
-// tensor map cannot be encoded (misaligned base or stride).
+// stride of 0 broadcasts the operand.  group: m tiles a group of the tile
+// order (kernels/gemm.py::wgmma_plan; at least the m tiles: the plain
+// order).  Returns cudaErrorInvalidValue when a tensor map cannot be encoded
+// (misaligned base or stride) or group is below 1.
 template <typename TO>
 cudaError_t launch(const __nv_bfloat16* A, const __nv_bfloat16* B, TO* C,
                    int M, int N, int K, int batch, long long sa_b,
                    long long sa_m, long long sb_b, long long sb_k,
-                   long long sb_n, long long sc_b, long long sc_m,
+                   long long sb_n, long long sc_b, long long sc_m, int group,
                    cudaStream_t stream) {
+  if (group < 1) return cudaErrorInvalidValue;
   const bool narrow = N <= 64;
   const int bn = narrow ? 64 : 128;
   const bool mn_major = sb_n == 1;
@@ -510,8 +540,9 @@ cudaError_t launch(const __nv_bfloat16* A, const __nv_bfloat16* B, TO* C,
       ? encode_3d(&mb, B, N, K, batch, sb_k, b_batch_stride, 64, BK)
       : encode_3d(&mb, B, K, N, batch, sb_n, b_batch_stride, BK, bn);
   if (!ok) return cudaErrorInvalidValue;
+  const int m_tiles = (M + BM - 1) / BM;
   Args g{M, N, K, batch > 1 && sa_b != 0, batch > 1 && b_batch_stride != 0,
-         sc_b, sc_m};
+         sc_b, sc_m, group < m_tiles ? group : m_tiles};
   if (mn_major)
     return narrow ? launch_tile<64, 1, TO>(ma, mb, C, g, batch, stream)
                   : launch_tile<128, 1, TO>(ma, mb, C, g, batch, stream);

@@ -9,7 +9,9 @@ runs, by shape, dtype, layout and alignment, before the launch:
 
 * ``"wgmma"`` — bf16 operands with m > 16 (the forward's and hnp's GEMMs):
   Hopper tensor cores fed by TMA, bound by bf16 FLOPs
-  (``csrc/gemm_wgmma.cuh``);
+  (``csrc/gemm_wgmma.cuh``); :func:`wgmma_plan` fixes the order in which
+  the blocks visit the output tiles from the tile counts and the card's
+  SM count;
 * ``"tf32x3"`` — f32 operands with m > 16, any layout and alignment:
   3xTF32 ``mma.sync`` tiles on the tensor cores fed by a cp.async ring,
   fp32-accurate (``csrc/gemm_tf32x3.cuh``); :func:`tf32x3_plan` fixes the
@@ -32,22 +34,26 @@ retried on another kernel.
 :func:`gemm` launches the kernel for CUDA tensors and takes the plain
 version, :func:`repro_torch.kernels.ref.gemm_ref`, only for CPU tensors.
 There is no fallback: a CUDA tensor the kernel does not take raises.
-``gemm.launches`` counts kernel launches (never plain-version calls), and
-``gemm.route_launches[route]`` the launches of each route.
+``gemm.launches`` counts kernel launches (never plain-version calls),
+``gemm.route_launches[route]`` the launches of each route, and
+``gemm.grouped_launches`` the ``wgmma`` launches whose tile order is not the
+plain one (:func:`wgmma_plan`).
 
 :func:`gemm_batched` replaces ``pallas_gemm_batched`` (same source file,
 the same ``gemm_kernel`` with the batch as the outermost parallel grid
 axis): ``C[z] = A[z] @ B[z]``, launched as one grid over ``blockIdx.z``
 with the operands' own batch strides.  It has its own counter,
 ``gemm_batched.launches``, so a stacked launch is told apart from a
-single one, and its own ``gemm_batched.route_launches``.
+single one, and its own ``gemm_batched.route_launches`` and
+``gemm_batched.grouped_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,7 +63,8 @@ from repro_torch.obs.spans import measured
 
 __all__ = ["ROUTES", "SkinnyPlan", "Tf32x3Plan", "gemm", "gemm_batched",
            "gemm_batched_ref", "gemm_ref", "gemm_route", "skinny_plan",
-           "tf32x3_capacity", "tf32x3_plan"]
+           "sm_count", "tf32x3_capacity", "tf32x3_plan", "wgmma_block_tile",
+           "wgmma_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("skinny", "tiled", "wgmma", "tf32x3")   # index = the C side's code
@@ -319,6 +326,85 @@ def tf32x3_plan(m: int, n: int, k: int, dtype: torch.dtype, a_strides,
     return Tf32x3Plan(bm, bn, splits, kc, a_kmajor, b_kmajor, a_vec, b_vec)
 
 
+# The wgmma kernel's block tile (csrc/gemm_wgmma.cuh): 128 rows by 128
+# columns, or 64 where n <= 64.
+_WG_BM = 128
+
+
+def wgmma_block_tile(block: int, m_tiles: int, n_tiles: int,
+                     group: int) -> Tuple[int, int]:
+    """(m tile, n tile) that block ``block`` of one batch entry computes,
+    in the order of :func:`wgmma_plan`; ``csrc/gemm_wgmma.cuh`` maps its
+    blocks with the same arithmetic."""
+    span = group * n_tiles
+    first = block // span * group
+    rows = min(m_tiles - first, group)
+    r = block % span
+    return first + r % rows, r // rows
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of card ``device``, asked once per card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def wgmma_plan(m: int, n: int, k: int, batch: int, sms: int) -> int:
+    """The tile order of the wgmma kernel for ``C[z] = A[z] @ B[z]`` on
+    a card of ``sms`` SMs: ``group``, the m tiles of a group.
+
+    The kernel's blocks of one batch entry get linear ids in the order the
+    card starts them, ``block = n_idx * m_tiles + m_idx`` over its grid of
+    ``m_tiles = ceil(m / 128)`` by ``n_tiles`` (``ceil(n / 128)``, or 1
+    where n <= 64), and block ``block`` computes tile
+    (:func:`wgmma_block_tile`)::
+
+        span  = group * n_tiles            # blocks of one whole group
+        first = block // span * group      # the group's first m tile
+        rows  = min(m_tiles - first, group)  # the last group may be short
+        r     = block % span
+        tile  = (first + r % rows, r // rows)   # (m tile, n tile)
+
+    so within a group m runs fastest, then n, then the next group.  A group
+    of all ``m_tiles`` is the plain order (tile = (block % m_tiles, block //
+    m_tiles)).  Only which block computes which tile changes, so C is the
+    same bits in every order.
+
+    The rule: one block runs on each SM, so the card works on a wave of
+    ``sms`` consecutive blocks at a time, and a wave reads each A and B
+    panel of its tiles from HBM once (the L2 holds a panel while the
+    wave's blocks walk k together).  In groups of g a wave covers g m
+    tiles by the columns that ``sms`` blocks span from where the wave
+    starts in a column, ``ceil((o + sms) / g)`` for a start o; over the
+    starts that successive waves take (the multiples of gcd(g, sms)) that
+    is, on average, :func:`_wave_columns`.  The plan is the g in 1 ..
+    m_tiles with the fewest panels a wave, g plus those columns, the larger
+    on a tie.  A grid that fits in one wave reads every panel once in any
+    order and keeps the plain one; so does every launch whose best g is
+    all its m tiles (m <= 1024 on 132 SMs).  On an H100 (132 SMs) the rule
+    gives 12 at yi-6b's prefill shapes (a wave is a 12 x 11 patch, 23
+    panels, against 129-130 in the plain order), the fastest of the groups
+    ``tools/gemm_bf16_times.py --orders`` timed there.  k is not read (at k
+    11008 groups 6 to 12 ran within 1 % of each other), nor ``batch``
+    (each batch entry is ordered alone).  Returns at most ``m_tiles``, and
+    exactly ``m_tiles`` for the plain order."""
+    m_tiles = -(-m // _WG_BM)
+    n_tiles = 1 if n <= 64 else -(-n // 128)
+    if m_tiles * n_tiles <= sms:
+        return m_tiles
+    return min(range(1, m_tiles + 1),
+               key=lambda g: (g + _wave_columns(g, sms), -g))
+
+
+def _wave_columns(group: int, wave: int) -> float:
+    """Mean n columns that a wave of ``wave`` consecutive blocks spans in
+    groups of ``group`` m tiles, over the starts successive waves take."""
+    step = math.gcd(group, wave)
+    starts = range(0, group, step)
+    return sum(-(-(o + wave) // group) for o in starts) / len(starts)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.library("gemm").repro_gemm
@@ -327,7 +413,7 @@ def _fn():
         [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 8
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     return fn
 
@@ -387,10 +473,12 @@ def _launch_skinny(a, b, c, m, n, k, batch, a_strides, b_strides,
 
 
 def _launch_gemm(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
-                 route, stream, plan: Optional[Tf32x3Plan] = None) -> int:
-    """One launch through ``repro_gemm`` on ``route`` ("tiled", "wgmma" or
-    "tf32x3", whose plan is :func:`tf32x3_plan`'s unless given); returns
-    the cudaError_t."""
+                 route, stream, plan: Optional[Tf32x3Plan] = None,
+                 group: int = 1) -> int:
+    """One launch through ``repro_gemm`` on ``route`` ("tiled", "wgmma"
+    in the tile order ``group`` of :func:`wgmma_plan`, or "tf32x3", whose
+    plan is :func:`tf32x3_plan`'s unless given); returns the
+    cudaError_t."""
     t3 = (0, 0, 1, 8, 0)
     if route == "tf32x3":
         if plan is None:
@@ -406,13 +494,17 @@ def _launch_gemm(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
         *b_strides,         # B strides: batch, k, column
         *c_strides,         # C strides: batch, row
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype], ROUTES.index(route),
-        *t3, stream,
+        *t3, group, stream,
     )
 
 
 def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
-            route) -> None:
-    """Launch ``route``'s kernel, as :func:`gemm_route` named it."""
+            route) -> bool:
+    """Launch ``route``'s kernel, as :func:`gemm_route` named it; True
+    when it ran ``wgmma`` in an order other than the plain one."""
+    group = 1
+    if route == "wgmma":
+        group = wgmma_plan(m, n, k, batch, sm_count(a.device.index))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "skinny":
@@ -420,10 +512,11 @@ def _launch(a, b, c, m, n, k, batch, a_strides, b_strides, c_strides,
                                  b_strides, c_strides, stream)
         else:
             err = _launch_gemm(a, b, c, m, n, k, batch, a_strides, b_strides,
-                               c_strides, route, stream)
+                               c_strides, route, stream, group=group)
     if err:
         raise RuntimeError(
             f"gemm kernel launch failed ({route} route): cudaError {err}")
+    return route == "wgmma" and group < -(-m // _WG_BM)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
@@ -450,13 +543,15 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     with measured("kernel", "gemm", route):
         _check_kernel_operands("gemm", a, b, out_dtype, (a, b))
         c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-        _launch(a, b, c, m, n, k, 1, a_strides, b_strides, (0, n), route)
-        _build.count_launch(gemm, route)
+        grouped = _launch(a, b, c, m, n, k, 1, a_strides, b_strides, (0, n),
+                          route)
+        _build.count_launch(gemm, route, grouped)
     return c
 
 
 gemm.launches = 0
 gemm.route_launches = dict.fromkeys(ROUTES, 0)
+gemm.grouped_launches = 0
 
 
 def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
@@ -485,11 +580,12 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
     with measured("kernel", "gemm", route):
         _check_kernel_operands("gemm_batched", a, b, out_dtype, (a[0], b[0]))
         c = torch.empty((z, m, n), dtype=out_dtype, device=a.device)
-        _launch(a, b, c, m, n, k, z, a.stride(), b.stride(), (m * n, n),
-                route)
-        _build.count_launch(gemm_batched, route)
+        grouped = _launch(a, b, c, m, n, k, z, a.stride(), b.stride(),
+                          (m * n, n), route)
+        _build.count_launch(gemm_batched, route, grouped)
     return c
 
 
 gemm_batched.launches = 0
 gemm_batched.route_launches = dict.fromkeys(ROUTES, 0)
+gemm_batched.grouped_launches = 0

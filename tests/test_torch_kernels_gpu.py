@@ -152,6 +152,99 @@ def test_gemm_batched_wgmma_equals_single_launches(card, layout,
     assert _err(got, gemm_batched_ref(a, b)) <= TOL["bfloat16"]
 
 
+# The wgmma tile order (kernels/gemm.py::wgmma_plan), forced: ragged m and
+# n (neither a multiple of 128) with groups that leave a short last group,
+# one group a m tile, and the plan's own; the narrow BN 64 tile (n <= 64);
+# both B layouts.  m 2000 is 16 m tiles.
+ORDER_CASES = [(2000, 1000, 264, "mn"), (2000, 1000, 264, "k"),
+               (2000, 48, 512, "mn"), (2000, 64, 512, "k"),
+               (1100, 1800, 136, "mn")]
+
+
+def _wgmma_in_order(a, b, c, group):
+    from repro_torch.kernels import gemm as G
+
+    z, m, k = a.shape
+    n = b.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert G._launch_gemm(a, b, c, m, n, k, z, a.stride(), b.stride(),
+                          c.stride()[:2], "wgmma", stream, group=group) == 0
+    torch.cuda.synchronize()
+    return c
+
+
+@pytest.mark.parametrize("m,n,k,layout", ORDER_CASES,
+                         ids=["x".join(map(str, c)) for c in ORDER_CASES])
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_gemm_wgmma_grouped_order_equals_plain_bit_for_bit(card, m, n, k,
+                                                           layout, out):
+    """Every group size gives the plain order's C bit for bit: only which
+    block computes which tile changes."""
+    from repro_torch.kernels import gemm as G
+
+    a = torch.randn(1, m, k, generator=card, device="cuda").bfloat16()
+    b = _b_operand(card, k, n, layout)[None]
+    m_tiles = -(-m // 128)
+    plain = _wgmma_in_order(
+        a, b, torch.empty(1, m, n, dtype=getattr(torch, out), device="cuda"),
+        m_tiles)
+    assert _err(plain[0], gemm_ref(a[0], b[0], out_dtype=torch.float32)) \
+        <= TOL["bfloat16"]
+    for group in sorted({1, 3, 5, 7, G.wgmma_plan(m, n, k, 1,
+                                                   G.sm_count(0))}):
+        c = torch.full_like(plain, float("nan"))
+        assert torch.equal(_wgmma_in_order(a, b, c, group), plain), group
+
+
+@pytest.mark.parametrize("layout", ["mn", "k"])
+def test_gemm_batched_grouped_order_with_a_broadcast_operand(card, layout):
+    """A stack with A broadcast (batch stride 0) in grouped order equals the
+    plain order bit for bit, each batch entry ordered alone."""
+    m, k, n = 1500, 512, 712
+    a = torch.randn(m, k, generator=card, device="cuda").bfloat16().expand(
+        3, m, k)
+    bs = [_b_operand(card, k, n, layout) for _ in range(3)]
+    b = torch.stack(bs) if layout == "mn" else \
+        torch.stack([x.T for x in bs]).transpose(1, 2)
+    plain = _wgmma_in_order(a, b, torch.empty(3, m, n, dtype=torch.bfloat16,
+                                              device="cuda"), -(-m // 128))
+    for group in (2, 5):
+        c = torch.full_like(plain, float("nan"))
+        assert torch.equal(_wgmma_in_order(a, b, c, group), plain), group
+    assert torch.equal(gemm_batched(a, b), plain)
+
+
+def test_gemm_grouped_launches_counted_at_large_m_only(card):
+    """A launch at m 16384 runs in grouped order and counts once in
+    ``grouped_launches``; one at m 1024 keeps the plain order and does not
+    count; the batched wrapper counts its own."""
+    a = torch.randn(16384, 1024, generator=card, device="cuda").bfloat16()
+    b = _b_operand(card, 1024, 256, "mn")
+    before = (gemm.grouped_launches, gemm_batched.grouped_launches)
+    gemm(a, b)
+    assert gemm.grouped_launches == before[0] + 1
+    gemm(a[:1024], b)
+    gemm_batched(a[:1024].expand(2, 1024, 1024), b.expand(2, 1024, 256))
+    assert (gemm.grouped_launches, gemm_batched.grouped_launches) == \
+        (before[0] + 1, before[1])
+    gemm_batched(a.expand(2, 16384, 1024), b.expand(2, 1024, 256))
+    torch.cuda.synchronize()
+    assert gemm_batched.grouped_launches == before[1] + 1
+
+
+def test_gemm_wgmma_yi6b_shape_at_m16384_holds_the_bar(card):
+    """yi-6b's fused qkv projection at the benchmark's 4 x 4096 tokens, in
+    the plan's grouped order, within the bf16 bar of the plain version."""
+    a = torch.randn(16384, 4096, generator=card, device="cuda").bfloat16()
+    b = _b_operand(card, 4096, 5120, "mn")
+    before = gemm.grouped_launches
+    got = gemm(a, b)
+    torch.cuda.synchronize()
+    assert gemm.grouped_launches == before + 1
+    assert _err(got, gemm_ref(a, b, out_dtype=torch.float32)) \
+        <= TOL["bfloat16"]
+
+
 def test_gemm_routes_counted_by_kernel(card):
     """Serving shapes (m = 8) take the skinny kernel, f32 at m > 16 the
     3xTF32 tensor-core tile (a column-major A too), bf16 with a
