@@ -32,6 +32,7 @@ class Cell:
     traffic: Dict
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    config_file: pathlib.Path
 
 
 def _in_cell(metric: Dict, cell: str) -> bool:
@@ -47,13 +48,15 @@ def load_cell(workload: str, root: pathlib.Path = ROOT) -> Cell:
                        f"{sorted(cells)}")
     w = cells[workload]
     entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
-    config = json.loads((root / entry["file"]).read_text())
+    config_file = root / entry["file"]
+    config = json.loads(config_file.read_text())
     traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json")
                          .read_text())
     return Cell(
         name=workload, chips=int(w["chips"]), config=config, traffic=traffic,
         end_to_end=[m for m in bench["end_to_end"] if _in_cell(m, workload)],
-        per_layer=[m for m in bench["per_layer"] if _in_cell(m, workload)])
+        per_layer=[m for m in bench["per_layer"] if _in_cell(m, workload)],
+        config_file=config_file)
 
 
 def load_config(name: str) -> Dict:

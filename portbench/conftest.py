@@ -1,6 +1,7 @@
 """Test settings of the benchmark's own tests: the ``gpu`` marker (a test
 that needs a CUDA card; it decides inside a fixture and skips without one)
-and the tiny cells the CPU tests run."""
+and the tiny cells the CPU tests run, each cut by the ``cpu_cut`` of its
+configuration file."""
 
 import copy
 import dataclasses
@@ -32,29 +33,31 @@ def tiny():
 @pytest.fixture
 def tiny_config():
     """``tiny_config(name)``: see :func:`cut`."""
-    from portbench.cells import load_config
+    from portbench.cells import HERE, load_config
 
-    return lambda name: cut(load_config(name))
+    return lambda name: cut(load_config(name),
+                            HERE / "configs" / f"{name}.json")
 
 
-def cut(config):
-    """A configuration cut to a CPU test's size (4 layers, narrow widths)."""
+def cut(config, file):
+    """A configuration cut to a CPU test's size: a copy with the keys of
+    its ``cpu_cut`` set.  ``file`` is the configuration's file, named in
+    the error where it has no ``cpu_cut``."""
+    if "cpu_cut" not in config:
+        raise KeyError(f"{file}: no 'cpu_cut' object (the keys a CPU test "
+                       f"overrides to cut this configuration to size)")
     cfg = copy.deepcopy(config)
-    if cfg["family"] == "dense_decoder":
-        cfg.update(hidden_size=64, head_dim=16, num_attention_heads=4,
-                   num_key_value_heads=2, num_hidden_layers=4,
-                   intermediate_size=128, vocab_size=256)
-    else:
-        cfg.update(d_model=64, n_layer=4, d_state=16, headdim=16,
-                   chunk_size=8, vocab_size=250)
+    cfg.update(cfg["cpu_cut"])
     return cfg
 
 
-def tiny_cell(workload: str):
+def tiny_cell(workload: str, root=None):
     """The cell with its configuration cut (:func:`cut`) and a short
-    window's shapes; its limits are the cell's."""
-    from portbench.cells import load_cell
+    window's shapes; its limits are the cell's.  ``root`` holds the
+    ``BENCHMARK.json`` that names the cell (default: the repository's)."""
+    from portbench.cells import ROOT, load_cell
 
-    cell = load_cell(workload)
+    cell = load_cell(workload, root or ROOT)
     traffic = dict(cell.traffic, batch=2, seq_len=32, warmup_forwards=1)
-    return dataclasses.replace(cell, config=cut(cell.config), traffic=traffic)
+    return dataclasses.replace(cell, config=cut(cell.config, cell.config_file),
+                               traffic=traffic)

@@ -30,7 +30,7 @@ import torch
 
 from portbench import judge, metrics, trace as tr, work
 from portbench.cells import Cell, port_arch
-from portbench.weights import layout, make_params
+from portbench.weights import layout, make_params, rules
 
 __all__ = ["Readings", "batches", "kernel_sources", "program_step",
            "reference_of", "run", "sub_seed"]
@@ -145,7 +145,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
         stage(f"kernels built {sorted(built)}" if built else "kernels found")
 
     model = build_model(port_arch(config))
-    params = make_params(layout(config), sub_seed(seed, "weights"), device)
+    params = make_params(layout(config), sub_seed(seed, "weights"), device,
+                         rules(config))
     _sync(device)
     stage("weights made")
     step = make_step(model, params, cell)

@@ -15,6 +15,7 @@ from portbench.work import padded_vocab
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
+CONFIGS = sorted(p.stem for p in (cells.HERE / "configs").glob("*.json"))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -108,7 +109,7 @@ def test_weights_are_the_same_from_one_seed(tiny):
                for _, t in _leaves(a))
 
 
-@pytest.mark.parametrize("name", ["yi-6b", "mamba2-370m"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_routes_name_the_kernels_to_build_and_count(name):
     from repro_torch.kernels import _build
 

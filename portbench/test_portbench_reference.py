@@ -1,15 +1,16 @@
 """The plain references (``reference/``) against the program's plain path
 on the same seeded weights, in float32 at a reduced size on the CPU, and
-the float8 control well away from both."""
+the float8 control well away from both, for every configuration file in
+``configs/``."""
 
 import pytest
 import torch
 
 from portbench import cells, harness
 from portbench.reference import common
-from portbench.weights import layout, make_params
+from portbench.weights import layout, make_params, rules
 
-CONFIGS = ["yi-6b", "mamba2-370m"]
+CONFIGS = sorted(p.stem for p in (cells.HERE / "configs").glob("*.json"))
 
 def _both(tiny_config, name, b=2, s=48, seed=2 ** 33 + 7):
     from repro_torch.core.hero import offload_policy
@@ -19,7 +20,7 @@ def _both(tiny_config, name, b=2, s=48, seed=2 ** 33 + 7):
     if cfg["family"] == "mamba2":
         cfg["chunk_size"] = 16          # three chunks: the recurrence runs
     model = build_model(cells.port_arch(cfg))
-    params = make_params(layout(cfg), seed, "cpu")
+    params = make_params(layout(cfg), seed, "cpu", rules(cfg))
     tokens = torch.randint(0, cfg["vocab_size"], (b, s),
                            generator=torch.Generator().manual_seed(seed))
     with offload_policy(mode="device", use_kernels=False), torch.no_grad():

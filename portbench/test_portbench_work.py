@@ -7,7 +7,9 @@ compute every (query, key) pair of attention and of the SSD's within-chunk
 term and mask the upper triangle away, and the counter counts what they
 compute; ``work.py`` counts the pairs the inputs need (the causal
 triangle, diagonal included).  The test adds the masked pairs back and
-then wants the two counts equal."""
+then wants the two counts equal.  Those pairs are each family's own, so the
+test names its configurations: a new family brings its own such test, in a
+new file."""
 
 import pytest
 import torch

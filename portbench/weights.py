@@ -8,7 +8,9 @@ every run the import of torch's meta machinery, seconds of set-up.  Every
 leaf is a view into one flat buffer per dtype, each leaf starting on a
 256-byte boundary; the buffers are filled by a handful of ``randn`` / ``rand``
 calls on a generator on the card, and each leaf is then scaled in place by
-the rule for its name (:data:`RULES`).  The same seed gives the same tree.
+the rule for its name (:data:`RULES`; a family brought in a module of its own
+adds rules for its own leaves, :func:`rules`).  The same seed gives the
+same tree.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["RULES", "Spec", "layout", "make_params"]
+__all__ = ["RULES", "Spec", "layout", "make_params", "rules"]
 
 
 class Spec(NamedTuple):
@@ -133,6 +135,17 @@ def layout(config: Dict) -> Dict:
     return fn(config)
 
 
+def rules(config: Dict) -> Dict:
+    """The weight rules for ``config``'s leaves: :data:`RULES`, and beside
+    them the ``RULES`` of a family's ``layout_<family>.py`` where it has
+    any (a leaf name in both takes the family's rule)."""
+    if config["family"] in _LAYOUTS:
+        return RULES
+    own = getattr(importlib.import_module(
+        f"portbench.layout_{config['family']}"), "RULES", {})
+    return {**RULES, **own}
+
+
 def _leaves(tree, path=()) -> List[Tuple[tuple, Any]]:
     if isinstance(tree, dict):
         return [x for k in tree for x in _leaves(tree[k], path + (k,))]
@@ -149,18 +162,18 @@ def _rebuild(tree, values: Dict[tuple, torch.Tensor], path=()):
     return values[path]
 
 
-def make_params(specs, seed: int, device) -> Dict:
+def make_params(specs, seed: int, device, rules: Dict = RULES) -> Dict:
     """A tree shaped like ``specs`` (:class:`Spec` leaves, as
-    :func:`layout` gives) with the values of :data:`RULES`, made on
-    ``device`` from ``seed``."""
+    :func:`layout` gives) with the values of ``rules`` (:func:`rules` of
+    the configuration), made on ``device`` from ``seed``."""
     leaves = _leaves(specs)
     gen = torch.Generator(device=device)
     groups: Dict[Tuple[torch.dtype, str], List[Tuple[tuple, Any]]] = {}
     for path, spec in leaves:
         name = path[-1]
-        if name not in RULES:
+        if name not in rules:
             raise KeyError(f"no weight rule for leaf {'/'.join(map(str, path))}")
-        groups.setdefault((spec.dtype, RULES[name][0]), []).append((path, spec))
+        groups.setdefault((spec.dtype, rules[name][0]), []).append((path, spec))
     values: Dict[tuple, torch.Tensor] = {}
     for i, ((dtype, draw), members) in enumerate(sorted(
             groups.items(), key=lambda kv: (str(kv[0][0]), kv[0][1]))):
@@ -181,6 +194,6 @@ def make_params(specs, seed: int, device) -> Dict:
                            device=device, out=part)
         for (path, spec), off in zip(members, offsets):
             leaf = flat[off:off + spec.numel()].view(spec.shape)
-            RULES[path[-1]][1](leaf)
+            rules[path[-1]][1](leaf)
             values[path] = leaf
     return _rebuild(specs, values)

@@ -22,7 +22,9 @@ with the peak of its operands' type (:data:`PEAKS`).  :func:`forward_work`
 lists one forward's launches of work by family (``gemm``, ``attention``,
 ``ssd``) and :func:`model_flops` its matmul FLOPs, the numerator of ``mfu``.
 A configuration family that is not here adds a module ``work_<family>.py``
-beside this one with a ``forward_work(config, batch, seq)`` of its own.
+beside this one with a ``forward_work(config, batch, seq)`` of its own, and
+a ``model_flops(config, batch, seq)`` where its forward has matmul FLOPs
+outside its items (an SSM's inter-chunk terms).
 """
 
 from __future__ import annotations
@@ -152,8 +154,16 @@ def _ssd_between_chunks(config: Dict, batch: int, seq: int) -> float:
 
 def model_flops(config: Dict, batch: int, seq: int) -> float:
     """Matmul FLOPs of one forward as the inputs need them: every item of
-    :func:`forward_work`, and for an SSM the inter-chunk state products."""
+    :func:`forward_work`, and for an SSM the inter-chunk state products.
+    A family whose ``work_<family>.py`` defines ``model_flops(config,
+    batch, seq)`` counts its own."""
+    family = config["family"]
+    if family not in _FAMILIES:
+        own = getattr(importlib.import_module(f"portbench.work_{family}"),
+                      "model_flops", None)
+        if own is not None:
+            return own(config, batch, seq)
     total = sum(w["flops"] for w in forward_work(config, batch, seq))
-    if config["family"] == "mamba2":
+    if family == "mamba2":
         total += _ssd_between_chunks(config, batch, seq)
     return total
