@@ -166,6 +166,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               first decode step and last-position logits of a 1 x 128
               forward, kernels against plain, 1e-4 x max |logit|, and the
               count of routing decisions the two paths make differently;
+10g. grouped — the dropless MoE's ragged grouped GEMM (``gemm_grouped``)
+              at granite-4.0-h's expert shapes (72 experts, 4096 -> 768
+              and back, its prefill's 163840 routed rows, empty experts,
+              one heavy, counts off the 128-row tile) against one plain
+              product an expert, two launches bit for bit; a dropless MoE
+              layer at granite's widths on its 4 x 4096 tokens, on the
+              kernels: three grouped launches, repeated bit for bit,
+              nothing dropped, within the bf16 bar of plain under one
+              shared routing (the two routers' top-k flips counted);
 12a-12h. the rest of the zoo, each model built on the card after the
               last one's weights are freed (``zoo_configs``; cuts printed):
               jamba-1.5-large-398b at one super-block (8 of 72 layers) and
@@ -264,7 +273,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               (``time_zoo``) bf16 flash attention on ``wgmma`` at D 80 and
               with gemma3's window beside SDPA with the same mask, flash decode
               at D 80 past the wrap and on gemma3's long step, the SSD
-              kernel at jamba's shape.
+              kernel at jamba's shape; the ragged grouped GEMM on phase
+              10g's operands beside its f32 plain version and
+              ``torch._grouped_mm`` (the kernels line's ``gemm_grouped``).
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
@@ -290,6 +301,7 @@ import argparse
 import dataclasses
 import gzip
 import importlib.util
+import itertools
 import json
 import math
 import pathlib
@@ -361,6 +373,12 @@ MOE_PLACED_LANES, MOE_PLACED_ZIPF, MOE_PLACED_STEPS = 4, 1.2, 16
 STREAM_DEVICES, STREAM_PREFILL_LANES, STREAM_SLOTS = 4, 1, 8
 STREAM_LOAD, STREAM_DURATION_S = 2.0, 1.0
 STREAM_MOE_QPS, STREAM_MOE_DURATION_S = 100.0, 0.5
+# granite-4.0-h-small's routed experts (phase 10g and the gemm_grouped
+# row): d 4096, 72 experts of 768, top-10, on its benchmark cell's 4 x 4096
+# tokens, so R = 163840 routed rows a layer.
+GRANITE_D, GRANITE_EXPERTS, GRANITE_F, GRANITE_TOP_K = 4096, 72, 768, 10
+GRANITE_TOKENS = (4, 4096)
+GRANITE_ROWS = GRANITE_TOKENS[0] * GRANITE_TOKENS[1] * GRANITE_TOP_K
 
 # The rest of the zoo (phases 12a-12h), weights built on the card from a
 # seeded generator after the previous model's are freed.  jamba at its
@@ -945,6 +963,10 @@ def main() -> None:
 
     # ---- 10a.-10f. MoE: qwen3-moe-30b-a3b at full width --------------------
     run_moe(moe_cfg, rng, zero_counts, read_counts, launches, routes)
+    # ---- 10g. the dropless MoE's ragged grouped GEMM (granite-4.0-h) -------
+    grouped = run_grouped(moe_cfg, launches)
+    max_abs["gemm_grouped"] = max(v["max_abs_err"]
+                                  for v in grouped["gemm"].values())
 
     # ---- 12a.-12h. the rest of the zoo -------------------------------------
     run_zoo(zoo, rng, zero_counts, read_counts, launches, routes)
@@ -964,7 +986,8 @@ def main() -> None:
     zoo_lines = zoo_kernel_lines(launches, routes, max_abs,
                                  time_zoo(zoo, randn))
     for row in kernels:
-        row["zoo"] = zoo_lines[row["name"]]
+        if row["name"] in zoo_lines:
+            row["zoo"] = zoo_lines[row["name"]]
         if row["name"] in counters:
             row["distributed_launches"] = {
                 path: n[row["name"]] for path, n in launches.items()
@@ -2810,6 +2833,129 @@ def run_moe_layer(cfg, layer, zero_counts, read_counts):
                                                       cfg))
         row["drop_rate"] = M.last_moe_step().drop_rate
     emit({"phase": "moe-layer", **out})
+    return out
+
+
+def grouped_counts():
+    """Phase 10g's rows an expert, GRANITE_ROWS in all: two experts empty,
+    one of 5 rows, one heavy (8812), none of the others a multiple of the
+    128-row tile."""
+    counts = [2190 + (i * 37) % 173 for i in range(GRANITE_EXPERTS)]
+    counts[3] = counts[40] = 0
+    counts[71] = 5
+    counts[0] += GRANITE_ROWS - sum(counts)
+    return counts
+
+
+def grouped_operands(gen, k, n):
+    """Rows (GRANITE_ROWS, k) sorted by expert, the (E, k, n) stack and the
+    (E+1,) int32 offsets of :func:`grouped_counts`, bf16, on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    offsets = torch.tensor([0, *itertools.accumulate(grouped_counts())],
+                           dtype=torch.int32, device=dev)
+    a = torch.randn(GRANITE_ROWS, k, generator=gen, device=dev).to(
+        torch.bfloat16)
+    b = (torch.randn(GRANITE_EXPERTS, k, n, generator=gen, device=dev)
+         * k ** -0.5).to(torch.bfloat16)
+    return a, b, offsets
+
+
+def run_grouped(moe_cfg, launches):
+    """Phase 10g: the ragged grouped GEMM (``kernels/gemm.py::
+    gemm_grouped``, the dropless MoE's expert products) at granite-4.0-h's
+    expert shapes, 72 experts of 4096 -> 768 and 768 -> 4096, over its
+    prefill's GRANITE_ROWS routed rows (:func:`grouped_counts`) against one
+    f32 plain product an expert (``gemm_grouped_ref``), within
+    TOL["bfloat16"] x max |plain|, two launches bit for bit equal; then a
+    dropless MoE layer at granite's widths (``moe_dropless``) on its
+    GRANITE_TOKENS on the kernels: three grouped launches, bit for bit on
+    a second run, nothing dropped; and within the same bar of the plain
+    path under one routing (the plain path's router) shared by both, as
+    in phase 10f, since the two routers' products differ in rounding and
+    flip near-tied top-k choices (counted as ``routing_flips``).  Records
+    the layer's launches as ``launches["grouped"]``."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.kernels.gemm import gemm_grouped
+    from repro_torch.kernels.ref import gemm_grouped_ref
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bar = TOL["bfloat16"]
+    counts = grouped_counts()
+    out = {"bar": bar, "rows": GRANITE_ROWS, "experts": GRANITE_EXPERTS,
+           "counts_min_max": [min(counts), max(counts)], "gemm": {}}
+    for k, n in ((GRANITE_D, GRANITE_F), (GRANITE_F, GRANITE_D)):
+        a, b, offsets = grouped_operands(gen, k, n)
+        before = gemm_grouped.route_launches["wgmma"]
+        got = gemm_grouped(a, b, offsets)
+        again = gemm_grouped(a, b, offsets)
+        torch.cuda.synchronize()
+        if gemm_grouped.route_launches["wgmma"] != before + 2:
+            fail(f"gemm_grouped {k}->{n}: launches "
+                 f"{gemm_grouped.route_launches}")
+        if not torch.equal(got, again):
+            fail(f"gemm_grouped {k}->{n}: two launches differ")
+        err, abs_err = _rel_err(got, gemm_grouped_ref(
+            a, b, offsets, out_dtype=torch.float32))
+        if not err <= bar:
+            fail(f"gemm_grouped {k}->{n}: err {err} > {bar}")
+        out["gemm"][f"{k}->{n}"] = {"err": err, "max_abs_err": abs_err}
+        del a, b, got, again
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(
+        moe_cfg.reduced(), d_model=GRANITE_D, num_experts=GRANITE_EXPERTS,
+        moe_d_ff=GRANITE_F, experts_per_token=GRANITE_TOP_K,
+        moe_dropless=True)
+    layer = M.init_moe(gen, cfg, torch.bfloat16, device=dev)
+    x = torch.randn(*GRANITE_TOKENS, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    before = gemm_grouped.launches
+    with offload_policy(**KERNEL_POLICY), torch.no_grad():
+        got, _ = M.moe_ffn(layer, x, cfg)
+        again, _ = M.moe_ffn(layer, x, cfg)
+    torch.cuda.synchronize()
+    n_launch = gemm_grouped.launches - before
+    step = M.last_moe_step()
+    xf = x.reshape(-1, cfg.d_model)
+    with offload_policy(**KERNEL_POLICY), torch.no_grad():
+        kernel_idx = M._router(layer, xf, cfg)[1]
+    with offload_policy(**PLAIN_POLICY), torch.no_grad():
+        shared = M._router(layer, xf, cfg)
+    flips = int((kernel_idx.sort(-1).values != shared[1].sort(-1).values)
+                .any(-1).sum())
+    with mock.patch.object(M, "_router", lambda *_: shared), \
+            torch.no_grad():
+        with offload_policy(**KERNEL_POLICY):
+            got_shared, _ = M.moe_ffn(layer, x, cfg)
+        with offload_policy(**PLAIN_POLICY):
+            want, _ = M.moe_ffn(layer, x, cfg)
+    err, _ = _rel_err(got_shared, want)
+    if n_launch != 6 or not torch.equal(got, again) \
+            or step.tokens_dropped or step.tokens_routed != GRANITE_ROWS \
+            or not err <= bar:
+        fail(f"dropless MoE layer: launches {n_launch}, repeat equal "
+             f"{torch.equal(got, again)}, routed {step.tokens_routed}, "
+             f"dropped {step.tokens_dropped}, err {err}")
+    launches["grouped"] = {"gemm_grouped": n_launch}
+    out["dropless_layer"] = {"d": cfg.d_model, "experts": cfg.num_experts,
+                             "f": cfg.moe_d_ff, "top_k": GRANITE_TOP_K,
+                             "tokens": list(GRANITE_TOKENS), "err": err,
+                             "launches": n_launch, "routing_flips": flips,
+                             "tokens_routed": step.tokens_routed,
+                             "tokens_dropped": step.tokens_dropped,
+                             "expert_rows_min_max": [min(step.counts),
+                                                     max(step.counts)]}
+    del layer, x, got, again, got_shared, want
+    torch.cuda.empty_cache()
+    emit({"phase": "grouped", **out})
     return out
 
 
@@ -5062,6 +5208,11 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
     t3_launches = {path: r["gemm"]["tf32x3"] + r["gemm_batched"]["tf32x3"]
                    for path, r in routes.items()}
 
+    # The ragged grouped GEMM at granite-4.0-h-small's prefill expert
+    # products, on phase 10g's counts.
+    grouped_shapes, grouped_tot = time_grouped()
+    emit({"gemm_grouped_shapes": grouped_shapes, "per_layer": grouped_tot})
+
     per = "decode_step"
     return [
         {"name": "gemm", "route": "cuda",
@@ -5213,7 +5364,77 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "route_launches": {path: r["ssd_chunk_diag"]
                             for path, r in routes.items()
                             if any(r["ssd_chunk_diag"].values())}},
+        {"name": "gemm_grouped", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gemm.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/gemm_grouped.cuh",
+         "replaces": None,
+         "launches": launches["grouped"]["gemm_grouped"], "path": "grouped",
+         "max_abs_err": max_abs["gemm_grouped"],
+         "ms": grouped_tot["ms"], "plain_ms": grouped_tot["plain_ms"],
+         "bound_ms": grouped_tot["bound_ms"],
+         "bound_by": grouped_tot["bound_by"],
+         "library_ms": grouped_tot["library_ms"],
+         "library": "torch._grouped_mm",
+         "per": "granite-4.0-h dropless MoE layer, 4 x 4096 tokens",
+         "launches_per_layer": grouped_tot["launches"],
+         "ms_per_launch": {r["shape"]: r["ms"] for r in grouped_shapes}},
     ]
+
+
+def time_grouped():
+    """The ragged grouped GEMM on phase 10g's operands (GRANITE_ROWS rows
+    sorted by expert, :func:`grouped_counts`), gate / up (4096 -> 768, two
+    launches a layer) and down (768 -> 4096, one): kernel, plain version
+    (``gemm_grouped_ref``, one f32 product an expert) and
+    ``torch._grouped_mm`` on the same offsets (None where the installed
+    torch lacks it) in ms a launch, beside the bound (the rows, each
+    expert's weights and the outputs once; 2·R·k·n FLOPs) and TFLOP/s.
+    An expert stack is 0.45 GB, past L2 without a rotation.  Returns
+    ``(rows, totals over a layer's launches)``."""
+    import torch
+
+    from repro_torch.kernels.gemm import gemm_grouped
+    from repro_torch.kernels.ref import gemm_grouped_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    rows = []
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes", "flops",
+                         "launches"), 0.0)
+    for shape, k, n, count in (("gate/up", GRANITE_D, GRANITE_F, 2),
+                               ("down", GRANITE_F, GRANITE_D, 1)):
+        a, b, offsets = grouped_operands(gen, k, n)
+        t_k = _time(lambda w: gemm_grouped(a, w, offsets), [b], iters=20)
+        t_p = _time(lambda w: gemm_grouped_ref(a, w, offsets), [b], iters=3)
+        t_l = None
+        if grouped_mm is not None:
+            ends = offsets[1:].contiguous()
+            try:
+                t_l = _time(lambda w: grouped_mm(a, w, offs=ends), [b],
+                            iters=20)
+            except (RuntimeError, TypeError):     # not on this build
+                t_l = None
+        nbytes = 2.0 * (GRANITE_ROWS * (k + n) + GRANITE_EXPERTS * k * n)
+        flops = 2.0 * GRANITE_ROWS * k * n
+        rows.append({"shape": shape, "rows": GRANITE_ROWS,
+                     "experts": GRANITE_EXPERTS, "k": k, "n": n,
+                     "launches_per_layer": count, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l,
+                     "bound_ms": _bound_ms(nbytes, flops, "bfloat16"),
+                     "TFLOPs": flops / t_k / 1e9})
+        tot["ms"] += count * t_k
+        tot["plain_ms"] += count * t_p
+        tot["library_ms"] = (None if t_l is None or tot["library_ms"] is None
+                             else tot["library_ms"] + count * t_l)
+        tot["bytes"] += count * nbytes
+        tot["flops"] += count * flops
+        tot["launches"] += count
+        del a, b, offsets
+        torch.cuda.empty_cache()
+    tot["bound_ms"] = _bound_ms(tot["bytes"], tot["flops"], "bfloat16")
+    tot["bound_by"] = _bound_by(tot["bytes"], tot["flops"], "bfloat16")
+    tot["launches"] = int(tot["launches"])
+    return rows, tot
 
 
 def time_moe_gemms(gemm_batched, moe_cfg, randn):

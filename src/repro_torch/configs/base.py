@@ -35,6 +35,10 @@ class ArchConfig:
     # naive baseline, kept for §Perf comparison).
     moe_dispatch: str = "auto"
     dispatch_groups: int = 16      # = data-axis size on the production mesh
+    # True: every routed copy reaches its expert (no capacity, no drop):
+    # rows sorted by expert, per-expert offsets on the card, the ragged
+    # grouped expert GEMM (granite-4.0-h: the published model drops none).
+    moe_dropless: bool = False
 
     # --- attention ---------------------------------------------------------
     causal: bool = True            # False for encoder-only (hubert)
@@ -45,6 +49,8 @@ class ArchConfig:
     rope_theta: float = 1.0e6
     local_rope_theta: float = 0.0  # gemma3 local layers use a different theta
     mrope: bool = False            # qwen2-vl M-RoPE (3 position streams)
+    position_embedding: str = "rope"  # rope | nope (granite-4.0-h: none)
+    attention_multiplier: float = 0.0  # softmax scale; 0 -> head_dim**-0.5
 
     # --- hybrid (jamba) ----------------------------------------------------
     attn_layer_period: int = 0     # jamba: 8
@@ -68,6 +74,12 @@ class ArchConfig:
     mlp_kind: str = "swiglu"       # swiglu | gelu
     norm_kind: str = "rmsnorm"     # rmsnorm | layernorm
     norm_eps: float = 1.0e-6
+    # Granite's multipliers: the embedding is scaled by embedding_multiplier,
+    # each residual branch by residual_multiplier, the logits divided by
+    # logits_scaling.  At 1.0 each launches nothing.
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     tie_embeddings: bool = False
     embed_inputs: bool = True      # False: input_specs provides embeddings (audio/vlm stub frontend)
     dtype: str = "bfloat16"
@@ -81,6 +93,10 @@ class ArchConfig:
 
     # ------------------------------------------------------------------
     def __post_init__(self):
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(
+                f"position_embedding {self.position_embedding!r} is not "
+                f"'rope' or 'nope'")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_experts and self.moe_d_ff == 0:
@@ -221,6 +237,19 @@ class ArchConfig:
             num_microbatches=1,
             dtype="float32",
         )
+
+
+# Fields of the port's ArchConfig that the reference's has not, each with the
+# default that keeps every registered architecture as the reference has it
+# (granite-4.0-h sets them from its configuration file).
+PORT_ONLY_FIELDS = {
+    "moe_dropless": False,
+    "position_embedding": "rope",
+    "attention_multiplier": 0.0,
+    "embedding_multiplier": 1.0,
+    "residual_multiplier": 1.0,
+    "logits_scaling": 1.0,
+}
 
 
 @dataclasses.dataclass(frozen=True)

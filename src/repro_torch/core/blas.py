@@ -737,10 +737,27 @@ register(OffloadOp(
 # moe_expert_ffn — the whole grouped expert FFN (gate/up/silu/down) behind
 # one descriptor: the cost model sees the expert block at once, and the
 # expert-parallel shard_map — experts model-sharded, every GEMM local,
-# zero collectives — is its ``plan``.
+# zero collectives — is its ``plan``.  With ``offsets`` it is the dropless
+# route: x is (R, d) rows sorted by expert, expert e's rows
+# ``offsets[e]:offsets[e+1]`` (int32, on x's device), and the kernel path is
+# three launches of the ragged grouped GEMM (``kernels/gemm.py::
+# gemm_grouped``), which reads the offsets on the card.
 # ---------------------------------------------------------------------------
 
-def _moe_ffn_dims(x, wg, wu, wd):
+def _moe_ffn_dims(x, wg, wu, wd, offsets=None):
+    if offsets is not None:
+        if x.ndim != 2 or wg.ndim != 3 or wu.shape != wg.shape \
+                or wd.ndim != 3 or x.shape[1] != wg.shape[1] \
+                or tuple(wd.shape) != (wg.shape[0], wg.shape[2], wg.shape[1]):
+            raise ValueError(
+                f"moe_expert_ffn: bad ragged shapes {tuple(x.shape)} "
+                f"{tuple(wg.shape)} {tuple(wu.shape)} {tuple(wd.shape)}")
+        if tuple(offsets.shape) != (wg.shape[0] + 1,) \
+                or offsets.dtype != torch.int32:
+            raise ValueError(
+                f"moe_expert_ffn: offsets must be ({wg.shape[0] + 1},) int32, "
+                f"got {tuple(offsets.shape)} {offsets.dtype}")
+        return wg.shape[0], x.shape[0], x.shape[1], wg.shape[2]
     if x.ndim < 3 or wg.ndim != 3 or wu.ndim != 3 or wd.ndim != 3:
         raise ValueError(
             f"moe_expert_ffn: bad ranks {tuple(x.shape)} {tuple(wg.shape)} "
@@ -759,20 +776,43 @@ def _moe_ffn_dims(x, wg, wu, wd):
     return e, m, d, f
 
 
-def _moe_ffn_cost(x, wg, wu, wd):
-    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
-    return cm.gemm_cost(m, 3 * f, d, x.element_size(), batch=e,
+def _moe_ffn_cost(x, wg, wu, wd, *, offsets=None):
+    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd, offsets)
+    # Ragged: the R rows once, each through its own expert.
+    return cm.gemm_cost(m, 3 * f, d, x.element_size(),
+                        batch=1 if offsets is not None else e,
                         op="moe_expert_ffn")
 
 
-def _moe_ffn_eligible(x, wg, wu, wd):
-    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
+def _moe_ffn_eligible(x, wg, wu, wd, *, offsets=None):
+    e, m, d, f = _moe_ffn_dims(x, wg, wu, wd, offsets)
     return _kernel_gemm_eligible(m, f, d, x.dtype)
 
 
-def _moe_ffn_host(x, wg, wu, wd):
+def _moe_ffn_ragged_host(x, wg, wu, wd, offsets):
+    """The dropless route's plain math: each expert's rows through its own
+    FFN (the ragged GEMM's plain version, which reads the offsets on the
+    host), with the capped route's cast points.  On meta tensors (a dry
+    run's shapes, no counts) one product a projection over all R rows
+    stands in: the same shapes out and the same dot FLOPs, 2·R·d·f a
+    projection, whatever the routing."""
+    if x.device.type == "meta":
+        g = _accum_mm(x, wg[0], x.dtype)
+        u = _accum_mm(x, wu[0], x.dtype)
+        return _accum_mm(_swiglu_glue(g, u, x.dtype), wd[0], x.dtype)
+    from repro_torch.kernels.ref import gemm_grouped_ref  # lazy: import cycle
+
+    g = gemm_grouped_ref(x, wg, offsets, out_dtype=x.dtype)
+    u = gemm_grouped_ref(x, wu, offsets, out_dtype=x.dtype)
+    return gemm_grouped_ref(_swiglu_glue(g, u, x.dtype), wd, offsets,
+                            out_dtype=x.dtype)
+
+
+def _moe_ffn_host(x, wg, wu, wd, *, offsets=None):
     """The expert FFN math itself, fp32 accumulation, with the reference's
     cast points (``_moe_ffn_local``)."""
+    if offsets is not None:
+        return _moe_ffn_ragged_host(x, wg, wu, wd, offsets)
     e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
     xe = x.reshape(e, m, d)
     g = _accum_mm(xe, wg, x.dtype)
@@ -781,9 +821,22 @@ def _moe_ffn_host(x, wg, wu, wd):
     return y.reshape(x.shape)
 
 
-def _moe_ffn_kernel(x, wg, wu, wd):
+def _moe_ffn_kernel(x, wg, wu, wd, *, offsets=None):
     """Three launches of the batched GEMM kernel (gate, up, down), the
-    SiLU·up product between them."""
+    SiLU·up product between them; with ``offsets``, three launches of the
+    ragged grouped GEMM (no gradient: it serves prefill and decode)."""
+    if offsets is not None:
+        from repro_torch.kernels.gemm import gemm_grouped  # lazy: kernels
+
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, wg, wu, wd)):
+            raise RuntimeError(
+                "moe_expert_ffn: the ragged grouped GEMM has no gradient; "
+                "call the dropless route under torch.no_grad()")
+        g = gemm_grouped(x, wg, offsets, out_dtype=x.dtype)
+        u = gemm_grouped(x, wu, offsets, out_dtype=x.dtype)
+        return gemm_grouped(_swiglu_glue(g, u, x.dtype), wd, offsets,
+                            out_dtype=x.dtype)
     e, m, d, f = _moe_ffn_dims(x, wg, wu, wd)
     mm = _lowering("moe_expert_ffn")
     xe = x.reshape(e, m, d)   # copies a transposed (E, G, C, d) view
@@ -793,12 +846,13 @@ def _moe_ffn_kernel(x, wg, wu, wd):
     return y.reshape(x.shape)
 
 
-def _moe_ffn_plan(x, wg, wu, wd):
+def _moe_ffn_plan(x, wg, wu, wd, *, offsets=None):
     """Expert-parallel applicability: experts shard over the model axis and
     every GEMM stays local (zero collectives inside the plan).  The first
-    free dim also shards over the data axes when it divides."""
+    free dim also shards over the data axes when it divides.  The ragged
+    route has no plan."""
     info = _tp_mesh_info()
-    if info is None:
+    if info is None or offsets is not None:
         return None
     mesh, n_model, dp, n_dp = info
     if x.shape[0] % n_model:
@@ -933,7 +987,7 @@ register(OffloadOp(
 # kernel lowering.
 # ---------------------------------------------------------------------------
 
-def _decode_attn_cost(q, k, v, lo, hi):
+def _decode_attn_cost(q, k, v, lo, hi, *, sm_scale=None):
     if q.ndim != 4 or q.shape[2] != 1:
         raise ValueError(
             f"decode_attention: q must be (B, Hq, 1, D), got {tuple(q.shape)}")
@@ -945,7 +999,7 @@ def _decode_attn_cost(q, k, v, lo, hi):
     return cm.attention_cost(b, 1, skv, hq, d, q.element_size())
 
 
-def _decode_attn_eligible(q, k, v, lo, hi):
+def _decode_attn_eligible(q, k, v, lo, hi, *, sm_scale=None):
     return q.shape[-1] >= 8 and q.dtype in _KERNEL_DTYPES
 
 
@@ -956,19 +1010,21 @@ def _bounds(x, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(x), dtype=torch.int32, device=device)
 
 
-def _decode_attn_host(q, k, v, lo, hi):
+def _decode_attn_host(q, k, v, lo, hi, *, sm_scale=None):
     b = q.shape[0]
     slots = torch.arange(k.shape[2], dtype=torch.int32, device=k.device)
     lo_b = _bounds(lo, b, k.device)[:, None]
     hi_b = _bounds(hi, b, k.device)[:, None]
     kv_valid = (slots >= lo_b) & (slots < hi_b)          # (B, S)
-    return attention_math(q, k, v, causal=False, kv_mask=kv_valid)
+    return attention_math(q, k, v, causal=False, kv_mask=kv_valid,
+                          sm_scale=sm_scale)
 
 
-def _decode_attn_kernel(q, k, v, lo, hi):
+def _decode_attn_kernel(q, k, v, lo, hi, *, sm_scale=None):
     b = q.shape[0]
     out = _lowering("decode_attention")(
-        q[:, :, 0, :], k, v, _bounds(lo, b, q.device), _bounds(hi, b, q.device)
+        q[:, :, 0, :], k, v, _bounds(lo, b, q.device), _bounds(hi, b, q.device),
+        sm_scale=sm_scale,
     )
     return out[:, :, None, :]
 
@@ -1379,6 +1435,7 @@ def decode_attention(
     lo,
     hi,
     *,
+    sm_scale: Optional[float] = None,
     handle: Optional[DeviceHandle] = None,
 ) -> torch.Tensor:
     """One-token decode attention against a KV cache through the seam.
@@ -1386,10 +1443,13 @@ def decode_attention(
     q: (B, Hq, 1, D); caches: (B, Hkv, S_cache, D); ``lo``/``hi`` (ints, or
     scalar / (B,) int tensors) bound the valid cache slots.  Host form is
     the masked math; the kernel form streams the cache once
-    (``flash_decode``).  ``handle`` pins the call to the device-resident
+    (``flash_decode``).  ``sm_scale`` is the softmax scale (None:
+    ``D ** -0.5``).  ``handle`` pins the call to the device-resident
     cache so affinity scheduling routes decode to the data."""
+    scale = {} if sm_scale is None else {"sm_scale": sm_scale}
     return dispatch(
-        "decode_attention", q, k_cache, v_cache, lo, hi, handle=handle
+        "decode_attention", q, k_cache, v_cache, lo, hi, handle=handle,
+        **scale,
     )
 
 
@@ -1422,14 +1482,22 @@ def moe_expert_ffn(
     wu: torch.Tensor,
     wd: torch.Tensor,
     *,
+    offsets: Optional[torch.Tensor] = None,
     handle: Optional[DeviceHandle] = None,
 ) -> torch.Tensor:
     """Whole grouped expert FFN (E, ..., d) -> (E, ..., d) through the seam.
 
     One dispatch for gate/up/silu/down across all experts (wg, wu: (E, d,
     f); wd: (E, f, d)); the kernel path runs the three GEMMs on the
-    batched GEMM kernel, experts as the batch.  Keeps all free dims."""
-    return dispatch("moe_expert_ffn", x, wg, wu, wd, handle=handle)
+    batched GEMM kernel, experts as the batch.  Keeps all free dims.
+
+    With ``offsets`` ((E+1,) int32 on x's device) the dropless route: x is
+    (R, d), rows sorted by expert, expert e's rows ``offsets[e]`` to
+    ``offsets[e+1]``; the kernel path runs the three GEMMs on the ragged
+    grouped GEMM, which reads the offsets on the card (no host read)."""
+    ragged = {} if offsets is None else {"offsets": offsets}
+    return dispatch("moe_expert_ffn", x, wg, wu, wd, handle=handle,
+                    **ragged)
 
 
 def moe_expert_ffn_placed(

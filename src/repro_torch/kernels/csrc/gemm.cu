@@ -49,6 +49,12 @@
 // All four take a batch index (blockIdx.z) with batch strides, so a
 // batched GEMM is the same kernel as the single one.
 //
+// Beside them, grouped (gemm_grouped.cuh) — the dropless MoE's ragged
+// expert products, C[r] = A[r] @ B[e(r)] with A's rows sorted by expert and
+// the per-expert offsets on the card: gemm_wgmma.cuh's producer, ring,
+// consumers and epilogue over a tile table that each block reads from the
+// offsets.  Its own entry point, repro_gemm_grouped.
+//
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes (see ../_build.py).  The launch never synchronises; it returns
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments the named
@@ -58,6 +64,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gemm_grouped.cuh"
 #include "gemm_skinny.cuh"
 #include "gemm_tf32x3.cuh"
 #include "gemm_wgmma.cuh"
@@ -260,6 +267,36 @@ extern "C" int repro_gemm_skinny(const void* a, const void* b, void* c,
     e = sk::launch<__nv_bfloat16, float>(a, b, c, g, batch, km, vec, s);
   else if (in_dtype == 1 && out_dtype == 1)
     e = sk::launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, g, batch, km, vec, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The ragged grouped GEMM (gemm_grouped.cuh): C (R, N) = A (R, K) @ B[e]
+// for the rows offsets[e] .. offsets[e+1] - 1 of A, B an (E, K, N) stack of
+// row-major bf16 matrices, offsets (E + 1) int32 on the card; A row stride
+// sa_m, B expert stride sb_e and row stride sb_k, C row stride sc_m, in
+// elements.  out_dtype as for repro_gemm.  Returns a cudaError_t as int
+// (cudaErrorInvalidValue for operands the kernel does not take).
+extern "C" int repro_gemm_grouped(const void* a, const void* b, void* c,
+                                  const void* offsets, int R, int N, int K,
+                                  int E, long long sa_m, long long sb_e,
+                                  long long sb_k, long long sc_m,
+                                  int out_dtype, void* stream) {
+  if (R <= 0 || N <= 0) return 0;
+  const auto* A = static_cast<const __nv_bfloat16*>(a);
+  const auto* B = static_cast<const __nv_bfloat16*>(b);
+  const auto* off = static_cast<const int*>(offsets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (out_dtype == 0)
+    e = wg::launch_grouped<float>(A, B, static_cast<float*>(c), off, R, N, K,
+                                  E, sa_m, sb_e, sb_k, sc_m, s);
+  else if (out_dtype == 1)
+    e = wg::launch_grouped<__nv_bfloat16>(A, B,
+                                          static_cast<__nv_bfloat16*>(c), off,
+                                          R, N, K, E, sa_m, sb_e, sb_k, sc_m,
+                                          s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -60,7 +60,9 @@
 // gemm_route sends only such operands here.  A wait on an mbarrier that
 // never completes traps after a bounded spin instead of hanging the card.
 // The barrier, TMA, descriptor and `wgmma` helpers below also serve flash
-// attention's tensor-core kernel (attn_wgmma.cuh).
+// attention's tensor-core kernel (attn_wgmma.cuh); the ring, producer,
+// consumer and epilogue pieces serve the ragged grouped kernel
+// (gemm_grouped.cuh).
 
 #pragma once
 
@@ -301,78 +303,85 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// BN: block tile width (64 or 128).  TB: B's layout (0 K-major, 1 MN-major).
-template <int BN, int TB, typename TO>
-__global__ void __launch_bounds__(THREADS, 1)
-gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
-           const __grid_constant__ CUtensorMap map_b, TO* __restrict__ C,
-           Args g) {
-  constexpr int B_STAGE = b_stage<BN>();
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
+// ---- the block's pieces: ring, producer, consumers, epilogue ---------------
+// A block tile's work once its tile is known: the ragged grouped kernel
+// (gemm_grouped.cuh) runs the same pieces on the tiles of its table.
+
+// The ring in dynamic shared memory: STAGES A and B tiles, each 1024-byte
+// aligned, then each stage's full and empty mbarrier.
+template <int BN>
+struct Ring {
+  uint8_t* sa;
+  uint8_t* sb;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+template <int BN>
+__device__ __forceinline__ Ring<BN> ring_of(uint8_t* smem_raw) {
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* sa = smem;                              // STAGES x A tile
-  uint8_t* sb = smem + STAGES * A_STAGE;           // STAGES x B tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_STAGE);
-  uint64_t* empty = full + STAGES;
+  Ring<BN> r;
+  r.sa = smem;                                     // STAGES x A tile
+  r.sb = smem + STAGES * A_STAGE;                  // STAGES x B tile
+  r.full = reinterpret_cast<uint64_t*>(r.sb + STAGES * b_stage<BN>());
+  r.empty = r.full + STAGES;
+  return r;
+}
 
-  // The block's tile in grouped order: the card starts a launch's blocks in
-  // the order of id (x fastest, in practice), and a group of g.group m
-  // tiles takes g.group * gridDim.y consecutive ids.
-  const int id = blockIdx.y * gridDim.x + blockIdx.x;
-  const int span = g.group * gridDim.y;
-  const int first = id / span * g.group;
-  const int rows = min(static_cast<int>(gridDim.x) - first, g.group);
-  const int r = id - id / span * span;
-  const int m0 = (first + r % rows) * BM, n0 = r / rows * BN, z = blockIdx.z;
-  const int ktiles = (g.K + BK - 1) / BK;
-  const int wg = threadIdx.x / 128;
-
+// Thread 0 sets up the ring's barriers; the caller synchronises the block.
+template <int BN>
+__device__ __forceinline__ void ring_init(const Ring<BN>& r) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);                      // the producer's expect_tx
-      mbar_init(&empty[s], CONSUMERS * 4);         // one arrive per consumer warp
+      mbar_init(&r.full[s], 1);                    // the producer's expect_tx
+      mbar_init(&r.empty[s], CONSUMERS * 4);       // one arrive per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+}
 
-  if (wg == 0) {
-    // Producer: a single thread keeps the ring full.
-    if (threadIdx.x == 0) {
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % STAGES;
-        const uint32_t round = kt / STAGES;
-        mbar_wait(&empty[s], (round & 1) ^ 1);     // round 0 passes at once
-        mbar_expect_tx(&full[s], A_STAGE + B_STAGE);
-        const int k0 = kt * BK;
-        tma_load_3d(sa + s * A_STAGE, &map_a, &full[s], k0, m0, z * g.a_z);
-        if constexpr (TB == 0) {
-          tma_load_3d(sb + s * B_STAGE, &map_b, &full[s], k0, n0, z * g.b_z);
-        } else {
+// Producer (one thread): keeps the ring full with the A tile at rows m0 of
+// batch entry za and the B tile at columns n0 of batch entry zb, k-tile by
+// k-tile.
+template <int BN, int TB>
+__device__ __forceinline__ void produce(const Ring<BN>& r, const CUtensorMap* map_a,
+                                        const CUtensorMap* map_b, int ktiles,
+                                        int m0, int n0, int za, int zb) {
+  constexpr int B_STAGE = b_stage<BN>();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % STAGES;
+    const uint32_t round = kt / STAGES;
+    mbar_wait(&r.empty[s], (round & 1) ^ 1);       // round 0 passes at once
+    mbar_expect_tx(&r.full[s], A_STAGE + B_STAGE);
+    const int k0 = kt * BK;
+    tma_load_3d(r.sa + s * A_STAGE, map_a, &r.full[s], k0, m0, za);
+    if constexpr (TB == 0) {
+      tma_load_3d(r.sb + s * B_STAGE, map_b, &r.full[s], k0, n0, zb);
+    } else {
 #pragma unroll
-          for (int h = 0; h < BN / 64; ++h)
-            tma_load_3d(sb + s * B_STAGE + h * 64 * BK * 2, &map_b, &full[s],
-                        n0 + 64 * h, k0, z * g.b_z);
-        }
-      }
+      for (int h = 0; h < BN / 64; ++h)
+        tma_load_3d(r.sb + s * B_STAGE + h * 64 * BK * 2, map_b, &r.full[s],
+                    n0 + 64 * h, k0, zb);
     }
-    return;
   }
+}
 
-  // Consumers: warpgroup c owns rows c*64 .. c*64+63 of the block tile.
-  const int c = wg - 1;
-  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  float acc[BN / 2];
+// Consumer warpgroup c (rows c*64 .. c*64+63 of the block tile): the k loop
+// of `wgmma`s out of the ring into acc.
+template <int BN, int TB>
+__device__ __forceinline__ void consume(const Ring<BN>& r, float (&acc)[BN / 2],
+                                        int ktiles, int c, int lane) {
+  constexpr int B_STAGE = b_stage<BN>();
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
   for (int kt = 0; kt < ktiles; ++kt) {
     const int s = kt % STAGES;
     const uint32_t round = kt / STAGES;
-    mbar_wait(&full[s], round & 1);
-    const uint8_t* a_tile = sa + s * A_STAGE + c * 64 * BK * 2;
-    const uint8_t* b_tile = sb + s * B_STAGE;
+    mbar_wait(&r.full[s], round & 1);
+    const uint8_t* a_tile = r.sa + s * A_STAGE + c * 64 * BK * 2;
+    const uint8_t* b_tile = r.sb + s * B_STAGE;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -388,27 +397,33 @@ gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
     // Keep this stage's group in flight; once the previous one is done its
     // stage goes back to the producer.
     wgmma_wait<1>();
-    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    if (kt > 0 && lane == 0) mbar_arrive(&r.empty[(kt - 1) % STAGES]);
   }
   wgmma_wait<0>();
+}
 
-  // Fragment of m64nBN: thread (warp, lane) holds rows warp*16 + lane/4 and
-  // +8, columns 8j + 2(lane%4) and +1, as acc[4j + {0,1,2,3}].
-  C += static_cast<long long>(z) * g.sc_b;
-  // A pair is stored as one aligned 4- or 8-byte word when the row and
-  // batch strides are even (then col, even, keeps it aligned).
-  const bool even = (g.sc_m % 2 == 0) && (g.sc_b % 2 == 0);
+// Epilogue of consumer warpgroup c: its 64 x BN fragment of the tile at
+// (m0, n0) into C (row stride sc_m), rows below row_end and columns below
+// N only.  Fragment of m64nBN: thread (warp, lane) holds rows warp*16 +
+// lane/4 and +8, columns 8j + 2(lane%4) and +1, as acc[4j + {0,1,2,3}].
+// A pair is stored as one aligned 4- or 8-byte word when `even` (the row
+// and batch strides are even; then col, even, keeps it aligned).
+template <int BN, typename TO>
+__device__ __forceinline__ void store_tile(TO* C, const float (&acc)[BN / 2],
+                                           int m0, int n0, int row_end, int N,
+                                           long long sc_m, bool even, int c,
+                                           int warp, int lane) {
   const int r0 = m0 + c * 64 + warp * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + 8 * j + 2 * (lane % 4);
-    if (col >= g.N) continue;
-    const bool two = col + 1 < g.N;
+    if (col >= N) continue;
+    const bool two = col + 1 < N;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
-      if (row >= g.M) continue;
-      TO* p = C + row * g.sc_m + col;
+      if (row >= row_end) continue;
+      TO* p = C + row * sc_m + col;
       const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
       if (two && even) {
         store2(p, x, y);
@@ -418,6 +433,49 @@ gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
+}
+
+// BN: block tile width (64 or 128).  TB: B's layout (0 K-major, 1 MN-major).
+template <int BN, int TB, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
+           const __grid_constant__ CUtensorMap map_b, TO* __restrict__ C,
+           Args g) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Ring<BN> ring = ring_of<BN>(smem_raw);
+
+  // The block's tile in grouped order: the card starts a launch's blocks in
+  // the order of id (x fastest, in practice), and a group of g.group m
+  // tiles takes g.group * gridDim.y consecutive ids.
+  const int id = blockIdx.y * gridDim.x + blockIdx.x;
+  const int span = g.group * gridDim.y;
+  const int first = id / span * g.group;
+  const int rows = min(static_cast<int>(gridDim.x) - first, g.group);
+  const int r = id - id / span * span;
+  const int m0 = (first + r % rows) * BM, n0 = r / rows * BN, z = blockIdx.z;
+  const int ktiles = (g.K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  ring_init(ring);
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: a single thread keeps the ring full.
+    if (threadIdx.x == 0)
+      produce<BN, TB>(ring, &map_a, &map_b, ktiles, m0, n0, z * g.a_z,
+                      z * g.b_z);
+    return;
+  }
+
+  // Consumers: warpgroup c owns rows c*64 .. c*64+63 of the block tile.
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  float acc[BN / 2];
+  consume<BN, TB>(ring, acc, ktiles, c, lane);
+
+  C += static_cast<long long>(z) * g.sc_b;
+  const bool even = (g.sc_m % 2 == 0) && (g.sc_b % 2 == 0);
+  store_tile<BN, TO>(C, acc, m0, n0, g.M, g.N, g.sc_m, even, c, warp, lane);
 }
 
 // ---- host side: tensor maps and the launch ---------------------------------

@@ -46,6 +46,20 @@ with the operands' own batch strides.  It has its own counter,
 ``gemm_batched.launches``, so a stacked launch is told apart from a
 single one, and its own ``gemm_batched.route_launches`` and
 ``gemm_batched.grouped_launches``.
+
+:func:`gemm_grouped` is the dropless MoE's ragged grouped GEMM (its own
+entry point in the same source, ``csrc/gemm_grouped.cuh``): ``C[r] = A[r]
+@ B[e]`` for the rows ``offsets[e]:offsets[e+1]`` of A, rows sorted by
+expert, the (E+1,) int32 offsets on the card.  It runs ``wgmma``'s
+producer, ring, consumers and epilogue over a tile table that each block
+builds from the offsets on the card, in a grid of ``ceil(R / 128) + E``
+rows of m tiles by the n tiles, so the host never reads the counts; its
+one route is ``"wgmma"`` (bf16 operands, B row-major, TMA's alignment),
+and a CUDA tensor it cannot take raises.  Its kernel is ``grouped_wgmma``,
+a name no other kernel's contains.  ``gemm_grouped.launches`` and
+``gemm_grouped.route_launches`` count it; the plain version is
+:func:`repro_torch.kernels.ref.gemm_grouped_ref`.  It is reached as the
+ragged route of the ``moe_expert_ffn`` descriptor (``core/blas.py``).
 """
 
 from __future__ import annotations
@@ -58,11 +72,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import gemm_batched_ref, gemm_ref
+from repro_torch.kernels.ref import gemm_batched_ref, gemm_grouped_ref, gemm_ref
 from repro_torch.obs.spans import measured
 
 __all__ = ["ROUTES", "SkinnyPlan", "Tf32x3Plan", "gemm", "gemm_batched",
-           "gemm_batched_ref", "gemm_ref", "gemm_route", "skinny_plan",
+           "gemm_batched_ref", "gemm_grouped", "gemm_grouped_ref", "gemm_ref", "gemm_route", "skinny_plan",
            "sm_count", "tf32x3_capacity", "tf32x3_plan", "wgmma_block_tile",
            "wgmma_plan"]
 
@@ -589,3 +603,75 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, *,
 gemm_batched.launches = 0
 gemm_batched.route_launches = dict.fromkeys(ROUTES, 0)
 gemm_batched.grouped_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_fn():
+    fn = _build.library("gemm").repro_gemm_grouped
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def gemm_grouped(a: torch.Tensor, b: torch.Tensor, offsets: torch.Tensor, *,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C[r] = A[r] @ B[e] for (R, k) rows sorted by expert and an (E, k, n)
+    stack, expert e owning rows ``offsets[e]:offsets[e+1]`` ((E+1,) int32
+    on A's device, ``offsets[0] == 0`` and ``offsets[E] == R``), fp32
+    accumulation, in one launch that reads the offsets on the card.
+
+    bf16 operands; A with unit k-stride, each B[e] row-major (unit n
+    stride), both 16-byte aligned with 16-byte row strides; ``out_dtype``
+    bfloat16 or float32 (default: bfloat16)."""
+    if a.ndim != 2 or b.ndim != 3 or a.shape[1] != b.shape[1]:
+        raise ValueError(
+            f"gemm_grouped: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    e, k, n = b.shape
+    if tuple(offsets.shape) != (e + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"gemm_grouped: offsets must be ({e + 1},) int32, "
+                         f"got {tuple(offsets.shape)} {offsets.dtype}")
+    if len({a.device, b.device, offsets.device}) != 1:
+        raise ValueError(f"gemm_grouped: operands on {a.device}, {b.device} "
+                         f"and {offsets.device}")
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    if a.device.type == "cpu":
+        return gemm_grouped_ref(a, b, offsets, out_dtype=out_dtype)
+    r = a.shape[0]
+    with measured("kernel", "gemm", "grouped"):
+        if a.device.type != "cuda":
+            raise ValueError(f"gemm_grouped: no kernel for device {a.device}")
+        if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 \
+                or out_dtype not in _DTYPE_CODE:
+            raise TypeError(f"gemm_grouped kernel takes bf16 operands and "
+                            f"writes f32 or bf16, got {a.dtype}, {b.dtype} "
+                            f"-> {out_dtype}")
+        sa_m, sa_k = a.stride()
+        sb_e, sb_k, sb_n = b.stride()
+        aligned = all(s % _TMA_ELEMS == 0 for s in (sa_m, sb_k, sb_e)) \
+            and a.data_ptr() % _TMA_ALIGN == 0 \
+            and b.data_ptr() % _TMA_ALIGN == 0 and k % _TMA_ELEMS == 0
+        if (sa_k != 1 and k > 1) or (sb_n != 1 and n > 1) or not aligned:
+            raise ValueError(
+                f"gemm_grouped kernel takes a row-major A and row-major "
+                f"experts with 16-byte aligned rows, got strides {a.stride()} "
+                f"and {b.stride()}")
+        if not offsets.is_contiguous():
+            raise ValueError("gemm_grouped kernel takes contiguous offsets")
+        c = torch.empty((r, n), dtype=out_dtype, device=a.device)
+        if r:
+            with torch.cuda.device(a.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = _grouped_fn()(
+                    a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                    offsets.data_ptr(), r, n, k, e, sa_m, sb_e, sb_k, n,
+                    _DTYPE_CODE[out_dtype], stream)
+            if err:
+                raise RuntimeError(
+                    f"gemm_grouped kernel launch failed: cudaError {err}")
+            _build.count_launch(gemm_grouped, "wgmma")
+    return c
+
+
+gemm_grouped.launches = 0
+gemm_grouped.route_launches = {"wgmma": 0}

@@ -8,7 +8,12 @@ table stay in one-to-one view.  It has every row of the reference's table
 capacity-grouped expert GEMM and the grouped expert FFN's three GEMMs)
 are the batched GEMM itself, experts as the batch, as the reference maps
 both to ``pallas_gemm_batched``: their launches count in
-``gemm_batched.launches`` and ``gemm_batched.route_launches``.
+``gemm_batched.launches`` and ``gemm_batched.route_launches``.  The
+``moe_expert_ffn`` descriptor's dropless route (an ``offsets`` argument:
+rows sorted by expert, granite-4.0-h) runs the ragged grouped GEMM,
+``kernels/gemm.py::gemm_grouped``, instead (counted in
+``gemm_grouped.launches``); the row keeps its lowering, as the reference
+has no such route to mirror.
 """
 
 from __future__ import annotations

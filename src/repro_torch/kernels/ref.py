@@ -13,8 +13,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["gemm_ref", "gemm_batched_ref", "moe_gemm_ref", "attention_ref",
-           "decode_attention_ref", "ssd_chunk_diag_ref"]
+__all__ = ["gemm_ref", "gemm_batched_ref", "gemm_grouped_ref", "moe_gemm_ref",
+           "attention_ref", "decode_attention_ref", "ssd_chunk_diag_ref"]
 
 _NEG_INF = -1e30
 
@@ -35,6 +35,28 @@ def gemm_batched_ref(a: torch.Tensor, b: torch.Tensor, *,
             f"gemm_batched_ref: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     return torch.bmm(a.float(), b.float()).to(out_dtype)
+
+
+def gemm_grouped_ref(a: torch.Tensor, b: torch.Tensor, offsets: torch.Tensor,
+                     *, out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """C[r] = A[r] @ B[e] for the rows ``offsets[e]:offsets[e+1]`` of A
+    (rows sorted by expert), (R, k) @ (E, k, n) -> (R, n), fp32
+    accumulation, one rounding: the ragged grouped GEMM's semantics, one
+    product an expert (the offsets read on the host)."""
+    if a.ndim != 2 or b.ndim != 3 or a.shape[1] != b.shape[1] \
+            or tuple(offsets.shape) != (b.shape[0] + 1,):
+        raise ValueError(
+            f"gemm_grouped_ref: bad shapes {tuple(a.shape)} @ "
+            f"{tuple(b.shape)}, offsets {tuple(offsets.shape)}")
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    out = torch.zeros((a.shape[0], b.shape[2]), dtype=out_dtype,
+                      device=a.device)
+    bounds = offsets.tolist()
+    for e, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if hi > lo:
+            out[lo:hi] = (a[lo:hi].float() @ b[e].float()).to(out_dtype)
+    return out
 
 
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,

@@ -9,7 +9,10 @@ stamped on every record by the one dispatch path in
 ``attention_block`` (training / prefill) runs the whole sequence through
 the ``attention`` descriptor, whose kernel lowering is the flash-attention
 kernel.  ``causal=cfg.causal`` reaches it too: an encoder (hubert) attends
-both ways.  qwen2-vl rotates by M-RoPE on (3, B, S) positions.
+both ways.  qwen2-vl rotates by M-RoPE on (3, B, S) positions;
+``cfg.position_embedding == "nope"`` (granite-4.0-h) rotates nothing, and
+``cfg.attention_multiplier``, where set, is the softmax scale of both the
+prefill and the decode kernel (else ``head_dim ** -0.5``).
 """
 
 from __future__ import annotations
@@ -55,13 +58,22 @@ def split_qkv(qkv: torch.Tensor, cfg):
 
 
 def _project_qkv(p, x, cfg, positions, rope_theta):
-    """Fused input projection (one seam dispatch) + rotary embedding."""
+    """Fused input projection (one seam dispatch) + rotary embedding (none
+    for a NoPE layer)."""
     qkv = blas.qkv_project(
         x, p["wq"], p["wk"], p["wv"],
         bq=p.get("bq"), bk=p.get("bk"), bv=p.get("bv"),
     )
     q, k, v = split_qkv(qkv, cfg)
+    if cfg.position_embedding == "nope":
+        return q, k, v
     return (*rotate_qk(q, k, cfg, positions, rope_theta), v)
+
+
+def _sm_scale(cfg):
+    """The softmax scale the descriptors take: None for ``head_dim **
+    -0.5``, else ``cfg.attention_multiplier``."""
+    return cfg.attention_multiplier or None
 
 
 def rotate_qk(q, k, cfg, positions, rope_theta):
@@ -98,7 +110,8 @@ def attention_block(
     rope_theta = rope_theta if rope_theta is not None else cfg.rope_theta
     q, k, v = _project_qkv(p, x, cfg, positions, rope_theta)
     out = blas.attention(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), causal=cfg.causal, window=window)
+                         v.transpose(1, 2), causal=cfg.causal, window=window,
+                         sm_scale=_sm_scale(cfg))
     out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     # The kill-switch disables both TP forms of this block (the
     # qkv_project plan honors it inside the seam).
@@ -151,6 +164,7 @@ def decode_attention_block(
     if window is not None:
         unwrapped_lo = max(cache_index - int(window) + 1, 0)
         lo = 0 if cache_index >= s_cache else unwrapped_lo
-    out = blas.decode_attention(qh, k_cache, v_cache, lo, hi)
+    out = blas.decode_attention(qh, k_cache, v_cache, lo, hi,
+                                sm_scale=_sm_scale(cfg))
     out = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.head_dim)
     return blas.matmul(out, p["wo"]), (k_cache, v_cache)

@@ -83,7 +83,7 @@ class Model:
         cfg = self.cfg
         if cfg.embed_inputs:
             tokens = batch["tokens"]
-            x = params["embed"][tokens]
+            x = self._lookup(params, tokens)
             bsz, s = tokens.shape
         else:
             x = batch["embeds"]
@@ -95,12 +95,24 @@ class Model:
                                      device=x.device).expand(*lead)
         return x, positions
 
+    def _lookup(self, params, tokens) -> torch.Tensor:
+        """The embedding rows of ``tokens``, times ``embedding_multiplier``
+        (granite-4.0-h; at 1.0 no multiply is launched)."""
+        x = params["embed"][tokens]
+        em = self.cfg.embedding_multiplier
+        return x if em == 1.0 else x * em
+
     def _head(self, params, x) -> torch.Tensor:
+        """Final norm and the (tied) head, the logits divided by
+        ``logits_scaling`` (granite-4.0-h; at 1.0 nothing is launched)."""
         cfg = self.cfg
         x = L.apply_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_kind)
         if cfg.tie_embeddings and cfg.embed_inputs:
-            return blas.matmul(x, params["embed"].T)
-        return blas.matmul(x, params["head"])
+            logits = blas.matmul(x, params["embed"].T)
+        else:
+            logits = blas.matmul(x, params["head"])
+        ls = cfg.logits_scaling
+        return logits if ls == 1.0 else logits / ls
 
     # ---- forward ------------------------------------------------------------
     def forward(self, params, batch, *,
@@ -136,7 +148,7 @@ class Model:
         embedding-input arch); cache_index int.  Returns (logits (B, V),
         cache) — the cache is updated in place."""
         cfg = self.cfg
-        x = params["embed"][tokens] if cfg.embed_inputs else tokens
+        x = self._lookup(params, tokens) if cfg.embed_inputs else tokens
         x, cache = T.decode_stack(params["stack"], cache, x, cache_index,
                                   cfg)
         logits = self._head(params, x)

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN with sort-based, capacity-grouped dispatch.
+"""Mixture-of-Experts FFN with sort-based, capacity-grouped dispatch, and
+a dropless route beside it.
 
 Token copies are sorted by assigned expert, packed into a static-capacity
 (E, C, d) buffer, run through the grouped expert FFN (the BLAS seam's
@@ -6,6 +7,18 @@ registered ``moe_expert_ffn`` descriptor: on the kernel path three launches
 of the batched GEMM kernel, experts as the batch) and gathered back
 weighted by the router gates.  The twin of the reference's
 ``src/repro/models/moe.py``.
+
+``cfg.moe_dropless`` (granite-4.0-h; the reference has no such route) runs
+every routed copy through its expert, as the published model does: the
+router as above, a stable sort of the T·k copies by expert, the per-expert
+counts and offsets computed on the card, the copies gathered in that order,
+and ``moe_expert_ffn``'s ragged route (on the kernel path three launches of
+the ragged grouped GEMM, ``kernels/gemm.py::gemm_grouped``, which reads the
+offsets on the card) over exactly those rows; then :func:`_combine` sums
+each token's k weighted outputs in its fixed order.  Nothing is read back
+to the host inside the forward.  Under ``torch.profiler`` the MoE FFN is a
+``layer:moe`` range holding ``glue:moe_route`` (router, top-k, sort,
+offsets, gather) and ``glue:moe_combine``.
 
 Under an ambient mesh with a ``model`` axis (:mod:`repro_torch.sharding.
 spmd`), ``moe_dispatch="auto"`` takes the expert-parallel form
@@ -32,9 +45,16 @@ repeated runs equal:
 
 Each eager dispatch writes a :class:`MoEStepTrace` and the
 ``moe.tokens_routed`` / ``moe.tokens_dropped{expert=}`` counters.  The
-port's layer loop is eager, so every MoE layer of a forward or decode step
-keeps these books and reads its (G, E) histogram back to the host (the
-reference's jitted scans write none).
+port's layer loop is eager, so every capped MoE layer of a forward or
+decode step keeps these books and reads its (G, E) histogram back to the
+host (the reference's jitted scans write none).  The dropless route books
+``moe.tokens_routed`` (T·k, known on the host) and ``moe.tokens_dropped``
+(0) at once, and queues its per-expert counts as they stand on the card:
+:func:`book_pending` reads them back and files them (the step record and
+the ``moe.expert_rows_max`` gauge, the most rows an expert took), called
+by the readers of the records (:func:`last_moe_step`,
+:func:`moe_step_trace`) and by the capped route, which waits for the card
+anyway; never inside a dropless step.
 
 Arctic's "dense residual" variant runs a standard dense FFN in parallel
 and sums the outputs.
@@ -54,9 +74,11 @@ from repro_torch.core import blas
 from repro_torch.sharding.annotate import constrain
 from repro_torch.models import layers as L
 from repro_torch.obs import metrics as _metrics
+from repro_torch.obs.spans import measured
 
 __all__ = [
     "MoEStepTrace",
+    "book_pending",
     "expert_capacity",
     "init_moe",
     "last_moe_step",
@@ -83,14 +105,47 @@ class MoEStepTrace:
 _MOE_STEPS: collections.deque = collections.deque(maxlen=256)
 
 
+# The dropless route's per-expert counts, still on the card, oldest first,
+# each beside the ``moe.expert_rows_max`` gauge of the scopes open when it
+# was routed.
+_PENDING: collections.deque = collections.deque(maxlen=256)
+
+
 def last_moe_step() -> Optional[MoEStepTrace]:
     """The most recent MoE step record (None before any dispatch)."""
+    book_pending()
     return _MOE_STEPS[-1] if _MOE_STEPS else None
 
 
 def moe_step_trace() -> List[MoEStepTrace]:
     """Recent MoE step records, oldest first (bounded window)."""
+    book_pending()
     return list(_MOE_STEPS)
+
+
+def book_pending() -> None:
+    """File the queued dropless steps, oldest first: a :class:`MoEStepTrace`
+    each (nothing dropped) and their ``moe.expert_rows_max`` gauge.  Reading
+    the counts back waits for the card, so call it outside a step."""
+    while _PENDING:
+        counts, rows_max = _PENDING.popleft()
+        counts = tuple(int(v) for v in counts.tolist())
+        routed = sum(counts)
+        _MOE_STEPS.append(MoEStepTrace(
+            counts=counts, capacity=routed, dropped=(0,) * len(counts),
+            tokens_routed=routed, tokens_dropped=0, drop_rate=0.0))
+        rows_max.set(max(counts, default=0))
+
+
+def _note_dropless(counts: torch.Tensor, routed: int) -> None:
+    """The dropless route's books: the counters at once, the (E,) counts
+    queued on the card for :func:`book_pending`.  A meta tensor (a dry
+    run's shapes) has no counts: nothing is booked."""
+    if counts.device.type == "meta":
+        return
+    _metrics.counter("moe.tokens_routed").inc(routed)
+    _metrics.counter("moe.tokens_dropped").inc(0)
+    _PENDING.append((counts, _metrics.gauge("moe.expert_rows_max")))
 
 
 def _note_moe_step(counts: torch.Tensor, cap: int) -> None:
@@ -101,6 +156,7 @@ def _note_moe_step(counts: torch.Tensor, cap: int) -> None:
     (a dry run's shapes) has no histogram: nothing is booked."""
     if counts.device.type == "meta":
         return
+    book_pending()                           # keep the records in order
     c = np.atleast_2d(counts.cpu().numpy().astype(np.int64))   # (G, E)
     hist = c.sum(axis=0)
     dropped = np.maximum(c - int(cap), 0).sum(axis=0)
@@ -305,6 +361,39 @@ def _moe_grouped(p, xf, gates, idx, cfg, expert_fn=None):
     return out.reshape(t, d)
 
 
+def _moe_dropless(p, xf, cfg):
+    """Dropless dispatch: every routed copy through its expert.  Returns
+    ``(out (T, d), aux_loss)``.
+
+    The copies (token·k + j) are sorted by expert with a stable sort, so an
+    expert's rows keep token order; the per-expert counts come from a
+    scatter-add and the (E+1,) int32 offsets from their running sum, on the
+    card (no histogram read back); the ragged route of ``moe_expert_ffn``
+    runs each expert's FFN over exactly its rows, and :func:`_combine` sums
+    each token's k gated outputs in ascending expert order."""
+    t, d = xf.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    dev = xf.device
+    with measured("glue", "moe_route"):
+        gates, idx, aux_loss = _router(p, xf, cfg)
+        flat_expert = idx.reshape(t * k)
+        order = torch.argsort(flat_expert, stable=True)
+        counts = torch.zeros(e, dtype=torch.int64, device=dev)
+        counts.scatter_add_(0, flat_expert, torch.ones_like(flat_expert))
+        offsets = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+        offsets[1:] = torch.cumsum(counts, 0)
+        rows = xf[order // k]
+        sorted_gate = gates.reshape(t * k)[order]
+    _note_dropless(counts, t * k)
+    y = blas.moe_expert_ffn(rows, p["we_gate"], p["we_up"], p["we_down"],
+                            offsets=offsets)
+    del rows                                 # T·k rows of d: free before the combine
+    with measured("glue", "moe_combine"):
+        y = y * sorted_gate[:, None]
+        out = _combine(y[None], order[None], t, k)[0]
+    return out, aux_loss
+
+
 def _moe_shard_map(p, xf, cfg, mesh):
     """Explicit-collective dispatch.
 
@@ -415,7 +504,9 @@ def _shard_map_usable(cfg, t: int) -> bool:
 
 
 def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss).  Static-capacity dispatch.
+    """x: (B, S, D) -> (out, aux_loss).  Static-capacity dispatch, or with
+    ``cfg.moe_dropless`` the dropless route (:func:`_moe_dropless`; the
+    mode is not read).
 
     Dispatch mode (``cfg.moe_dispatch``):
       "auto"    — the expert-parallel shard_map when a compatible mesh is
@@ -425,6 +516,12 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
+    if cfg.moe_dropless:
+        with measured("layer", "moe"):
+            out, aux_loss = _moe_dropless(p, xf, cfg)
+            if cfg.dense_residual:
+                out = out + L.mlp_apply(p["dense"], xf, cfg.mlp_kind)
+        return out.reshape(b, s, d), aux_loss
     mode = cfg.moe_dispatch
     if mode not in ("auto", "grouped", "global"):
         raise ValueError(f"unknown moe_dispatch {mode!r}")

@@ -12,11 +12,25 @@ Two stack layouts, as in the reference:
   splits that axis).  Per-layer data (attention window, RoPE theta: gemma3's
   5:1 local:global pattern, danube's sliding window) is a Python list the
   layer loop walks beside the parameters.
-* **hybrid** (jamba) — layers repeat with period P (8): the parameters are
-  a list of super-block dicts ``{"sub0": …, "sub{P-1}": …}``.  Sub-layer
-  ``j`` is attention when ``j % P == attn_layer_offset`` and Mamba
-  otherwise; its FFN is MoE when ``cfg.layer_is_moe(j)``.  Every sub-layer
-  runs with no window and ``cfg.rope_theta``, as the reference's does.
+* **hybrid** (jamba, granite-4.0-h) — layers repeat with period P
+  (``attn_layer_period``: jamba 8, granite 10): the parameters are a list
+  of super-block dicts ``{"sub0": …, "sub{P-1}": …}``.  Sub-layer ``j`` is
+  attention when ``j % P == attn_layer_offset`` and Mamba otherwise; its
+  FFN is MoE when ``cfg.layer_is_moe(j)`` (jamba every second sub-layer,
+  granite every one, with its shared expert as ``dense_residual``'s FFN
+  and dropless routing, ``models/moe.py``).  Every attention sub-layer
+  runs with no window; it rotates by ``cfg.rope_theta``, as the
+  reference's does, unless ``cfg.position_embedding == "nope"``
+  (granite: no position embedding, softmax scale
+  ``cfg.attention_multiplier``; ``models/attention.py``).
+
+Each residual branch is scaled by ``cfg.residual_multiplier`` before its
+add, in prefill and decode alike, where it is not 1 (granite: 0.22;
+:func:`_residual`); at 1 nothing more is launched.  The embedding's and the
+logits' multipliers are ``models/model.py``'s.  ``forward_mode="graph"``
+refuses a configuration that sets any of these fields
+(``configs/base.py::PORT_ONLY_FIELDS``): the graph captures the
+reference's block, which has none of them.
 
 The loop is eager, so each layer writes its own trace records with
 ``count = 1``; the reference traces its scan body once and writes one
@@ -39,7 +53,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, GLOBAL_WINDOW
+from repro_torch.configs.base import ArchConfig, GLOBAL_WINDOW, PORT_ONLY_FIELDS
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -57,6 +71,21 @@ __all__ = [
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.forward_mode not in ("eager", "graph"):
         raise ValueError(f"unknown forward_mode {cfg.forward_mode!r}")
+    if cfg.forward_mode == "graph":
+        changed = sorted(f for f, default in PORT_ONLY_FIELDS.items()
+                         if getattr(cfg, f) != default)
+        if changed:
+            raise ValueError(
+                f"{cfg.name}: forward_mode='graph' captures the reference's "
+                f"block, which has no {', '.join(changed)}; run this "
+                f"configuration with forward_mode='eager'")
+
+
+def _residual(x, f, cfg: ArchConfig):
+    """``x + f``, the branch scaled by ``cfg.residual_multiplier`` first
+    (granite-4.0-h; at 1.0 nothing more is launched)."""
+    rm = cfg.residual_multiplier
+    return x + (f if rm == 1.0 else f * rm)
 
 
 def _period(cfg: ArchConfig) -> int:
@@ -120,11 +149,14 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, is_moe: bool, *,
                 positions=positions, window=window, rope_theta=rope_theta,
             )
         h = L.apply_norm(x, p["norm1"], cfg.norm_eps, cfg.norm_kind)
+        # The mixer's output is a temporary: held in a name, it would stay
+        # alive through the FFN below (a (B, S, D) tensor more at the peak).
         if kind == "attn":
-            x = x + A.attention_block(p["mixer"], h, cfg, positions=positions,
-                                      window=window, rope_theta=rope_theta)
+            x = _residual(x, A.attention_block(
+                p["mixer"], h, cfg, positions=positions, window=window,
+                rope_theta=rope_theta), cfg)
         else:
-            x = x + S.mamba_block(p["mixer"], h, cfg)
+            x = _residual(x, S.mamba_block(p["mixer"], h, cfg), cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
             return x, aux
@@ -133,7 +165,7 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str, is_moe: bool, *,
             f, aux = M.moe_ffn(p["ffn"], h, cfg)
         else:
             f = L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
-        return x + f, aux
+        return _residual(x, f, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -253,17 +285,17 @@ def _decode_block(p, x, cache_slices, cache_index, cfg, *, window, rope_theta):
     if cfg.family == "ssm":
         mix, (ssm_new, conv_new) = S.decode_mamba_block(
             p["mixer"], h, (cache_slices["ssm"], cache_slices["conv"]), cfg)
-        return x + mix, {"ssm": ssm_new, "conv": conv_new}
+        return _residual(x, mix, cfg), {"ssm": ssm_new, "conv": conv_new}
     mix, (k_new, v_new) = A.decode_attention_block(
         p["mixer"], h, (cache_slices["k"], cache_slices["v"]),
         cache_index, cfg, window=window, rope_theta=rope_theta,
     )
-    x = x + mix
+    x = _residual(x, mix, cfg)
     h = L.apply_norm(x, p["norm2"], cfg.norm_eps, cfg.norm_kind)
     if cfg.layer_is_moe(0):
         # Eager in both modes, as the reference decodes an MoE layer.
         f, _ = M.moe_ffn(p["ffn"], h, cfg)
-        return x + f, {"k": k_new, "v": v_new}
+        return _residual(x, f, cfg), {"k": k_new, "v": v_new}
     if cfg.forward_mode == "graph":
         # Decode's graph half: the attention mutates the cache eagerly, the
         # dense FFN is captured (residual fused into its launch).
@@ -271,7 +303,7 @@ def _decode_block(p, x, cache_slices, cache_index, cfg, *, window, rope_theta):
 
         return F.graph_ffn(p["ffn"], h, cfg, residual=x), \
             {"k": k_new, "v": v_new}
-    x = x + L.mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    x = _residual(x, L.mlp_apply(p["ffn"], h, cfg.mlp_kind), cfg)
     return x, {"k": k_new, "v": v_new}
 
 
@@ -292,13 +324,13 @@ def _decode_super_block(sb, x, csl, cache_index, cfg: ArchConfig):
             mix, _ = S.decode_mamba_block(
                 sub["mixer"], h, (csl["ssm"][mi], csl["conv"][mi]), cfg)
             mi += 1
-        x = x + mix
+        x = _residual(x, mix, cfg)
         h = L.apply_norm(x, sub["norm2"], cfg.norm_eps, cfg.norm_kind)
         if cfg.layer_is_moe(j):
             f, _ = M.moe_ffn(sub["ffn"], h, cfg)
         else:
             f = L.mlp_apply(sub["ffn"], h, cfg.mlp_kind)
-        x = x + f
+        x = _residual(x, f, cfg)
     return x
 
 

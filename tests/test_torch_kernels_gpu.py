@@ -1405,6 +1405,88 @@ def test_gemm_batched_moe_stack_equals_single_launches(card):
     assert torch.equal(got, want)
 
 
+def _ragged_offsets(counts):
+    off = [0]
+    for c in counts:
+        off.append(off[-1] + c)
+    return torch.tensor(off, dtype=torch.int32, device="cuda")
+
+
+# (counts a row of experts, k, n): empty experts, one expert with every
+# row, counts under a 128-row tile and off its multiples, more experts than
+# a warp's 32 lanes, and granite-4.0-h's expert shapes (4096 -> 768 and
+# back, 72 experts) at a quarter of its prefill's routed rows.
+GROUPED_CASES = [
+    ([0, 300, 0, 17, 1, 128, 129, 0], 64, 96),
+    ([0, 0, 513, 0], 128, 256),
+    ([513], 256, 64),
+    ([5] * 40 + [0] * 31 + [700], 64, 192),
+    ([569] * 71 + [569 + 41], 4096, 768),
+    ([569] * 71 + [569 + 41], 768, 4096),
+]
+
+
+@pytest.mark.parametrize("counts,k,n", GROUPED_CASES,
+                         ids=[f"case{i}" for i in range(len(GROUPED_CASES))])
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_gemm_grouped_matches_per_expert_matmul(card, counts, k, n, out):
+    """The ragged grouped GEMM against one ``torch.matmul`` an expert, in
+    one launch whose grid never read the counts; repeated, the same
+    bits."""
+    from repro_torch.kernels.gemm import gemm_grouped
+
+    e, r = len(counts), sum(counts)
+    a = torch.randn(r, k, generator=card, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(e, k, n, generator=card, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    offsets = _ragged_offsets(counts)
+    od = getattr(torch, out)
+    before = gemm_grouped.route_launches["wgmma"]
+    got = gemm_grouped(a, b, offsets, out_dtype=od)
+    again = gemm_grouped(a, b, offsets, out_dtype=od)
+    torch.cuda.synchronize()
+    assert gemm_grouped.route_launches["wgmma"] == before + 2
+    assert got.dtype == od and got.shape == (r, n)
+    assert torch.equal(got, again)
+    want = torch.empty(r, n, device="cuda")
+    lo = 0
+    for i, c in enumerate(counts):
+        want[lo:lo + c] = torch.matmul(a[lo:lo + c].float(), b[i].float())
+        lo += c
+    assert _err(got, want) <= TOL["bfloat16"]
+
+
+def test_dropless_moe_on_kernels_repeats_and_matches_plain(card):
+    """The dropless MoE layer on the card: three ragged grouped launches,
+    bit for bit the same on a second run, the plain path's result (bf16
+    bar), nothing dropped, and no read of the counts inside the layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.kernels.gemm import gemm_grouped
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").reduced(),
+                              moe_dropless=True)
+    p = M.init_moe(card, cfg, torch.bfloat16, device="cuda")
+    x = torch.randn(4, 64, cfg.d_model, generator=card, device="cuda").to(
+        torch.bfloat16)
+    before = gemm_grouped.launches
+    with offload_policy(mode="device", use_kernels=True), torch.no_grad():
+        a, _ = M.moe_ffn(p, x, cfg)
+        b, _ = M.moe_ffn(p, x, cfg)
+    torch.cuda.synchronize()
+    assert gemm_grouped.launches == before + 6
+    assert torch.equal(a, b)
+    step = M.last_moe_step()
+    assert step.tokens_dropped == 0
+    assert step.tokens_routed == 256 * cfg.experts_per_token
+    with offload_policy(mode="device", use_kernels=False), torch.no_grad():
+        want, _ = M.moe_ffn(p, x, cfg)
+    assert _err(a, want) <= TOL["bfloat16"]
+
+
 def _moe_layer(card, dtype=torch.bfloat16):
     import dataclasses
 

@@ -37,6 +37,7 @@ from repro_torch.core.hero import offload_policy as tpolicy
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
 import paper_fig3_h100 as fig3  # noqa: E402
+from config_parity import assert_config_equal  # noqa: E402
 
 BACKEND = {"device-pallas": "device-kernel"}
 DTYPES = ["float64", "float32", "bfloat16"]
@@ -45,10 +46,9 @@ DTYPES = ["float64", "float32", "bfloat16"]
 def test_paper_gemm_config_equals_reference():
     assert PAPER_SIZES == J_SIZES == (16, 32, 64, 128)
     assert PAPER_DTYPE == J_DTYPE == "float64"
-    assert dataclasses.asdict(tget_arch("paper-gemm")) == \
-        dataclasses.asdict(jget_arch("paper-gemm"))
-    assert dataclasses.asdict(tget_arch("paper-gemm").reduced()) == \
-        dataclasses.asdict(jget_arch("paper-gemm").reduced())
+    assert_config_equal(tget_arch("paper-gemm"), jget_arch("paper-gemm"))
+    assert_config_equal(tget_arch("paper-gemm").reduced(),
+                        jget_arch("paper-gemm").reduced())
     assert "paper-gemm" in list_archs()
 
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from config_parity import assert_config_equal
 
 from repro.core import blas as jblas
 from repro.core import cost_model as jcm
@@ -48,7 +49,7 @@ def test_yi_6b_config_equal(reduced):
     jc, tc = jget_arch("yi-6b"), tget_arch("yi-6b")
     if reduced:
         jc, tc = jc.reduced(), tc.reduced()
-    assert _d(jc) == _d(tc)
+    assert_config_equal(tc, jc)
 
 
 @pytest.mark.parametrize("platform", PLATFORMS)

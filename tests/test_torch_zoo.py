@@ -23,6 +23,8 @@ window, so both packages' forward attention records are on the kernel.
 import dataclasses
 from collections import defaultdict
 
+from config_parity import assert_config_equal
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,13 +144,14 @@ def _totals(records, ref=False):
 # ---------------------------------------------------------------------------
 
 def test_registry_matches_reference():
-    """Every arch of the reference is registered, and every field of every
-    config (and of its reduced twin) equals the reference's."""
+    """Every arch of the reference is registered, every field of every
+    config (and of its reduced twin) equals the reference's, and each field
+    only the port has holds its default."""
     assert tlist_archs() == jlist_archs()
     for arch in jlist_archs():
         for j, t in ((jget_arch(arch), tget_arch(arch)),
                      (jget_arch(arch).reduced(), tget_arch(arch).reduced())):
-            assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
+            assert_config_equal(t, j, arch)
             assert t.param_count() == j.param_count()
             assert t.active_param_count() == j.active_param_count()
             assert t.uniform_stack == j.uniform_stack
