@@ -124,7 +124,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               ``DIR/paper_fig3.json``;
 8. ssm-forward — the SSM path: ``Model.forward`` of mamba2-370m at full
               width (bf16, random weights) on 4 x 1024 tokens, eager and
-              graph mode, on the kernels (48 SSD launches per forward) and
+              graph mode, on the kernels (48 SSD launches per forward, and
+              one causal conv + SiLU launch a mixer: every forward here
+              must launch the conv kernel as often as the SSD kernel) and
               on the plain path; the profiled eager forward's device time
               by kernel name (top 15, with launches);
 9. ssm-serve — mamba2-370m served at full width, 8 requests of 16 + 16
@@ -275,7 +277,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               at D 80 past the wrap and on gemma3's long step, the SSD
               kernel at jamba's shape; the ragged grouped GEMM on phase
               10g's operands beside its f32 plain version and
-              ``torch._grouped_mm`` (the kernels line's ``gemm_grouped``).
+              ``torch._grouped_mm`` (the kernels line's ``gemm_grouped``);
+              the Mamba-2 causal conv + SiLU (``time_conv``) at
+              granite-4.0-h-small's prefill and mamba2-370m's forward,
+              first checked against its plain version (the torch
+              composition it replaced: the pre-activation bit for bit, the
+              SiLU output within 4 f32 ulp), then timed beside it and its
+              bytes bound (the kernels line's ``causal_conv_silu``).
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the GEMM's, flash attention's and flash decode's route counters
@@ -944,6 +952,7 @@ def main() -> None:
     ssm_fwd["init_s"] = ssm_init_s
     ssm_fwd["params"] = sum(t.numel() for t in _leaves(ssm_params))
     launches["ssm-forward"] = ssm_fwd["launches"]["eager"]
+    launches["ssm-forward-conv"] = ssm_fwd["conv_launches"]
     launches["ssm-forward-graph"] = ssm_fwd["launches"]["graph"]
     routes["ssm-forward"] = ssm_fwd["routes"]["eager"]
     routes["ssm-forward-graph"] = ssm_fwd["routes"]["graph"]
@@ -1792,6 +1801,7 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts,
     from repro_torch.core import blas
     from repro_torch.core.accounting import offload_trace
     from repro_torch.core.hero import offload_policy
+    from repro_torch.kernels.ssd_scan import causal_conv_silu
     from repro_torch.models import build_model
 
     arch = cfg.name
@@ -1807,6 +1817,7 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts,
             mdl.forward(params, _first_positions(tokens, 64))  # warm up
         torch.cuda.synchronize()
         zero_counts()
+        conv0 = causal_conv_silu.launches
         t0 = time.perf_counter()
         with offload_policy(**KERNEL_POLICY), offload_trace() as trace, \
                 torch.no_grad():
@@ -1815,6 +1826,12 @@ def run_forward(cfg, model, params, tokens, zero_counts, read_counts,
         runs = [time.perf_counter() - t0]
         counts = read_counts()
         out["launches"][mode] = counts
+        # Every Mamba-2 mixer makes its SSD operands with one conv launch.
+        conv = causal_conv_silu.launches - conv0
+        out.setdefault("conv_launches", {})[mode] = conv
+        if conv != counts["ssd_chunk_diag"]:
+            fail(f"{arch} forward ({mode}) causal conv launches {conv}, want "
+                 f"one a Mamba-2 mixer ({counts['ssd_chunk_diag']})")
         out["routes"][mode] = read_routes()
         require_route(f"{arch} forward ({mode})", out["routes"][mode],
                       "wgmma", attn=attn_route(cfg.dtype, cfg.head_dim))
@@ -4953,7 +4970,7 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
     from repro_torch.kernels.gemm import gemm, gemm_batched, gemm_route
     from repro_torch.kernels.ref import (attention_ref, gemm_batched_ref,
                                          gemm_ref)
-    from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+    from repro_torch.kernels.ssd_scan import causal_conv_silu, ssd_chunk_diag
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -5212,6 +5229,15 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
     # products, on phase 10g's counts.
     grouped_shapes, grouped_tot = time_grouped()
     emit({"gemm_grouped_shapes": grouped_shapes, "per_layer": grouped_tot})
+    # The Mamba-2 conv + SiLU at granite's prefill and mamba2-370m's
+    # forward.
+    conv_rows = time_conv(causal_conv_silu, randn)
+    emit({"causal_conv_silu_shapes": conv_rows})
+    conv_granite, conv_ssm = conv_rows
+    conv_n = launches["ssm-forward-conv"]["eager"]
+    if any(r["routes"]["f32"] or not r["routes"]["bf16"] for r in conv_rows):
+        fail(f"causal conv timed off the bf16 route: "
+             f"{[(r['shape'], r['routes']) for r in conv_rows]}")
 
     per = "decode_step"
     return [
@@ -5378,6 +5404,31 @@ def run_times(cfg, ssm_cfg, moe_cfg, randn, launches, routes, max_abs):
          "per": "granite-4.0-h dropless MoE layer, 4 x 4096 tokens",
          "launches_per_layer": grouped_tot["launches"],
          "ms_per_launch": {r["shape"]: r["ms"] for r in grouped_shapes}},
+        {"name": "causal_conv_silu", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/mamba_conv.cuh",
+         "replaces": None,
+         "launches": conv_n, "graph_launches":
+         launches["ssm-forward-conv"]["graph"], "path": "ssm-forward",
+         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
+         "ulps": max(r["ulps"] for r in conv_rows),
+         "ms": conv_n * conv_ssm["ms"],
+         "plain_ms": conv_n * conv_ssm["plain_ms"],
+         "bound_ms": conv_n * conv_ssm["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "per": "forward",
+         "granite_ms": conv_granite["launches_per_forward"]
+         * conv_granite["ms"],
+         "granite_plain_ms": conv_granite["launches_per_forward"]
+         * conv_granite["plain_ms"],
+         "granite_bound_ms": conv_granite["launches_per_forward"]
+         * conv_granite["bound_ms"],
+         "granite_per": "granite-4.0-h-small forward, 18 mixers of "
+                        "4 x 4096 tokens",
+         "ms_per_launch": {r["shape"]: r["ms"] for r in conv_rows},
+         "plain_ms_per_launch": {r["shape"]: r["plain_ms"]
+                                 for r in conv_rows},
+         "bound_ms_per_launch": {r["shape"]: r["bound_ms"]
+                                 for r in conv_rows}},
     ]
 
 
@@ -5740,6 +5791,78 @@ def time_ssd(ssd_chunk_diag, ssm_cfg, randn, batch=SSM_FWD_BATCH,
             **ssd_bounds(nbytes, tensor, ops), "bytes": nbytes,
             "tensor_GFLOP": tensor / 1e9,
             "TFLOPs": tensor / t_k / 1e9, "GBps": nbytes / t_k / 1e6}
+
+
+# The Mamba-2 conv + SiLU's timed shapes: (tag, B, S, di, G·N, K, launches a
+# forward): granite-4.0-h-small's prefill cell (18 mixers of its 20 kept
+# layers) and mamba2-370m's 4 x 1024 forward (48 mixers).
+CONV_TIME_SHAPES = (
+    ("granite-4.0-h-small", GRANITE_TOKENS[0], GRANITE_TOKENS[1], 8192, 128, 4,
+     18),
+    ("mamba2-370m", SSM_FWD_BATCH, SSM_FWD_SEQ, 2048, 128, 4, 48))
+# f32 ulp the kernel's SiLU output may lie from the plain version's (the
+# pre-activation must be equal).
+CONV_MAX_ULPS = 4
+
+
+def time_conv(causal_conv_silu, randn):
+    """The mixer's causal conv + SiLU (``kernels/ssd_scan.py::
+    causal_conv_silu``) in bf16 at ``CONV_TIME_SHAPES``, over inputs
+    rotated past L2: the kernel and its plain version (``causal_conv_silu_
+    ref``: the torch composition the mixer ran before the kernel, ≈ 20
+    launches) in ms a launch, beside the bytes bound (each projection read
+    once, the f32 output written once), the kernel's GB/s and its share of
+    the bound, and the routes the timed launches took.  Before timing, on
+    the first rotated input at each shape, the kernel's pre-activation
+    must equal the plain version's bit for bit and its SiLU output lie
+    within ``CONV_MAX_ULPS`` f32 ulp of the plain one (the row's ``ulps``
+    and ``max_abs_err``)."""
+    import torch
+
+    from repro_torch.kernels.ref import causal_conv_silu_ref
+
+    rows = []
+    for tag, b, s, di, gn, k, count in CONV_TIME_SHAPES:
+        f = di + 2 * gn
+        nbytes = b * s * f * (2 + 4)
+        ins = _rotation(lambda: (
+            randn(b, s, di, dtype=torch.bfloat16),
+            randn(b, s, gn, dtype=torch.bfloat16),
+            randn(b, s, gn, dtype=torch.bfloat16),
+            (0.2 * randn(k, f)).to(torch.bfloat16),
+            (0.1 * randn(f)).to(torch.bfloat16)), b * s * f * 2)
+        pre = causal_conv_silu(*ins[0], silu=False)
+        pre_plain = causal_conv_silu_ref(*ins[0], silu=False)
+        if not torch.equal(pre, pre_plain):
+            fail(f"causal conv at {tag}: pre-activation differs from the "
+                 f"plain version's in "
+                 f"{int((pre != pre_plain).sum())} of {pre.numel()} values")
+        del pre, pre_plain
+        got = causal_conv_silu(*ins[0])
+        want = causal_conv_silu_ref(*ins[0])
+        ulps = (got.view(torch.int32).long()
+                - want.view(torch.int32).long()).abs().max().item()
+        max_abs_err = (got - want).abs().max().item()
+        del got, want
+        if ulps > CONV_MAX_ULPS:
+            fail(f"causal conv at {tag}: SiLU output {ulps} f32 ulp from "
+                 f"the plain version's (max abs err {max_abs_err}), want "
+                 f"<= {CONV_MAX_ULPS}")
+        before = dict(causal_conv_silu.route_launches)
+        t_k = _time(lambda t: causal_conv_silu(*t), ins, iters=20)
+        routes = {r: n - before[r]
+                  for r, n in causal_conv_silu.route_launches.items()}
+        t_p = _time(lambda t: causal_conv_silu_ref(*t), ins, iters=5)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows.append({"shape": tag, "B": b, "S": s, "F": f, "K": k,
+                     "dtype": "bfloat16", "launches_per_forward": count,
+                     "routes": routes, "ulps": ulps,
+                     "max_abs_err": max_abs_err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "bound_share": bound / t_k, "GBps": nbytes / t_k / 1e6})
+        del ins
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _card_name_and_power_limit() -> str:

@@ -71,6 +71,7 @@ __all__ = [
     "decode_attention",
     "psum_cast_dtype",
     "ssd_scan",
+    "causal_conv_silu",
     "moe_expert_ffn",
     "moe_expert_ffn_placed",
     "expert_matmul",
@@ -1186,6 +1187,29 @@ register(OffloadOp(
     plan=_ssd_plan,
     plan_lower=_ssd_plan_lower,
 ))
+
+
+def causal_conv_silu(x, b, c, w, bias):
+    """SiLU of the Mamba-2 mixer's depthwise causal conv of its x (B, S, di),
+    B and C (B, S, G·N) projections side by side: (B, S, F) fp32, the
+    ``ssd_scan`` operands before they are split.  w: (K, F); bias: (F,).
+
+    Not a registered op (no descriptor, record or ``dispatch:`` range).
+    Under a policy that runs kernels on the device (``use_kernels``, mode
+    ``"device"``) the conv kernel's wrapper runs, as a lowering row would:
+    on CUDA tensors the kernel (``kernels/ssd_scan.py::causal_conv_silu``,
+    which copies a view it cannot read in place and raises on operands it
+    cannot take), on CPU tensors its plain version, and under grad inside
+    an ``autograd.Function`` whose backward recomputes the plain version
+    (``kernels/autograd.py``).  Every other policy runs the plain version,
+    ``causal_conv_silu_ref``.  Both give the same pre-activation bit for
+    bit."""
+    from repro_torch.kernels import autograd, ref  # lazy: import cycle
+
+    pol = engine().policy
+    if pol.use_kernels and pol.mode == "device":
+        return autograd.causal_conv_silu(x, b, c, w, bias)
+    return ref.causal_conv_silu_ref(x, b, c, w, bias)
 
 
 # ---------------------------------------------------------------------------

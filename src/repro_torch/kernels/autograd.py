@@ -28,6 +28,11 @@ kernel's plain version, so the CPU tests exercise each backward:
   forward, and the backward recomputes the plain version
   (:mod:`repro_torch.kernels.ref`) under autograd from the saved inputs;
 * ``decode_attention`` is on no train path: under grad it raises.
+
+The Mamba-2 mixer's causal conv + SiLU is no row of the table (the BLAS
+seam's ``causal_conv_silu`` helper calls its wrapper directly);
+:func:`causal_conv_silu` gives it the SSD rows' treatment: the kernel is the
+forward and the backward recomputes the plain version.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["lowering"]
+__all__ = ["causal_conv_silu", "lowering"]
 
 
 def _needs_grad(args) -> bool:
@@ -121,6 +126,19 @@ class _SsdChunkDiag(torch.autograd.Function):
         return (None, *grads)
 
 
+class _CausalConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, x, b, c, w, bias):
+        ctx.save_for_backward(x, b, c, w, bias)
+        return fn(x, b, c, w, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _recompute(ref.causal_conv_silu_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad[1:6], dout)
+        return (None, *grads)
+
+
 def _gemm_call(fn):
     def call(a, b, *, out_dtype=None):
         if not _needs_grad((a, b)):
@@ -178,3 +196,14 @@ def lowering(name: str) -> Callable:
 
     fn = ops.kernel_lowering(name)
     return _RULES[name](fn)
+
+
+def causal_conv_silu(x, b, c, w, bias):
+    """The conv kernel's wrapper (:func:`repro_torch.kernels.ssd_scan.
+    causal_conv_silu`: the kernel on the card, its plain version on CPU
+    tensors), differentiable under grad."""
+    from repro_torch.kernels.ssd_scan import causal_conv_silu as fn
+
+    if not _needs_grad((x, b, c, w, bias)):
+        return fn(x, b, c, w, bias)
+    return _CausalConv.apply(fn, x, b, c, w, bias)

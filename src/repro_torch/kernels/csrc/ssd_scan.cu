@@ -38,12 +38,17 @@
 // columns tx + 16 j (j < NJ).  Shared rows are padded by one float so
 // column walks are free of bank conflicts.
 //
+// The same library holds the mixer's depthwise causal conv + SiLU, which
+// makes the kernel's x / B / C operands (mamba_conv.cuh, entry
+// repro_causal_conv_silu below).
+//
 // Plain C interface for ctypes (see ../_build.py); returns cudaGetLastError().
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mamba_conv.cuh"
 #include "ssd_mma.cuh"
 
 namespace {
@@ -241,4 +246,28 @@ extern "C" int repro_ssd_chunk_diag(const void* x, const void* dta,
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return dispatch_p<float>(x, dta, b, c, out, cells, Q, P, N, s);
   return dispatch_p<__nv_bfloat16>(x, dta, b, c, out, cells, Q, P, N, s);
+}
+
+// Depthwise causal conv + SiLU of the x (B, S, di), B and C (B, S, gn)
+// projections into out (B, S, di + 2·gn) f32, contiguous; w (K, F) and
+// bias (F,) contiguous.  strides: the batch and sequence strides of x, B,
+// C in elements (the channel stride is 1).  silu 0 writes the
+// pre-activation (the conv rounded to the dtype) instead, for checks.
+// dtype 0 = float32, 1 = bfloat16, one for all five operands.  K = 4, di
+// and gn multiples of 4; the caller (kernels/ssd_scan.py::conv_route) also
+// checks that x, B, C and their strides are aligned to 4 channels.
+extern "C" int repro_causal_conv_silu(const void* x, const void* b, const void* c,
+                                      const void* w, const void* bias, void* out,
+                                      const long long* strides, int B, int S, int di,
+                                      int gn, int K, int silu, int dtype,
+                                      void* stream) {
+  if (B <= 0 || S <= 0 || di + 2 * gn <= 0) return 0;
+  if (di < 0 || gn < 0 || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return mamba_conv::dispatch<float>(x, b, c, w, bias, out, strides, B, S, di, gn, K,
+                                       silu, s);
+  return mamba_conv::dispatch<__nv_bfloat16>(x, b, c, w, bias, out, strides, B, S, di, gn,
+                                             K, silu, s);
 }

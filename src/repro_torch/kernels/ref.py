@@ -12,9 +12,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["gemm_ref", "gemm_batched_ref", "gemm_grouped_ref", "moe_gemm_ref",
-           "attention_ref", "decode_attention_ref", "ssd_chunk_diag_ref"]
+           "attention_ref", "decode_attention_ref", "ssd_chunk_diag_ref",
+           "causal_conv_silu_ref"]
 
 _NEG_INF = -1e30
 
@@ -149,3 +151,29 @@ def ssd_chunk_diag_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
                          torch.zeros((), device=x.device))
     y = torch.einsum("zcqk,zckp->zcqp", s * l_mask, xf)
     return y.to(x.dtype)
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Depthwise causal conv along S via stacked shifts, fp32 sums, one
+    rounding to ``u.dtype``.  u: (B, S, F); w: (K, F)."""
+    k, s = w.shape[0], u.shape[1]
+    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    for i in range(k):
+        shift = k - 1 - i
+        ui = F.pad(u, (0, 0, shift, 0))[:, :s, :]
+        out = out + ui.float() * w[i].float()
+    return (out + b.float()).to(u.dtype)
+
+
+def causal_conv_silu_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         w: torch.Tensor, bias: torch.Tensor, *,
+                         silu: bool = True) -> torch.Tensor:
+    """SiLU of the depthwise causal conv of the Mamba-2 mixer's x (B, S, di),
+    B and C (B, S, G·N) projections side by side: (B, S, di + 2·G·N) fp32.
+    w: (K, F) taps, tap K − 1 on the current position; bias: (F,).  Rows
+    before a sequence's start are 0; the products are summed in fp32, tap 0
+    first, then the bias, rounded once to the projections' dtype, and the
+    SiLU is taken in fp32 (``silu=False``: the pre-activation, in f32)."""
+    u = torch.cat([x, b, c], dim=-1)
+    pre = _causal_conv(u, w, bias).float()
+    return F.silu(pre) if silu else pre

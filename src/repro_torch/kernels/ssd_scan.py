@@ -25,22 +25,33 @@ retried on the other kernel.
 plain version, :func:`repro_torch.kernels.ref.ssd_chunk_diag_ref`, only for
 CPU tensors.  ``ssd_chunk_diag.launches`` counts kernel launches and
 ``ssd_chunk_diag.route_launches[route]`` the launches of each route.
+
+The same source holds the mixer's depthwise causal conv + SiLU, which makes
+the SSD operands from the x / B / C projections (``csrc/mamba_conv.cuh``):
+:func:`causal_conv_silu`, one pass that reads each projection in place and
+writes the (B, S, F) f32 result, on route ``"bf16"`` or ``"f32"`` by the
+operands' dtype (:func:`conv_route`, which also says when the kernel does
+not read them as they lie: such views are copied first, and operands that
+no copy makes fit raise).  Its plain version is
+:func:`repro_torch.kernels.ref.causal_conv_silu_ref`, for CPU tensors; it
+counts ``causal_conv_silu.launches`` and ``.route_launches[route]``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_chunk_diag_ref
+from repro_torch.kernels.ref import causal_conv_silu_ref, ssd_chunk_diag_ref
 from repro_torch.obs.spans import measured
 
-__all__ = ["ROUTES", "SsdPlan", "mma_smem_bytes", "ssd_chunk_diag",
-           "ssd_chunk_diag_ref", "ssd_plan", "ssd_route"]
+__all__ = ["CONV_ROUTES", "ROUTES", "SsdPlan", "causal_conv_silu",
+           "causal_conv_silu_ref", "conv_route", "mma_smem_bytes",
+           "ssd_chunk_diag", "ssd_chunk_diag_ref", "ssd_plan", "ssd_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("simt", "mma")         # index = the C side's route code
@@ -53,6 +64,10 @@ _MAX_SMEM = 232_448              # what one block may use on an H100
 # stored as TMA boxes of 128-byte rows; head dims up to 128 (16 n-tiles of
 # 8); three 8-byte mbarriers.
 _BQ, _BK, _STAGES, _MMA_MAX_P, _GROUP = 64, 32, 2, 128, 128
+CONV_ROUTES = ("f32", "bf16")    # index = the C side's dtype code
+# csrc/mamba_conv.cuh: the conv width it is built for (every Mamba-2
+# configuration's), and the channels a thread loads at once.
+_CONV_K, _CONV_VEC = 4, 4
 
 
 def _groups(cols: int, itemsize: int) -> int:
@@ -197,3 +212,118 @@ def ssd_chunk_diag(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
 
 ssd_chunk_diag.launches = 0
 ssd_chunk_diag.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def _conv_dims(x, b, c, w, bias):
+    """(B, S, di, gn, K) of a conv call; raises on shapes that do not fit."""
+    if x.ndim != 3 or b.ndim != 3 or c.shape != b.shape \
+            or b.shape[:2] != x.shape[:2]:
+        raise ValueError(f"causal_conv_silu: bad shapes x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}, c {tuple(c.shape)}")
+    bsz, s, di = x.shape
+    gn = b.shape[2]
+    f = di + 2 * gn
+    if w.ndim != 2 or w.shape[1] != f or tuple(bias.shape) != (f,):
+        raise ValueError(f"causal_conv_silu: w {tuple(w.shape)} / bias "
+                         f"{tuple(bias.shape)} do not fit F {f}")
+    return bsz, s, di, gn, w.shape[0]
+
+
+def _conv_shape_route(x, b, c, w, bias) -> Optional[str]:
+    """The route by what no copy changes: the five on one device in one
+    dtype, f32 or bf16; K 4; widths di and G·N in whole vectors of 4
+    channels.  None where one of these fails."""
+    _conv_dims(x, b, c, w, bias)
+    ops = (x, b, c, w, bias)
+    if any(t.device != x.device for t in ops) or x.dtype not in _DTYPE_CODE \
+            or any(t.dtype != x.dtype for t in ops) \
+            or w.shape[0] != _CONV_K \
+            or x.shape[2] % _CONV_VEC or b.shape[2] % _CONV_VEC:
+        return None
+    return CONV_ROUTES[_DTYPE_CODE[x.dtype]]
+
+
+def _reads_in_place(t: torch.Tensor) -> bool:
+    """x, B or C as the kernel reads it: unit channel stride, batch and
+    sequence strides in whole 4-channel vectors, the address aligned to one
+    such vector (8 bytes in bf16, 16 in f32)."""
+    return t.stride(2) == 1 and not (
+        t.stride(0) % _CONV_VEC or t.stride(1) % _CONV_VEC
+        or t.data_ptr() % (_CONV_VEC * t.dtype.itemsize))
+
+
+def conv_route(x, b, c, w, bias) -> Optional[str]:
+    """The route :func:`causal_conv_silu`'s kernel takes on these operands
+    as they lie, or None where it takes them not: the five on one device
+    (the kernel's call needs it to be a card) in one dtype, f32 (``"f32"``)
+    or bf16 (``"bf16"``); K 4; x, B and C read in place (unit channel
+    stride, widths, batch and sequence strides in whole vectors of 4
+    channels, addresses aligned to one such vector); w and bias contiguous
+    (read element by element, any alignment)."""
+    route = _conv_shape_route(x, b, c, w, bias)
+    if route is None or not (w.is_contiguous() and bias.is_contiguous()) \
+            or not all(_reads_in_place(t) for t in (x, b, c)):
+        return None
+    return route
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_fn():
+    fn = _build.library("ssd_scan").repro_causal_conv_silu
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return fn
+
+
+def causal_conv_silu(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     w: torch.Tensor, bias: torch.Tensor, *,
+                     silu: bool = True) -> torch.Tensor:
+    """SiLU of the depthwise causal conv of x (B, S, di), B and C (B, S, gn)
+    side by side: (B, S, di + 2·gn) fp32, the plain version's result
+    (:func:`~repro_torch.kernels.ref.causal_conv_silu_ref`) with the same
+    pre-activation bit for bit.  w: (K, F); bias: (F,).  ``silu=False``
+    returns that pre-activation (the conv rounded to the operands' dtype,
+    in f32); it exists for the checks that hold the kernel to the plain
+    version bit for bit.  CPU tensors take the plain version.  On the card
+    a view the kernel cannot read in place (:func:`conv_route`) is copied
+    to a contiguous tensor first; operands that no copy makes fit (another
+    dtype, K or width) raise."""
+    bsz, s, di, gn, k = _conv_dims(x, b, c, w, bias)
+    if x.device.type == "cpu":
+        return causal_conv_silu_ref(x, b, c, w, bias, silu=silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"causal_conv_silu: no kernel for device {x.device}")
+    route = _conv_shape_route(x, b, c, w, bias)
+    if route is None:
+        raise ValueError(
+            "causal_conv_silu kernel takes f32 / bf16 operands on one card, "
+            f"K {_CONV_K}, widths in {_CONV_VEC}-channel vectors; got "
+            f"{[str(t.dtype) for t in (x, b, c, w, bias)]}, K {k}, widths "
+            f"{di}, {gn}")
+    x, b, c = (t if _reads_in_place(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (x, b, c))
+    w, bias = w.contiguous(), bias.contiguous()
+    with measured("kernel", "causal_conv", route):
+        out = torch.empty((bsz, s, di + 2 * gn), dtype=torch.float32,
+                          device=x.device)
+        if out.numel() == 0:
+            return out
+        strides = (ctypes.c_longlong * 6)(
+            *(st for t in (x, b, c) for st in t.stride()[:2]))
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _conv_fn()(
+                x.data_ptr(), b.data_ptr(), c.data_ptr(), w.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), strides, bsz, s, di, gn, k,
+                int(silu), _DTYPE_CODE[x.dtype], stream)
+        if err:
+            raise RuntimeError(f"causal_conv_silu kernel ({route}) launch "
+                               f"failed: cudaError {err}")
+        _build.count_launch(causal_conv_silu, route)
+    return out
+
+
+causal_conv_silu.launches = 0
+causal_conv_silu.route_launches = dict.fromkeys(CONV_ROUTES, 0)

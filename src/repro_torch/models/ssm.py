@@ -6,8 +6,9 @@ D skip) is one registered ``ssd_scan`` descriptor: its host lowering is the
 plain torch composition, its kernel lowering runs the hand-written SSD
 chunk kernel (``kernels/csrc/ssd_scan.cu``) for the within-chunk term.
 Projections go through ``blas.matmul`` and the gate through ``blas.silu``;
-the depthwise causal conv and the gating stay elementwise glue.  This file
-has no raw ``torch.matmul`` launch site.
+the depthwise causal conv and its SiLU through ``blas.causal_conv_silu``
+(one hand-written kernel on the card, ``csrc/mamba_conv.cuh``); the gating
+stays elementwise glue.  This file has no raw ``torch.matmul`` launch site.
 
 Decode is the one-step recurrence on a (B, H, N, P) fp32 state cache, O(1)
 per token.  Unlike the reference (functional updates), the new ssm and conv
@@ -58,18 +59,6 @@ def init_mamba(gen: torch.Generator, cfg, dtype, *, device):
     return p
 
 
-def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """Depthwise causal conv along S via stacked shifts, fp32 sums, one
-    rounding to ``u.dtype``.  u: (B, S, F); w: (K, F)."""
-    k, s = w.shape[0], u.shape[1]
-    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
-    for i in range(k):
-        shift = k - 1 - i
-        ui = F.pad(u, (0, 0, shift, 0))[:, :s, :]
-        out = out + ui.float() * w[i].float()
-    return (out + b.float()).to(u.dtype)
-
-
 def _project(p, x):
     z = blas.matmul(x, p["wz"])
     xin = blas.matmul(x, p["wx"])
@@ -105,10 +94,10 @@ def ssd_inputs(p, xin, b_, c_, dt, cfg):
 
 
 def conv_and_inputs(p, xin, b_, c_, dt, cfg):
-    """Causal conv + SiLU of the x/B/C projections, then the ``ssd_scan``
+    """Causal conv + SiLU of the x/B/C projections (``blas.
+    causal_conv_silu``: one kernel on the card), then the ``ssd_scan``
     operands.  Shared by the eager block and the graph block."""
-    conv_in = torch.cat([xin, b_, c_], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]).float())
+    conv_out = blas.causal_conv_silu(xin, b_, c_, p["conv_w"], p["conv_b"])
     return ssd_inputs(p, *_split_conv(conv_out, cfg), dt, cfg)
 
 

@@ -10,7 +10,8 @@ that has only PyTorch and the CUDA toolkit:
 ``tests/test_kernels.py``'s, f32 2e-5 and bf16 2e-2, of max |plain|
 (for attention, of each output row's max |plain|); the SSD chunk kernel's
 is 1e-4 in f32 (``tests/test_kernels.py:169``), of each output row's max
-|plain|.
+|plain|.  The Mamba-2 conv kernel's pre-activation equals its plain
+version's bit for bit, and its SiLU output lies within 4 f32 ulp.
 """
 
 import numpy as np
@@ -21,10 +22,11 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import (cluster_capacity, decode_plan,
                                               flash_decode, flash_decode_route)
 from repro_torch.kernels.gemm import gemm, gemm_batched
-from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
-                                     gemm_batched_ref, gemm_ref,
-                                     ssd_chunk_diag_ref)
-from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_route
+from repro_torch.kernels.ref import (attention_ref, causal_conv_silu_ref,
+                                     decode_attention_ref, gemm_batched_ref,
+                                     gemm_ref, ssd_chunk_diag_ref)
+from repro_torch.kernels.ssd_scan import (causal_conv_silu, conv_route,
+                                          ssd_chunk_diag, ssd_route)
 
 import flash_decode_pallas_ref
 import gemm_pallas_ref
@@ -1312,6 +1314,219 @@ def test_ssd_chunk_diag_kernel_rejects_mixed_dtypes(card):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_chunk_diag(x.transpose(2, 3).contiguous().transpose(2, 3), dta,
                        b, c)
+
+
+# The Mamba-2 mixer's causal conv + SiLU (csrc/mamba_conv.cuh): (B, S, di,
+# G·N, K) at granite-4.0-h-small's prefill (4 x 4096, F 8448), mamba2-370m's
+# forward (F 2304), jamba's widths (8 groups, F 17408) over an odd S, and
+# small odd shapes (S below the conv width, one position, S not a multiple
+# of the kernel's 32-row runs).  K is 4, the only conv width it is built
+# for.
+CONV_SHAPES = [(4, 4096, 8192, 128, 4), (4, 1024, 2048, 128, 4),
+               (1, 333, 16384, 1024, 4), (3, 77, 64, 16, 4), (2, 2, 64, 16, 4),
+               (2, 45, 32, 8, 4), (3, 1, 32, 8, 4)]
+
+
+def _conv_operands(gen, bsz, s, di, gn, k, dtype, bias_scale=0.1):
+    """x, B, C as the projections write them, the model's taps (0.2 N(0, 1))
+    and a bias of ``bias_scale`` N(0, 1), all in ``dtype``."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    return (randn(bsz, s, di), randn(bsz, s, gn), randn(bsz, s, gn),
+            randn(k, di + 2 * gn, scale=0.2),
+            randn(di + 2 * gn, scale=bias_scale))
+
+
+def _ulps(got, want):
+    """Largest distance in f32 units in the last place (same signs)."""
+    return (got.view(torch.int32).long()
+            - want.view(torch.int32).long()).abs().max().item()
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_causal_conv_silu_kernel(card, shape, dtype):
+    """The pre-activation equals the plain version's bit for bit and the
+    SiLU output lies within 4 f32 ulp of it, one launch a call."""
+    ops = _conv_operands(card, *shape, getattr(torch, dtype))
+    assert conv_route(*ops) == {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    before = dict(causal_conv_silu.route_launches)
+    pre = causal_conv_silu(*ops, silu=False)
+    got = causal_conv_silu(*ops)
+    torch.cuda.synchronize()
+    route = conv_route(*ops)
+    assert causal_conv_silu.route_launches[route] == before[route] + 2
+    want_pre = causal_conv_silu_ref(*ops, silu=False)
+    want = causal_conv_silu_ref(*ops)
+    bsz, s, di, gn, _ = shape
+    assert got.shape == (bsz, s, di + 2 * gn) and got.dtype == torch.float32
+    assert torch.equal(pre, want_pre)
+    assert _ulps(got, want) <= 4
+
+
+def test_causal_conv_silu_kernel_keeps_sequences_apart(card):
+    """A batch of distinct sequences, one of them all zeros beside one of
+    large values: each row's first K − 1 positions see only zeros before
+    them (the zero sequence reads exactly silu(bias)), and each sequence
+    equals its own launch alone bit for bit."""
+    x, b, c, w, bias = _conv_operands(card, 3, 50, 64, 16, 4, torch.bfloat16,
+                                      bias_scale=1.0)
+    for t in (x, b, c):
+        t[1] = 0
+        t[0] *= 1000
+    pre = causal_conv_silu(x, b, c, w, bias, silu=False)
+    got = causal_conv_silu(x, b, c, w, bias)
+    alone = [causal_conv_silu(x[i:i + 1], b[i:i + 1], c[i:i + 1], w, bias)
+             for i in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(pre[1], bias.float().expand(50, -1))
+    for i in range(3):
+        assert torch.equal(got[i:i + 1], alone[i])
+    assert torch.equal(pre, causal_conv_silu_ref(x, b, c, w, bias,
+                                                 silu=False))
+
+
+def test_causal_conv_silu_kernel_reads_views_in_place(card):
+    """x, B and C as column slices of one wide projection (row strides
+    past their widths) and with a batch stride of their own: read in
+    place, the same result as on contiguous copies."""
+    wide = torch.randn(2, 40, 64 + 32 + 16, generator=card,
+                       device="cuda").to(torch.bfloat16)
+    x, b, c = wide[..., :64], wide[..., 64:80], wide[..., 96:112]
+    w = (0.2 * torch.randn(4, 96, generator=card, device="cuda")
+         ).to(torch.bfloat16)
+    bias = torch.zeros(96, dtype=torch.bfloat16, device="cuda")
+    assert conv_route(x, b, c, w, bias) == "bf16"
+    got = causal_conv_silu(x, b, c, w, bias, silu=False)
+    want = causal_conv_silu(x.contiguous(), b.contiguous(), c.contiguous(),
+                            w, bias, silu=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_causal_conv_silu_copies_views_it_cannot_read_in_place(card):
+    """Through ``blas.causal_conv_silu`` under the kernel policy: a
+    misaligned view, a sequence stride and a batch stride off the 4-channel
+    vector are copied, then launched once, the plain version's result bit
+    for bit."""
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+
+    bf16 = torch.bfloat16
+    x, b, c, w, bias = _conv_operands(card, 2, 20, 64, 16, 4, bf16)
+    flat = torch.randn(2 * 20 * 64 + 1, generator=card, device="cuda")
+    views = [(flat.to(bf16)[1:].view(2, 20, 64), b, c),
+             (torch.randn(2, 20, 66, generator=card,
+                          device="cuda").to(bf16)[..., :64], b, c),
+             (x, torch.randn(800, generator=card, device="cuda").to(
+                 bf16).as_strided((2, 20, 16), (330, 16, 1)), c)]
+    for vx, vb, vc in views:
+        ops = (vx, vb, vc, w, bias)
+        assert conv_route(*ops) is None
+        before = causal_conv_silu.launches
+        with offload_policy(mode="device", use_kernels=True), \
+                torch.no_grad():
+            got = blas.causal_conv_silu(*ops)
+        torch.cuda.synchronize()
+        assert causal_conv_silu.launches == before + 1
+        assert torch.equal(causal_conv_silu(*ops, silu=False),
+                           causal_conv_silu_ref(*ops, silu=False))
+        assert _ulps(got, causal_conv_silu_ref(*ops)) <= 4
+
+
+def test_causal_conv_silu_refuses_on_the_card_what_no_copy_fits(card):
+    """Under the kernel policy, operands on the card that no copy makes
+    fit (widths off the 4-channel vector, K 3 and 5, fp16, mixed dtypes)
+    raise, through ``blas.causal_conv_silu`` as through the wrapper: no
+    launch and no plain version on the card."""
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+
+    bf16 = torch.bfloat16
+    cases = [_conv_operands(card, 2, 20, 64, 10, 4, bf16),
+             _conv_operands(card, 2, 20, 62, 16, 4, bf16),
+             _conv_operands(card, 2, 20, 64, 16, 3, bf16),
+             _conv_operands(card, 2, 20, 64, 16, 5, bf16),
+             _conv_operands(card, 2, 20, 64, 16, 4, torch.float16)]
+    x, b, c, w, bias = _conv_operands(card, 2, 20, 64, 16, 4, bf16)
+    cases.append((x, b, c, w.float(), bias))
+    for ops in cases:
+        assert conv_route(*ops) is None
+        before = causal_conv_silu.launches
+        with pytest.raises(ValueError, match="causal_conv_silu kernel"):
+            with offload_policy(mode="device", use_kernels=True), \
+                    torch.no_grad():
+                blas.causal_conv_silu(*ops)
+        with pytest.raises(ValueError, match="causal_conv_silu kernel"):
+            causal_conv_silu(*ops)
+        assert causal_conv_silu.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_causal_conv_silu_under_grad_launches_the_kernel(card, dtype):
+    """Under grad with operands that require it, the kernel policy launches
+    the kernel (inside an ``autograd.Function``): one launch, the output of
+    the same launch without grad bit for bit, and every operand's gradient
+    that of the plain version (which the backward recomputes) bit for
+    bit."""
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+
+    ops = _conv_operands(card, 2, 70, 64, 16, 4, getattr(torch, dtype))
+    dout = torch.randn(2, 70, 96, generator=card, device="cuda")
+    mine = [t.clone().requires_grad_() for t in ops]
+    plain = [t.clone().requires_grad_() for t in ops]
+    before = causal_conv_silu.launches
+    with offload_policy(mode="device", use_kernels=True):
+        got = blas.causal_conv_silu(*mine)
+    torch.cuda.synchronize()
+    assert causal_conv_silu.launches == before + 1
+    assert torch.equal(got.detach(), causal_conv_silu(*ops))
+    got.backward(dout)
+    causal_conv_silu_ref(*plain).backward(dout)
+    for t, u in zip(mine, plain):
+        assert torch.equal(t.grad, u.grad)
+
+
+def test_granite_width_mixers_launch_the_conv_kernel_once_each(
+        card, monkeypatch):
+    """18 Mamba-2 mixers at granite-4.0-h-small's widths (d 4096, 128 heads
+    of 64, N 128, one group, conv 4) on 4 x 4096 tokens, as one forward
+    runs them: 18 conv launches on ``bf16``, and the mixer's output within
+    the bf16 tolerance of the same mixer with the plain conv (the rest of
+    the mixer on the kernels in both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.models.ssm import init_mamba, mamba_block
+
+    cfg = dataclasses.replace(
+        get_arch("mamba2-370m"), d_model=4096, ssm_expand=2,
+        ssm_head_dim=64, ssm_state_dim=128, ssm_num_groups=1,
+        ssm_conv_width=4, ssm_chunk=256, dtype="bfloat16")
+    assert cfg.d_inner == 8192 and cfg.ssm_num_heads == 128
+    p = init_mamba(card, cfg, torch.bfloat16, device="cuda")
+    p["conv_b"] = (0.1 * torch.randn(p["conv_b"].shape, generator=card,
+                                     device="cuda")).to(torch.bfloat16)
+    h = torch.randn(4, 4096, 4096, generator=card,
+                    device="cuda").to(torch.bfloat16)
+    before = dict(causal_conv_silu.route_launches)
+    with offload_policy(mode="device", use_kernels=True), torch.no_grad():
+        for _ in range(18):
+            y = mamba_block(p, h, cfg)
+        torch.cuda.synchronize()
+        launched = {r: n - before[r]
+                    for r, n in causal_conv_silu.route_launches.items()}
+        assert launched == {"f32": 0, "bf16": 18}
+        monkeypatch.setattr(blas, "causal_conv_silu", causal_conv_silu_ref)
+        y_plain = mamba_block(p, h, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert _err(y, y_plain) <= TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("mode", ["eager", "graph"])

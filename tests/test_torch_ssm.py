@@ -13,6 +13,9 @@
   ``serve_batch``, the prefill step) against the reference on weights
   converted from its ``init_params``; tolerances are ``tests/test_models.py``'s
   (f32 2e-4, bf16 6e-2, decode against forward 2e-2).
+* the mixer's causal conv + SiLU helper (``blas.causal_conv_silu``): off
+  the card its plain version, the former conv bit for bit; its route
+  choice; both blocks reaching it.
 
 Both packages run under their kernel policy with ``platform="tpu-v5e"``:
 the reference's Pallas kernels in interpret mode, the port's wrappers on
@@ -641,3 +644,213 @@ def test_hybrid_and_moe_stacks_build_decode_caches():
     cache = T.init_decode_cache(moe, 1, 4, torch.float32, device="cpu")
     assert tuple(cache["k"].shape) == (moe.num_layers, 1, moe.num_kv_heads,
                                        4, moe.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# 5. The mixer's causal conv + SiLU helper (``blas.causal_conv_silu``)
+# ---------------------------------------------------------------------------
+
+def _todays_conv(x, b, c, w, bias):
+    """The mixer's conv before the helper, verbatim (``models/ssm.py``'s
+    ``conv_and_inputs`` and ``_causal_conv``), up to the SiLU."""
+    u = torch.cat([x, b, c], dim=-1)
+    k, s = w.shape[0], u.shape[1]
+    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    for i in range(k):
+        shift = k - 1 - i
+        ui = torch.nn.functional.pad(u, (0, 0, shift, 0))[:, :s, :]
+        out = out + ui.float() * w[i].float()
+    return (out + bias.float()).to(u.dtype).float()
+
+
+def _conv_ops(bsz=2, s=13, di=32, gn=8, k=4, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(bsz, s, di, generator=g).to(dtype),
+            torch.randn(bsz, s, gn, generator=g).to(dtype),
+            torch.randn(bsz, s, gn, generator=g).to(dtype),
+            (0.2 * torch.randn(k, di + 2 * gn, generator=g)).to(dtype),
+            (0.1 * torch.randn(di + 2 * gn, generator=g)).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 32, 8, 4), (1, 2, 16, 4, 4),
+                                   (3, 40, 24, 12, 3), (2, 7, 10, 6, 5)])
+@pytest.mark.parametrize("policy", ["kernels", "host"])
+def test_conv_helper_torch_path_is_todays_conv_bit_for_bit(dtype, shape,
+                                                           policy):
+    """Off the card the helper runs the plain version, which is the mixer's
+    former conv + SiLU bit for bit, under either policy, at conv widths the
+    kernel takes and at one it does not (K 5)."""
+    from repro_torch.kernels.ref import causal_conv_silu_ref
+
+    ops = _conv_ops(*shape, dtype=dtype)
+    want = torch.nn.functional.silu(_todays_conv(*ops))
+    pol = _port_policy() if policy == "kernels" else tpolicy(mode="host")
+    with pol:
+        got = tblas.causal_conv_silu(*ops)
+    bsz, s, di, gn, _ = shape
+    assert got.shape == (bsz, s, di + 2 * gn) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(causal_conv_silu_ref(*ops), want)
+    assert torch.equal(causal_conv_silu_ref(*ops, silu=False),
+                       _todays_conv(*ops))
+
+
+def test_conv_helper_matches_the_reference_conv():
+    """The helper against the reference's conv + SiLU on the same numpy
+    operands (``src/repro/models/ssm.py``: concatenate, ``_causal_conv``,
+    ``jax.nn.silu``), f32 at 1e-6."""
+    ops = _conv_ops(2, 21, 32, 8, 4)
+    u = jnp.concatenate([jnp.asarray(t.numpy()) for t in ops[:3]], axis=-1)
+    want = jax.nn.silu(JS._causal_conv(u, jnp.asarray(ops[3].numpy()),
+                                       jnp.asarray(ops[4].numpy())))
+    with _port_policy():
+        got = tblas.causal_conv_silu(*ops)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["cpu", "grad", "float64", "width",
+                                  "misaligned", "mixed", "k5"])
+def test_conv_helper_takes_the_torch_path_and_counts_nothing(case):
+    """Route choice off the card: CPU tensors (even ones the kernel would
+    take), grad mode with an operand that requires grad, a dtype, width,
+    alignment, dtype mix or conv width the kernel does not take all run the
+    plain version, and the kernel's counters stay at 0."""
+    from repro_torch.kernels.ref import causal_conv_silu_ref
+    from repro_torch.kernels.ssd_scan import causal_conv_silu, conv_route
+
+    ops = list(_conv_ops(2, 9, 32, 8, 4, dtype=torch.bfloat16))
+    want_route = {"cpu": "bf16", "grad": "bf16"}.get(case)
+    if case == "grad":
+        ops = [t.float().requires_grad_() for t in ops]
+        want_route = "f32"
+    elif case == "float64":
+        ops = [t.double() for t in ops]
+    elif case == "width":
+        ops = list(_conv_ops(2, 9, 30, 8, 4, dtype=torch.bfloat16))
+    elif case == "misaligned":
+        wide = torch.randn(2, 9, 33).to(torch.bfloat16)
+        ops[0] = wide[..., 1:]
+    elif case == "mixed":
+        ops[3] = ops[3].float()
+    elif case == "k5":
+        ops = list(_conv_ops(2, 9, 32, 8, 5, dtype=torch.bfloat16))
+    assert conv_route(*ops) == want_route
+    before = (causal_conv_silu.launches, dict(causal_conv_silu.route_launches))
+    with _port_policy():
+        got = tblas.causal_conv_silu(*ops)
+    assert (causal_conv_silu.launches,
+            causal_conv_silu.route_launches) == before
+    assert causal_conv_silu.launches == 0
+    assert set(causal_conv_silu.route_launches.values()) == {0}
+    assert torch.equal(got, causal_conv_silu_ref(*ops))
+    if case == "grad":
+        assert got.requires_grad
+        got.sum().backward()
+        assert all(t.grad is not None for t in ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["kernels", "host"])
+def test_conv_helper_under_grad_gives_the_plain_versions_gradients(dtype,
+                                                                  policy):
+    """Under grad the kernel policy runs the wrapper inside an
+    ``autograd.Function`` whose backward recomputes the plain version (on
+    the CPU its forward is the plain version too); the host policy runs the
+    plain version itself.  Either way the output and every operand's
+    gradient equal the plain version's bit for bit, and nothing launches."""
+    from repro_torch.kernels.ref import causal_conv_silu_ref
+    from repro_torch.kernels.ssd_scan import causal_conv_silu
+
+    ops = _conv_ops(2, 11, 32, 8, 4, dtype=dtype, seed=3)
+    dout = torch.randn(2, 11, 48, generator=torch.Generator().manual_seed(4))
+    mine = [t.clone().requires_grad_() for t in ops]
+    plain = [t.clone().requires_grad_() for t in ops]
+    pol = _port_policy() if policy == "kernels" else tpolicy(mode="host")
+    with pol:
+        got = tblas.causal_conv_silu(*mine)
+    want = causal_conv_silu_ref(*plain)
+    assert ("_CausalConv" in type(got.grad_fn).__name__) == (
+        policy == "kernels")
+    got.backward(dout)
+    want.backward(dout)
+    assert torch.equal(got, want)
+    for t, u in zip(mine, plain):
+        assert t.grad.dtype == dtype and torch.equal(t.grad, u.grad)
+    assert causal_conv_silu.launches == 0
+
+
+@pytest.mark.parametrize("case", ["misaligned", "row_stride", "batch_stride",
+                                  "channel_stride", "width", "k3", "k5",
+                                  "float64", "mixed"])
+def test_conv_route_tells_a_copy_from_a_refusal(case):
+    """What the card's wrapper does with operands the kernel cannot read as
+    they lie: a view's layout (address, row, batch or channel stride) is
+    cured by a contiguous copy, which the kernel takes; a width, conv
+    width or dtype is not, and raises there."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    ops = list(_conv_ops(2, 9, 32, 8, 4, dtype=torch.bfloat16))
+    if case == "misaligned":
+        ops[0] = torch.randn(2 * 9 * 32 + 1).to(torch.bfloat16)[1:].view(
+            2, 9, 32)
+    elif case == "row_stride":
+        ops[0] = torch.randn(2, 9, 34).to(torch.bfloat16)[..., :32]
+    elif case == "batch_stride":
+        ops[1] = torch.randn(160).to(torch.bfloat16).as_strided(
+            (2, 9, 8), (74, 8, 1))
+    elif case == "channel_stride":
+        ops[2] = torch.randn(2, 9, 16).to(torch.bfloat16)[..., ::2]
+    elif case == "width":
+        ops = list(_conv_ops(2, 9, 30, 8, 4, dtype=torch.bfloat16))
+    elif case == "k3":
+        ops = list(_conv_ops(2, 9, 32, 8, 3, dtype=torch.bfloat16))
+    elif case == "k5":
+        ops = list(_conv_ops(2, 9, 32, 8, 5, dtype=torch.bfloat16))
+    elif case == "float64":
+        ops = [t.double() for t in ops]
+    elif case == "mixed":
+        ops[4] = ops[4].float()
+    copyable = case in ("misaligned", "row_stride", "batch_stride",
+                        "channel_stride")
+    assert kss.conv_route(*ops) is None
+    assert (kss._conv_shape_route(*ops) == "bf16") == copyable
+    if copyable:
+        copies = [t.clone(memory_format=torch.contiguous_format)
+                  for t in ops]
+        assert kss.conv_route(*copies) == "bf16"
+
+
+def test_conv_wrapper_rejects_what_does_not_fit():
+    from repro_torch.kernels.ssd_scan import causal_conv_silu
+
+    x, b, c, w, bias = _conv_ops(2, 9, 32, 8, 4)
+    with pytest.raises(ValueError, match="bad shapes"):
+        causal_conv_silu(x, b[:, :4], c, w, bias)
+    with pytest.raises(ValueError, match="do not fit F"):
+        causal_conv_silu(x, b, c, w[:, :40], bias)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        causal_conv_silu(*(t.to("meta") for t in (x, b, c, w, bias)))
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+def test_both_mamba_blocks_reach_the_conv_helper(mode, monkeypatch):
+    """The eager and the graph block make their SSD operands through
+    ``blas.causal_conv_silu``, once a mixer, and the forward still matches
+    the reference's."""
+    jp, tp = _params("float32")
+    jcfg, tcfg = _cfgs("float32", mode)
+    toks = _tokens(jcfg)
+    calls = []
+    helper = tblas.causal_conv_silu
+    monkeypatch.setattr(tblas, "causal_conv_silu",
+                        lambda *a: calls.append(a[0].shape) or helper(*a))
+    with _ref_policy():
+        jl, _ = jbuild(jcfg).forward(jp, {"tokens": jnp.asarray(toks)})
+    with _port_policy(), torch.no_grad():
+        tl, _ = tbuild(tcfg).forward(tp, torch.from_numpy(toks))
+    assert len(calls) == tcfg.num_layers
+    assert all(s == (*toks.shape, tcfg.d_inner) for s in calls)
+    np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
+                               rtol=TOL["float32"], atol=TOL["float32"])
