@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not the port's tools (``tools/flash_decode_times.py``,
-``tools/ssd_times.py``, ``tools/flash_attention_times.py``,
-``tools/paper_fig3_h100.py``, ``tools/repro_torch_lint.py``) imports JAX
-or the JAX reference package, and
+``chip_smoke.py`` nor its phases in ``smoke/``, and not the port's tools
+(``tools/*_times.py``, ``tools/paper_fig3_h100.py``,
+``tools/repro_torch_lint.py``) imports JAX or the JAX reference package,
+and
 importing the port's modules loads neither (nor triton, which is imported
 only inside the functions that launch a Triton kernel), loads no kernel
 library and starts no thread (the mesh starts its threads at its first
@@ -23,10 +23,12 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py"] + [ROOT / "tools" / name for name in (
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "smoke").glob("*.py")) + [
+        ROOT / "tools" / name for name in (
             "flash_decode_times.py", "ssd_times.py",
             "flash_attention_times.py", "paper_fig3_h100.py",
-            "repro_torch_lint.py")]
+            "repro_torch_lint.py", "conv_times.py", "gemm_bf16_times.py",
+            "gemm_f32_times.py", "gemm_grouped_times.py")]
 
 
 def _imported_roots(path):

@@ -7,8 +7,8 @@ Builds this checkout's ``csrc/ssd_scan.cu`` and times
 ``kernels/ssd_scan.py::causal_conv_silu`` in bf16 at granite-4.0-h-small's
 prefill (4 x 4096 tokens, F 8448) and mamba2-370m's forward (4 x 1024,
 F 2304) beside the bytes bound and its plain version (the torch
-composition the mixer ran before the kernel), with ``chip_smoke.py``'s
-own timing code (CUDA events, inputs rotated past L2).  Then traces three
+composition the mixer ran before the kernel), with ``smoke/timing.py``'s
+timing code (CUDA events, inputs rotated past L2).  Then traces three
 calls of each under ``torch.profiler`` and prints the device time a call
 by kernel name, the plain version's ≈ 20 launches included.  Prints JSON
 lines, then the card's name and power limit.  Needs a CUDA card; imports
@@ -26,30 +26,28 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def traced_ms(fn, args, calls: int = 3):
-    """Device ms a call of ``fn(*args)``, its kernel launches a call, and
-    the ms a call by kernel name, from ``torch.profiler`` over ``calls``
-    calls after one warm-up."""
+    """Device ms a call of ``fn(*args)``, its device operations a call, and
+    the ms a call by operation name, from ``torch.profiler`` over
+    ``calls`` calls after one warm-up, read through
+    ``portbench/trace.py``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from portbench import trace
 
     fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    by_kernel, launches = {}, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(ev, "is_user_annotation", False) \
-                and not ev.key.startswith("kernel:"):
-            key = ev.key[:80]
-            by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3 / calls
-            launches += ev.count
-    return sum(by_kernel.values()), launches / calls, by_kernel
+        with record_function(trace.PHASES[1]):
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+    tr = trace.from_profiler(prof)
+    by_kernel = {name: 1e3 * s / calls
+                 for name, s in tr.top_ops(len(tr.device_ops))}
+    return (1e3 * tr.op_seconds() / calls, len(tr.device_ops) / calls,
+            by_kernel)
 
 
 def main() -> None:
@@ -62,19 +60,19 @@ def main() -> None:
         sys.exit("conv_times: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
-    import chip_smoke
+    from smoke import timing
     from repro_torch.kernels.ref import causal_conv_silu_ref
     from repro_torch.kernels.ssd_scan import causal_conv_silu
 
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    gen = torch.Generator(device="cuda").manual_seed(timing.SEED)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    rows = chip_smoke.time_conv(causal_conv_silu, randn)
+    rows = timing.time_conv(causal_conv_silu, randn)
     print(json.dumps({"label": args.label, "causal_conv_silu_shapes": rows}),
           flush=True)
-    for tag, b, s, di, gn, k, _ in chip_smoke.CONV_TIME_SHAPES:
+    for tag, b, s, di, gn, k, _ in timing.CONV_TIME_SHAPES:
         bf16 = torch.bfloat16
         ops = (randn(b, s, di, dtype=bf16), randn(b, s, gn, dtype=bf16),
                randn(b, s, gn, dtype=bf16),
@@ -89,7 +87,7 @@ def main() -> None:
                               "by_kernel_ms": by_kernel}), flush=True)
         del ops
         torch.cuda.empty_cache()
-    print(chip_smoke._card_name_and_power_limit(), flush=True)
+    print(timing._card_name_and_power_limit(), flush=True)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 builds that tree's ``csrc/flash_attention.cu``, and times the kernel with
-``chip_smoke.py``'s own timing code (CUDA events, operands rotated past
+``smoke/timing.py``'s timing code (CUDA events, operands rotated past
 L2) at six shapes, each beside its bound, its plain version and SDPA:
 
 * h2o-danube-1.8b's forward, 1 x 8192, 32 / 8 heads, D 80, causal,
@@ -49,37 +49,37 @@ def main() -> None:
         sys.exit("flash_attention_times: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    import chip_smoke
+    from smoke import timing
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    gen = torch.Generator(device="cuda").manual_seed(timing.SEED)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    zoo = chip_smoke.zoo_configs()
-    yi = get_arch(chip_smoke.ARCH)
+    zoo = timing.zoo_configs()
+    yi = get_arch(timing.ARCH)
     rows = {}
     for tag, b, hq, hkv, s, d, causal, window in \
-            chip_smoke.zoo_attention_cases(zoo):
+            timing.zoo_attention_cases(zoo):
         if tag != "jamba/qwen2":
-            rows[tag] = chip_smoke.time_zoo_attention(
+            rows[tag] = timing.time_zoo_attention(
                 flash_attention, randn, b, hq, hkv, s, d, causal, window,
                 None)
-    rows["yi-6b-prefill"] = chip_smoke.time_zoo_attention(
-        flash_attention, randn, chip_smoke.FWD_BATCH, yi.num_heads,
-        yi.num_kv_heads, chip_smoke.FWD_SEQ, yi.head_dim, True, None,
+    rows["yi-6b-prefill"] = timing.time_zoo_attention(
+        flash_attention, randn, timing.FWD_BATCH, yi.num_heads,
+        yi.num_kv_heads, timing.FWD_SEQ, yi.head_dim, True, None,
         yi.num_layers)
-    rows["yi-6b-f32"] = chip_smoke.time_f32_attention(flash_attention, yi,
+    rows["yi-6b-f32"] = timing.time_f32_attention(flash_attention, yi,
                                                       randn)
-    rows["jamba-f32"] = chip_smoke.time_f32_attention(
+    rows["jamba-f32"] = timing.time_f32_attention(
         flash_attention, zoo["jamba-f32"], randn, 1,
-        chip_smoke.JAMBA_F32_FWD_SEQ, launches=1)
+        timing.JAMBA_F32_FWD_SEQ, launches=1)
     print(json.dumps({"label": args.label, "src": args.src,
                       "flash_attention_shapes": rows}), flush=True)
-    print(chip_smoke._card_name_and_power_limit(), flush=True)
+    print(timing._card_name_and_power_limit(), flush=True)
 
 
 if __name__ == "__main__":

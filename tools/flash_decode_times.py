@@ -5,10 +5,10 @@
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 builds that tree's ``csrc/flash_decode.cu``, and times the kernel in bf16
-at ``chip_smoke.py``'s ``DECODE_TIME_SHAPES`` (yi-6b's last serve step, a
+at ``smoke/shapes.py``'s ``DECODE_TIME_SHAPES`` (yi-6b's last serve step, a
 64-slot cache with 31 valid, and its published 4096-slot context with 4095
 valid, at B 8 and at B 1) beside its bound, its plain version and SDPA
-(CUDA events, caches rotated past L2), with chip_smoke.py's own timing
+(CUDA events, caches rotated past L2), with ``smoke/timing.py``'s timing
 code.  Prints one JSON line, then the card's name and power limit.  To
 compare two trees on one card, run both in one command, in turns (e.g.
 parent, change, change, parent).  Needs a CUDA card; imports nothing of
@@ -37,23 +37,23 @@ def main() -> None:
         sys.exit("flash_decode_times: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    import chip_smoke
+    from smoke import timing
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_decode import flash_decode
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_arch(chip_smoke.ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    cfg = get_arch(timing.ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(timing.SEED)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    shapes = chip_smoke.time_flash_decode(flash_decode, cfg.num_heads,
+    shapes = timing.time_flash_decode(flash_decode, cfg.num_heads,
                                           cfg.num_kv_heads, cfg.head_dim,
                                           randn)
     print(json.dumps({"label": args.label, "src": args.src,
                       "flash_decode_shapes": shapes}), flush=True)
-    print(chip_smoke._card_name_and_power_limit(), flush=True)
+    print(timing._card_name_and_power_limit(), flush=True)
 
 
 if __name__ == "__main__":

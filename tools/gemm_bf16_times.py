@@ -98,7 +98,7 @@ def _row(time, ops, m, n, k, sms, fn, group=None):
     return row
 
 
-def run_tree(chip_smoke, label, src):
+def run_tree(timing, label, src):
     import torch
 
     from repro_torch.kernels import gemm as G
@@ -110,12 +110,12 @@ def run_tree(chip_smoke, label, src):
             ops = _operands(m, k, n)
             group = plan(m, n, k, 1, sms) if plan else -(-m // BM)
             before = dict(G.gemm.route_launches)
-            kernel = _row(chip_smoke._time, ops, m, n, k, sms,
+            kernel = _row(timing._time, ops, m, n, k, sms,
                           lambda t: G.gemm(*t), group)
             kernel["routes"] = {r: c - before[r]
                                 for r, c in G.gemm.route_launches.items()
                                 if c != before[r]}
-            library = _row(chip_smoke._time, ops, m, n, k, sms,
+            library = _row(timing._time, ops, m, n, k, sms,
                            lambda t: torch.matmul(*t))
             print(json.dumps({"label": label, "src": src, "shape": name,
                               "kernel": kernel, "library": library,
@@ -124,7 +124,7 @@ def run_tree(chip_smoke, label, src):
             del ops
 
 
-def run_orders(chip_smoke, groups):
+def run_orders(timing, groups):
     import torch
 
     from repro_torch.kernels import gemm as G
@@ -147,9 +147,9 @@ def run_orders(chip_smoke, groups):
                                          "wgmma", stream, group=group)
                     if err:
                         raise RuntimeError(f"wgmma launch: cudaError {err}")
-                rows[tag] = _row(chip_smoke._time, ops, m, n, k, sms, launch,
+                rows[tag] = _row(timing._time, ops, m, n, k, sms, launch,
                                  min(group, m_tiles))
-            library = _row(chip_smoke._time, ops, m, n, k, sms,
+            library = _row(timing._time, ops, m, n, k, sms,
                            lambda t: torch.matmul(*t))
             print(json.dumps({"shape": name, "m": m, "k": k, "n": n,
                               "m_tiles": m_tiles, "plan": plan,
@@ -176,13 +176,13 @@ def main() -> None:
         sys.exit("gemm_bf16_times: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    import chip_smoke
+    from smoke import timing
 
     if args.orders:
-        run_orders(chip_smoke, [int(g) for g in args.groups.split(",")])
+        run_orders(timing, [int(g) for g in args.groups.split(",")])
     else:
-        run_tree(chip_smoke, args.label, args.src)
-    print(chip_smoke._card_name_and_power_limit(), flush=True)
+        run_tree(timing, args.label, args.src)
+    print(timing._card_name_and_power_limit(), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ and the route's error.
 
 Default: imports ``repro_torch`` from ``DIR`` (default: this checkout's
 ``src``), builds that tree's ``csrc/gemm.cu``, and times its GEMM on f32
-operands (m > 16) with ``chip_smoke.py``'s ``time_f32_gemms``: square n
+operands (m > 16) with ``smoke/timing.py``'s ``time_f32_gemms``: square n
 32-4096 and every GEMM of the yi-6b (m 128) and mamba2-370m (m 512) f32
 forwards, beside ``torch.matmul`` (TF32 off) and the bytes / 3xTF32 /
 CUDA-core fp32 bounds, and per forward the totals.  To compare two trees
@@ -85,7 +85,7 @@ def _plans(m, n, k, batch):
     return a, b, out, chosen
 
 
-def run_plans(chip_smoke) -> None:
+def run_plans(timing) -> None:
     import torch
 
     from repro_torch.kernels import gemm as G
@@ -111,7 +111,7 @@ def run_plans(chip_smoke) -> None:
                 if err:                    # e.g. a cluster the card refuses
                     refused[name] = err
                     continue
-                times[name] = chip_smoke._time(
+                times[name] = timing._time(
                     lambda _, plan=plan: G._launch_gemm(
                         a, b, c, m, n, k, batch, sa, sb, sc, "tf32x3",
                         stream, plan), [None], iters=iters)
@@ -124,7 +124,7 @@ def run_plans(chip_smoke) -> None:
                               "best_ms": times[best],
                               "chosen_over_best": ratio, "ms": times,
                               "refused": refused,
-                              "library_ms": chip_smoke._time(
+                              "library_ms": timing._time(
                                   lambda _: torch.matmul(a, b), [None],
                                   iters=iters)}), flush=True)
         print(json.dumps({"set": name_of_set, "shapes": len(shapes),
@@ -180,28 +180,28 @@ def main() -> None:
         sys.exit("gemm_f32_times: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    import chip_smoke
+    from smoke import timing
     from repro_torch.configs import get_arch
     from repro_torch.kernels.gemm import gemm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.plans:
-        run_plans(chip_smoke)
+        run_plans(timing)
     elif args.precision:
         run_precision()
     else:
-        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+        gen = torch.Generator(device="cuda").manual_seed(timing.SEED)
 
         def randn(*shape, dtype=torch.float32):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-        rows, tot = chip_smoke.time_f32_gemms(
-            gemm, get_arch(chip_smoke.ARCH), get_arch(chip_smoke.SSM_ARCH),
+        rows, tot = timing.time_f32_gemms(
+            gemm, get_arch(timing.ARCH), get_arch(timing.SSM_ARCH),
             randn)
         print(json.dumps({"label": args.label, "src": args.src,
                           "f32_gemm_shapes": rows, "per_forward": tot}),
               flush=True)
-    print(chip_smoke._card_name_and_power_limit(), flush=True)
+    print(timing._card_name_and_power_limit(), flush=True)
 
 
 if __name__ == "__main__":

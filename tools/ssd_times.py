@@ -8,7 +8,7 @@ builds that tree's ``csrc/ssd_scan.cu``, and times the kernel at
 mamba2-370m's 4 x 1024 forward shape (BH 128, C 4, Q 256, P 64, N 128,
 fp32 operands, the model's decay) beside its bounds, its plain version and
 the library yardstick (two fp32 cuBLAS bmm around a masked exp), with
-``chip_smoke.py``'s own timing code (CUDA events, inputs rotated past L2).
+``smoke/timing.py``'s timing code (CUDA events, inputs rotated past L2).
 Prints one JSON line, then the card's name and power limit.  To compare
 two trees on one card, run both in one command, in turns (e.g. parent,
 change, change, parent).  Needs a CUDA card; imports nothing of JAX or of
@@ -37,21 +37,21 @@ def main() -> None:
         sys.exit("ssd_times: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    import chip_smoke
+    from smoke import timing
     from repro_torch.configs import get_arch
     from repro_torch.kernels.ssd_scan import ssd_chunk_diag
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_arch(chip_smoke.SSM_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    cfg = get_arch(timing.SSM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(timing.SEED)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    shape = chip_smoke.time_ssd(ssd_chunk_diag, cfg, randn)
+    shape = timing.time_ssd(ssd_chunk_diag, cfg, randn)
     print(json.dumps({"label": args.label, "src": args.src,
                       "ssd_chunk_diag_shape": shape}), flush=True)
-    print(chip_smoke._card_name_and_power_limit(), flush=True)
+    print(timing._card_name_and_power_limit(), flush=True)
 
 
 if __name__ == "__main__":
