@@ -32,11 +32,11 @@ def _routed():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.gemm import gemm, gemm_batched
-    from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+    from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_scan
 
     return {"gemm": gemm, "gemm_batched": gemm_batched,
             "flash_attention": flash_attention, "flash_decode": flash_decode,
-            "ssd_chunk_diag": ssd_chunk_diag}
+            "ssd_chunk_diag": ssd_chunk_diag, "ssd_scan": ssd_scan}
 
 
 def zero_routes():
@@ -50,7 +50,8 @@ def zero_routes():
 def read_routes():
     """{"gemm": {route: launches}, "gemm_batched": {...},
     "flash_attention": {...}, "flash_decode": {...}, "ssd_chunk_diag":
-    {...}, "grouped": {"gemm": n, "gemm_batched": n}} since the last
+    {...}, "ssd_scan": {...} (the whole SSD core's calls by route),
+    "grouped": {"gemm": n, "gemm_batched": n}} since the last
     ``zero_routes``; "grouped" counts the ``wgmma`` launches that ran in a
     tile order other than the plain one (``kernels/gemm.py::wgmma_plan``)."""
     routed = _routed()
@@ -62,7 +63,8 @@ def read_routes():
 
 class Tally:
     """The run's books, one object that every phase takes: the launch
-    counters of the port's five counted kernels and their route counters
+    counters of the port's five counted kernels and the SSD core's calls
+    (``ssd_scan``), and their route counters
     (:meth:`zero` sets both to 0 just before a path runs; :meth:`counts`
     and :func:`read_routes` read them just after), what each path kept of
     them for the kernels line (``launches``, ``routes``: {path: counts}),
@@ -70,7 +72,7 @@ class Tally:
     (``max_abs``) and where the long outputs go (``out_dir``)."""
 
     COUNTED = ("gemm", "gemm_batched", "flash_decode", "flash_attention",
-               "ssd_chunk_diag")
+               "ssd_chunk_diag", "ssd_scan")
 
     def __init__(self, out_dir):
         self.out_dir = out_dir
@@ -97,10 +99,12 @@ def require_route(label, routes, route, decode=None, batched=None,
                   attn=None):
     """Fail unless every GEMM launch in ``routes`` took ``route``, every
     flash-attention launch ``attn`` (default ``route``), every flash-decode
-    launch ``decode``, every SSD chunk launch ``mma`` and every batched
-    GEMM launch ``batched`` (default ``route``; a path that launches no
-    attention or SSD passes on the GEMMs)."""
+    launch ``decode``, every SSD chunk launch ``mma``, every SSD core call
+    ``chunked`` and every batched GEMM launch ``batched`` (default
+    ``route``; a path that launches no attention or SSD passes on the
+    GEMMs)."""
     want = {"flash_decode": decode, "ssd_chunk_diag": "mma",
+            "ssd_scan": "chunked",
             "gemm_batched": batched or route,
             "flash_attention": attn or route}
     stray = {k: {r: n for r, n in v.items() if r != want.get(k, route) and n}
@@ -232,6 +236,7 @@ FAMILIES = {"gemm": ("gemm_wgmma", "gemm_tiled", "gemm_skinny",
                                 "attn_tf32x3"),
             "flash_decode": ("flash_decode_",),
             "ssd_chunk_diag": ("ssd_chunk_kernel", "ssd_mma_kernel"),
+            "ssd_scan": ("ssd_state_kernel", "ssd_pass_kernel"),
             "gemm_grouped": ("grouped_wgmma",),
             "causal_conv_silu": ("causal_conv_silu_kernel",)}
 

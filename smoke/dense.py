@@ -270,9 +270,9 @@ def run_forward(cfg, model, params, tokens, tally, shared_routing=False):
         # Every Mamba-2 mixer makes its SSD operands with one conv launch.
         conv = causal_conv_silu.launches - conv0
         out.setdefault("conv_launches", {})[mode] = conv
-        if conv != counts["ssd_chunk_diag"]:
+        if conv != counts["ssd_scan"]:
             fail(f"{arch} forward ({mode}) causal conv launches {conv}, want "
-                 f"one a Mamba-2 mixer ({counts['ssd_chunk_diag']})")
+                 f"one a Mamba-2 mixer ({counts['ssd_scan']})")
         out["routes"][mode] = read_routes()
         require_route(f"{arch} forward ({mode})", out["routes"][mode],
                       "wgmma", attn=attn_route(cfg.dtype, cfg.head_dim))

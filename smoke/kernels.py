@@ -12,7 +12,8 @@ from smoke.common import (_rel_err, _row_rel_err, attn_operands, attn_route,
                           b_operand, decode_route_of, emit, fail)
 from smoke.shapes import (BATCH, F32_FWD_BATCH, F32_FWD_SEQ, FWD_BATCH,
                           FWD_SEQ, JAMBA_F32_FWD_SEQ, SIMT_ATTN_CASES, SSD_TOL,
-                          T3_RAGGED, TEST_ATTN_CASES, TEST_DECODE_CASES,
+                          SCAN_CHECK_CASES, T3_RAGGED, TEST_ATTN_CASES,
+                          TEST_DECODE_CASES,
                           TEST_GEMM_BATCHED, TEST_GEMM_SHAPES, TEST_SSD_CASES,
                           TOL, WGMMA_RAGGED, f32_attention_cases,
                           f32_forward_gemm_shapes, forward_gemm_shapes,
@@ -41,7 +42,8 @@ def run_build():
 def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo, tally):
     """Phase 2: every kernel against its plain version; keeps the max abs
     errors at the main paths' shapes (bf16) in ``tally.max_abs``, the
-    zoo's (``zoo_configs``, ``check_zoo_kernels``) under ``<kernel>:zoo``."""
+    zoo's (``zoo_configs``, ``check_zoo_kernels``) under ``<kernel>:zoo``,
+    and the launches it made under the path ``check``."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -50,13 +52,15 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo, tally):
     from repro_torch.kernels.gemm import gemm, gemm_batched
     from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                          gemm_batched_ref, gemm_ref,
-                                         moe_gemm_ref, ssd_chunk_diag_ref)
-    from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_route
+                                         moe_gemm_ref, ssd_chunk_diag_ref,
+                                         ssd_scan_ref)
+    from repro_torch.kernels.ssd_scan import (scan_route, ssd_chunk_diag,
+                                              ssd_route, ssd_scan)
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     max_abs = {"gemm": 0.0, "flash_decode": 0.0, "gemm_batched": 0.0,
-               "flash_attention": 0.0, "ssd_chunk_diag": 0.0,
+               "flash_attention": 0.0, "ssd_chunk_diag": 0.0, "ssd_scan": 0.0,
                "gemm:forward": 0.0, "gemm_batched:forward": 0.0,
                "gemm:ssm-serve": 0.0, "gemm:moe": 0.0,
                "gemm_batched:moe": 0.0, "gemm:tf32x3": 0.0,
@@ -64,6 +68,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo, tally):
                                             "flash_attention", "flash_decode",
                                             "ssd_chunk_diag")}}
     checks = []
+    start = tally.counts()
 
     def record(kernel, case, dt, err, abs_err, main_shape, scale="max",
                tol=TOL, main_dtype=torch.bfloat16, key=None):
@@ -447,6 +452,46 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo, tally):
                    "dtype": "float32", "err": err, "tol": 1e-5})
     if not err <= 1e-5:
         fail(f"ssd_chunk_diag is not causal: {err}")
+    # The whole SSD core on the chunked route: x, B and C read in place
+    # from a conv-output-shaped (B, S, F) f32 buffer, B and C once a group;
+    # one launch of each of its three kernels, a repeat gives the same bits,
+    # every row within the SSD bar of the plain core's (TF32 off).
+    for bsz, s, h, g, p, n, q, tag in SCAN_CHECK_CASES:
+        buf = torch.nn.functional.silu(randn(bsz, s, h * p + 2 * g * n))
+        x = buf[..., :h * p].view(bsz, s, h, p)
+        b = buf[..., h * p:h * p + g * n].view(bsz, s, g, n)
+        c = buf[..., h * p + g * n:].view(bsz, s, g, n)
+        dt = torch.nn.functional.softplus(randn(bsz, s, h) - 1.0)
+        # d_skip 0: the SSD term alone, which the 3xTF32 products compute
+        # (where D·x cancels a row's SSD term, the plain core in f32 itself
+        # errs by more than the bar); the D skip is checked on its own.
+        a, d = -torch.exp(0.5 * randn(h)), torch.zeros(h, device=dev)
+        case = f"{tag} B{bsz} S{s} H{h} G{g} P{p} N{n} Q{q}"
+        before = dict(ssd_scan.kernel_launches)
+        got = ssd_scan(x, dt, a, b, c, d, chunk=q)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in ssd_scan.kernel_launches.items()}
+        if scan_route(x, dt, b, c, q) != "chunked" \
+                or set(moved.values()) != {1}:
+            fail(f"ssd_scan {case}: off the chunked route ({moved})")
+        if not torch.isfinite(got).all():
+            fail(f"ssd_scan {case}: output not finite")
+        if not torch.equal(got, ssd_scan(x, dt, a, b, c, d, chunk=q)):
+            fail(f"ssd_scan {case}: a repeat call differs")
+        record("ssd_scan", case, torch.float32,
+               *_row_rel_err(got, ssd_scan_ref(x, dt, a, b, c, d, q)),
+               tag != "test", scale="row max", tol=SSD_TOL,
+               main_dtype=torch.float32)
+        # The D skip: D·x added once in fp32, within the two sums' rounding.
+        d = randn(h)
+        dx = d[None, None, :, None] * x
+        yd = ssd_scan(x, dt, a, b, c, d, chunk=q)
+        eps = torch.finfo(torch.float32).eps
+        if not ((yd - got - dx).abs()
+                <= 2 * eps * (got.abs() + dx.abs() + yd.abs())).all():
+            fail(f"ssd_scan {case}: the D skip is not D·x")
+        del buf, x, b, c, got, yd, dx
+        torch.cuda.empty_cache()
     emit({"phase": "check", "checks": checks,
           "flash_decode_clusters_per_wave": {
               f"{route} {str(dt)[6:]} D{cfg.head_dim}": cluster_capacity(
@@ -456,6 +501,7 @@ def check_kernels(cfg, ssm_cfg, moe_cfg, randn, zoo, tally):
           "ssd_min_log_decay": min_log_decay,
           "ssd_forward_repeat_bit_equal": True})
     tally.max_abs.update(max_abs)
+    tally.keep("check", {k: n - start[k] for k, n in tally.counts().items()})
 
 
 def check_zoo_kernels(zoo, randn, record, on_route):

@@ -482,7 +482,7 @@ def run_distributed(tally):
         heads = cfg.ssm_num_heads // DIST_MESH[1]
         want = {**dict.fromkeys(counts, 0),
                 "gemm": L * (5 + mesh.size) + 1,
-                "ssd_chunk_diag": L * mesh.size}
+                "ssd_scan": L * mesh.size}
         if counts != want:
             fail(f"distributed (d): launches {counts}, want {want}")
         require_route("distributed (d)", rts, "wgmma")
@@ -525,7 +525,7 @@ def run_distributed(tally):
         require_route("distributed (d) f32", r32, "tf32x3")
         err32, _ = _rel_err(got32, ref32)
         if not err32 <= F32_LOGIT_TOL or \
-                c32["ssd_chunk_diag"] != L * mesh.size:
+                c32["ssd_scan"] != L * mesh.size:
             fail(f"distributed (d) f32: logits {err32} > {F32_LOGIT_TOL}, "
                  f"launches {c32}")
         out["float32"] = {"batch": DIST_SSM_F32_FWD[0],

@@ -50,6 +50,13 @@ DECODE_VS_FORWARD_TOL = 1e-3
 # (BH, C, Q, P, N, tag): tests/test_kernels.py:162's three shapes, the
 # 4 x 1024 forward's (BH 4 x 32 heads, 4 chunks of 256) and the 16-token
 # forward's (BH 8 x 32, one 16-row chunk).
+# The whole SSD core on the chunked route (B, S, H, G, P, N, Q):
+# granite-4.0-h-small's mixer, jamba's eight groups (one prompt of 512),
+# mamba2-370m's forward, and widths and a chunk off the models'.
+SCAN_CHECK_CASES = [(4, 4096, 128, 1, 64, 128, 256, "granite"),
+                    (1, 512, 256, 8, 64, 128, 256, "jamba"),
+                    (4, 1024, 32, 1, 64, 128, 256, "mamba2-370m"),
+                    (1, 200, 6, 3, 48, 32, 100, "test")]
 TEST_SSD_CASES = [(4, 2, 32, 16, 8, "test"), (2, 8, 64, 32, 16, "test"),
                   (1, 1, 8, 8, 8, "test"),
                   (SSM_FWD_BATCH * 32, SSM_FWD_SEQ // 256, 256, 64, 128,
@@ -392,7 +399,8 @@ def expected(cfg, path, mode):
     the head GEMM."""
     L = cfg.num_layers
     counts = dict.fromkeys(("gemm", "gemm_batched", "flash_decode",
-                            "flash_attention", "ssd_chunk_diag"), 0)
+                            "flash_attention", "ssd_chunk_diag", "ssd_scan"),
+                           0)
     attn = "flash_decode" if path == "serve" else "flash_attention"
     if not cfg.uniform_stack:
         period = cfg.attn_layer_period
@@ -415,7 +423,7 @@ def expected(cfg, path, mode):
             ops |= {"ssd_scan"} | ({"gemm_batched"} if mode == "graph"
                                    else set())
         return ({**counts, "gemm": n_sb * g + 1, "gemm_batched": n_sb * b,
-                 attn: n_sb * a, "ssd_chunk_diag": n_sb * ssd}, ops)
+                 attn: n_sb * a, "ssd_scan": n_sb * ssd}, ops)
     if cfg.num_experts:
         return ({**counts, "gemm": 3 * L + 1, "gemm_batched": 3 * L,
                  attn: L},
@@ -425,8 +433,8 @@ def expected(cfg, path, mode):
             return {**counts, "gemm": 6 * L + 1}, {"gemm"}
         if mode == "graph":
             return ({**counts, "gemm": 2 * L + 1, "gemm_batched": 2 * L,
-                     "ssd_chunk_diag": L}, {"gemm", "gemm_batched", "ssd_scan"})
-        return ({**counts, "gemm": 6 * L + 1, "ssd_chunk_diag": L},
+                     "ssd_scan": L}, {"gemm", "gemm_batched", "ssd_scan"})
+        return ({**counts, "gemm": 6 * L + 1, "ssd_scan": L},
                 {"gemm", "ssd_scan"})
     mlp = 3 if cfg.mlp_kind == "swiglu" else 2
     return ({**counts, "gemm": (2 + mlp) * L + 1, attn: L},

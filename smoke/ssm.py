@@ -82,9 +82,10 @@ def run_ssm_f32(cfg, tokens, prompts):
     zero_routes()
     fwd = _logit_errs(last_logits, (1, cfg.vocab_size))
     fwd_routes = read_routes()
-    ssd_routes = fwd_routes["ssd_chunk_diag"]
-    if ssd_routes != {"simt": 0, "mma": cfg.num_layers}:
-        fail(f"ssm f32 forward SSD off the mma route: {ssd_routes}")
+    ssd_routes = fwd_routes["ssd_scan"]
+    if ssd_routes != {"composed": 0, "chunked": cfg.num_layers} \
+            or any(fwd_routes["ssd_chunk_diag"].values()):
+        fail(f"ssm f32 forward SSD off the chunked route: {ssd_routes}")
     require_f32_gemm_routes("ssm f32 forward", fwd_routes)
     if not fwd["err"] <= F32_LOGIT_TOL:
         fail(f"ssm f32 forward logits differ: {fwd} > {F32_LOGIT_TOL}")

@@ -9,14 +9,15 @@ from __future__ import annotations
 
 from smoke.common import attn_operands, b_operand, emit, fail
 from smoke.shapes import (BATCH, FWD_BATCH, FWD_SEQ, HBM_BYTES_PER_S, HNP_ROWS,
-                          LONG_CACHE, LONG_INDEX, PEAK_FLOPS,
+                          LONG_CACHE, LONG_INDEX, PEAK_FLOPS, SSM_FWD_BATCH,
+                          SSM_FWD_SEQ,
                           forward_gemm_shapes, graph_stack_shapes,
                           moe_serve_gemm_shapes, serve_gemm_shapes,
                           ssm_serve_gemm_shapes)
 from smoke.timing import (_bound_by, _bound_ms, _rotation, _time, attn_work,
                           time_conv, time_f32_attention, time_f32_gemms,
                           time_flash_decode, time_grouped, time_moe_gemms,
-                          time_ssd, time_zoo)
+                          time_ssd, time_ssd_core, time_zoo)
 
 
 def run_times(cfg, ssm_cfg, moe_cfg, zoo, randn, tally):
@@ -222,14 +223,24 @@ def run_times(cfg, ssm_cfg, moe_cfg, zoo, randn, tally):
         "TFLOPs": b_flops / t_bk / 1e9}})
     del ws
 
-    # SSD chunk kernel at the 4 x 1024 forward's shape: one launch per
-    # layer.
-    Ls = ssm_cfg.num_layers
+    # SSD chunk kernel at the 4 x 1024 forward's shape, a launch (the
+    # forward runs the whole core instead; phase 2 checks the kernel).
     ssd = time_ssd(ssd_chunk_diag, ssm_cfg, randn)
     emit({"ssd_chunk_diag_shape": ssd})
+    # The whole SSD core (the chunked route's three kernels) as a mixer
+    # runs it, a call: at mamba2-370m's 4 x 1024 forward and at granite's
+    # mixer.
+    ssd_core = time_ssd_core(randn, shape=(
+        SSM_FWD_BATCH, SSM_FWD_SEQ, ssm_cfg.ssm_num_heads,
+        ssm_cfg.ssm_num_groups, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state_dim,
+        ssm_cfg.ssm_chunk))
+    ssd_core_granite = time_ssd_core(randn)
+    emit({"ssd_core_forward": ssd_core, "ssd_core_granite": ssd_core_granite})
+    core_n = launches["ssm-forward"]["ssd_scan"]
 
     emit({"ssm_forward_gemm_shapes": fwd_shapes["mamba"],
-          "per_forward": {**per_forward["mamba"], "ssd_ms": Ls * ssd["ms"]}})
+          "per_forward": {**per_forward["mamba"],
+                          "ssd_ms": core_n * ssd_core["ms"]}})
 
     # The batched GEMM in mamba2-370m's graph-mode forward: z/x and B/C
     # stacked, one launch each per layer.
@@ -442,16 +453,39 @@ def run_times(cfg, ssm_cfg, moe_cfg, zoo, randn, tally):
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "tile_source": "src/repro_torch/kernels/csrc/ssd_mma.cuh",
          "replaces": "src/repro/kernels/ssd_scan.py:37",
-         "launches": launches["ssm-forward"]["ssd_chunk_diag"],
-         "path": "ssm-forward", "max_abs_err": max_abs["ssd_chunk_diag"],
-         "ms": Ls * ssd["ms"], "plain_ms": Ls * ssd["plain_ms"],
-         "bound_ms": Ls * ssd["bound_ms"], "bound_by": ssd["bound_by"],
-         "fp32_fma_bound_ms": Ls * ssd["fp32_fma_bound_ms"],
-         "library_ms": Ls * ssd["library_ms"], "per": "forward",
-         "ms_per_launch": ssd["ms"],
+         "launches": launches["check"]["ssd_chunk_diag"],
+         "path": "check", "max_abs_err": max_abs["ssd_chunk_diag"],
+         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "fp32_fma_bound_ms": ssd["fp32_fma_bound_ms"],
+         "library_ms": ssd["library_ms"],
+         "per": "launch at mamba2-370m's 4 x 1024 forward shape",
          "route_launches": {path: r["ssd_chunk_diag"]
                             for path, r in routes.items()
                             if any(r["ssd_chunk_diag"].values())}},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "tile_source": "src/repro_torch/kernels/csrc/ssd_mma.cuh",
+         "replaces": None,
+         "kernels": ["ssd_state_kernel", "ssd_pass_kernel",
+                     "ssd_mma_kernel (ChunkArgs)"],
+         "launches": core_n,
+         "path": "ssm-forward", "max_abs_err": max_abs["ssd_scan"],
+         "ms": core_n * ssd_core["ms"],
+         "plain_ms": core_n * ssd_core["plain_ms"],
+         "bound_ms": core_n * ssd_core["bound_ms"],
+         "bound_by": ssd_core["bound_by"], "library_ms": None,
+         "per": "forward", "ms_per_call": ssd_core["ms"],
+         "device_ms_by_kernel": ssd_core["device_ms_by_kernel"],
+         "granite_ms_per_call": ssd_core_granite["ms"],
+         "granite_plain_ms_per_call": ssd_core_granite["plain_ms"],
+         "granite_bound_ms_per_call": ssd_core_granite["bound_ms"],
+         "granite_device_ms_by_kernel":
+         ssd_core_granite["device_ms_by_kernel"],
+         "granite_per": "granite-4.0-h-small mixer, 4 x 4096 tokens",
+         "route_launches": {path: r["ssd_scan"]
+                            for path, r in routes.items()
+                            if any(r["ssd_scan"].values())}},
         {"name": "gemm_grouped", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemm.cu",
          "tile_source": "src/repro_torch/kernels/csrc/gemm_grouped.cuh",

@@ -508,6 +508,82 @@ def time_ssd(ssd_chunk_diag, ssm_cfg, randn, batch=SSM_FWD_BATCH,
             "TFLOPs": tensor / t_k / 1e9, "GBps": nbytes / t_k / 1e6}
 
 
+# granite-4.0-h-small's Mamba-2 mixer: (B, S, H, G, P, N, Q).
+GRANITE_SSD = (4, 4096, 128, 1, 64, 128, 256)
+
+
+def ssd_core_work(bsz, s, h, g, p, n, q):
+    """(bytes, tensor FLOPs) of the whole SSD core at its least: x read and
+    y written once (f32), B, C and dt read once; the products as the core
+    needs them, S = C·Bᵀ once a group over each chunk's live pairs, P·X
+    over the live pairs a head, the chunk states and their term in the
+    outputs (Q·N·P a chunk and head each)."""
+    nc = s // q
+    live = nc * q * (q + 1) // 2
+    nbytes = 4.0 * (2 * bsz * s * h * p + 2 * bsz * s * g * n + bsz * s * h)
+    tensor = 2.0 * bsz * (g * live * n + h * live * p
+                          + 2 * h * nc * q * n * p)
+    return nbytes, tensor
+
+
+def time_ssd_core(randn, shape=GRANITE_SSD, iters=10):
+    """The Mamba-2 mixer's SSD core as the model runs it, in any tree:
+    ``models/ssm.py::ssd_inputs`` on views of a conv-output-shaped (B, S,
+    F) f32 buffer, then ``blas.ssd_scan`` under the kernels' policy (a tree
+    that repeats B and C per head pays that here), in device ms a call by
+    CUDA events, beside the plain composition (the host lowering's torch
+    ops on the card), the bound (``ssd_bounds`` of :func:`ssd_core_work`),
+    the device ms and launches of each kernel family over one profiled call
+    (``smoke.common.profile``), and the core's route counts where the tree
+    has them: there every timed call must take the ``chunked`` route."""
+    import torch
+
+    from repro_torch.core import blas
+    from repro_torch.core.hero import offload_policy
+    from repro_torch.kernels import ssd_scan as kss
+    from repro_torch.models.ssm import ssd_inputs
+    from smoke.common import profile
+
+    bsz, s, h, g, p, n, q = shape
+    cfg = type("Mixer", (), dict(ssm_num_heads=h, ssm_head_dim=p,
+                                 ssm_num_groups=g, ssm_state_dim=n))
+    dev = torch.device("cuda")
+    buf = torch.nn.functional.silu(randn(bsz, s, h * p + 2 * g * n))
+    xin, b_, c_ = (buf[..., :h * p], buf[..., h * p:h * p + g * n],
+                   buf[..., h * p + g * n:])
+    dt = randn(bsz, s, h)
+    params = {"dt_bias": torch.zeros(h, device=dev),
+              "a_log": torch.zeros(h, device=dev)}
+    d_skip = torch.ones(h, device=dev)
+
+    calls = [0]
+
+    def core(use_kernels=True):
+        calls[0] += 1 if use_kernels else 0
+        with offload_policy(mode="device", use_kernels=use_kernels), \
+                torch.no_grad():
+            xh, dt_f, a, bh, ch = ssd_inputs(params, xin, b_, c_, dt, cfg)
+            return blas.ssd_scan(xh, dt_f, a, bh, ch, d_skip, chunk=q)
+
+    counts = getattr(getattr(kss, "ssd_scan", None), "route_launches", None)
+    before = dict(counts) if counts is not None else None
+    t_k = _time(lambda _: core(), [None], iters=iters)
+    routes = ({r: k - before[r] for r, k in counts.items()}
+              if counts is not None else "not counted")
+    if counts is not None and routes != {"chunked": calls[0], "composed": 0}:
+        fail(f"SSD core at {shape}: {calls[0]} timed calls took {routes}, "
+             f"not all the chunked route")
+    t_p = _time(lambda _: core(False), [None], iters=2)
+    prof = profile(core)
+    nbytes, tensor = ssd_core_work(*shape)
+    return {"B": bsz, "S": s, "H": h, "G": g, "P": p, "N": n, "Q": q,
+            "dtype": "float32", "routes": routes, "ms": t_k, "plain_ms": t_p,
+            "device_ms_by_kernel": prof["device_ms_by_kernel"],
+            "device_launches_by_kernel": prof.get("device_launches_by_kernel"),
+            **ssd_bounds(nbytes, tensor, tensor), "bytes": nbytes,
+            "tensor_GFLOP": tensor / 1e9, "TFLOPs": tensor / t_k / 1e9}
+
+
 def time_conv(causal_conv_silu, randn):
     """The mixer's causal conv + SiLU (``kernels/ssd_scan.py::
     causal_conv_silu``) in bf16 at ``CONV_TIME_SHAPES``, over inputs

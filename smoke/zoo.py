@@ -213,8 +213,9 @@ def run_jamba_f32(cfg32, prompts, rng):
                   for i in range(cfg32.num_layers))
     n_attn = cfg32.num_layers - n_mamba
     # The kernel path runs once per logits: decode then forward.
-    if r["ssd_chunk_diag"] != {"simt": 0, "mma": n_mamba}:
-        fail(f"jamba f32 SSD off the mma route: {r['ssd_chunk_diag']}")
+    if r["ssd_scan"] != {"composed": 0, "chunked": n_mamba} \
+            or any(r["ssd_chunk_diag"].values()):
+        fail(f"jamba f32 SSD off the chunked route: {r['ssd_scan']}")
     if r["flash_attention"] != {"simt": 0, "wgmma": 0, "tf32x3": n_attn} or \
             r["flash_decode"] != {"simt": n_attn, "mma": 0}:
         fail(f"jamba f32 attention off the tf32x3 / simt routes: {r}")

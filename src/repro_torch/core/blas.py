@@ -1041,10 +1041,14 @@ register(OffloadOp(
 
 # ---------------------------------------------------------------------------
 # ssd_scan — the whole Mamba-2 SSD core (chunked quadratic term + inter-chunk
-# state recurrence + D skip) behind one descriptor.  The within-chunk term
-# is the SSD chunk kernel's work; the inter-chunk recurrence over (N, P)
-# states, a loop over chunks, stays plain torch in every lowering, as the
-# reference keeps its ``lax.scan`` outside the Pallas kernel.
+# state recurrence + D skip) behind one descriptor.  B and C come per head
+# (B, S, H, N), as the reference passes them, or once a group (B, S, G, N)
+# of H / G heads, as the models pass them.  The host lowering is the plain
+# composition (``kernels/ref.py::ssd_scan_ref``, B and C repeated per head);
+# the kernel lowering runs the whole core on hand-written kernels
+# (``kernels/ssd_scan.py::ssd_scan``: B and C read once a group, or, for
+# operands those kernels do not take, the composition around the SSD chunk
+# kernel).
 # ---------------------------------------------------------------------------
 
 def _ssd_dims(xh, dt, a, bh, ch, d_skip, *, chunk):
@@ -1057,9 +1061,12 @@ def _ssd_dims(xh, dt, a, bh, ch, d_skip, *, chunk):
         raise ValueError(f"ssd_scan: dt {tuple(dt.shape)} != {(bsz, s, h)}")
     if tuple(a.shape) != (h,) or tuple(d_skip.shape) != (h,):
         raise ValueError(f"ssd_scan: a/d_skip must be ({h},)")
-    if tuple(bh.shape) != (bsz, s, h, n) or tuple(ch.shape) != (bsz, s, h, n):
+    g = bh.shape[2] if bh.ndim == 4 else 0
+    if bh.ndim != 4 or tuple(bh.shape[:2]) != (bsz, s) or g < 1 or h % g \
+            or tuple(ch.shape) != tuple(bh.shape):
         raise ValueError(
-            f"ssd_scan: bad B/C {tuple(bh.shape)} {tuple(ch.shape)}")
+            f"ssd_scan: bad B/C {tuple(bh.shape)} {tuple(ch.shape)}: want "
+            f"(B, S, H, N) or (B, S, G, N) with H % G == 0, H {h}")
     q = min(int(chunk), s)
     if s % q:
         raise ValueError(f"ssd_scan: seq {s} not divisible by chunk {q}")
@@ -1077,68 +1084,14 @@ def _ssd_eligible(xh, dt, a, bh, ch, d_skip, *, chunk):
     return min(pdim, n, q) >= 8 and xh.dtype in _KERNEL_DTYPES
 
 
-def _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk, diag_fn):
-    """Chunked SSD core: (B, S, H, P) -> (B, S, H, P) fp32.  ``diag_fn``
-    computes the within-chunk quadratic term (plain version or kernel);
-    the (N, P)-state inter-chunk recurrence is a loop over chunks.  Reads
-    shapes only, never values, so it also runs on meta tensors."""
-    bsz, s, h, pdim = xh.shape
-    n = bh.shape[-1]
-    q = min(int(chunk), s)
-    nc = s // q
-    da = dt * a                                               # (B, S, H)
-    xdt = xh * dt[..., None]
-
-    def to_bh(t):
-        t = t.reshape(bsz, nc, q, h, -1).permute(0, 3, 1, 2, 4)
-        return t.reshape(bsz * h, nc, q, t.shape[-1])
-
-    cum_c = torch.cumsum(da.reshape(bsz, nc, q, h), dim=2)    # (B, C, Q, H)
-    cum_bh = cum_c.permute(0, 3, 1, 2).reshape(bsz * h, nc, q)
-
-    x_bh = to_bh(xdt).float()
-    b_bh = to_bh(bh).float()
-    c_bh = to_bh(ch).float()
-
-    y_diag = diag_fn(x_bh, cum_bh, b_bh, c_bh)
-
-    decay_to_end = torch.exp(cum_bh[:, :, -1:] - cum_bh)
-    states = torch.einsum("zcq,zcqn,zcqp->zcnp", decay_to_end, b_bh, x_bh)
-    chunk_decay = torch.exp(cum_bh[:, :, -1])                 # (BH, C)
-
-    # State entering each chunk: h_c = decay_{c-1} · h_{c-1} + states_{c-1}.
-    prev = torch.zeros((bsz * h, n, pdim), dtype=torch.float32,
-                       device=xh.device)
-    entering = []
-    for ci in range(nc):
-        entering.append(prev)
-        prev = chunk_decay[:, ci, None, None] * prev + states[:, ci]
-    prev_states = torch.stack(entering, dim=1)                # (BH, C, N, P)
-
-    y_off = torch.einsum("zcqn,zcnp,zcq->zcqp", c_bh, prev_states,
-                         torch.exp(cum_bh))
-    y = y_diag.float() + y_off
-    y = y.reshape(bsz, h, s, pdim).permute(0, 2, 1, 3)
-    return y + xh.float() * d_skip[None, None, :, None]
-
-
 def _ssd_host(xh, dt, a, bh, ch, d_skip, *, chunk):
     from repro_torch.kernels import ref as kref  # lazy: avoid import cycle
 
-    return _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk,
-                          kref.ssd_chunk_diag_ref)
+    return kref.ssd_scan_ref(xh, dt, a, bh, ch, d_skip, chunk)
 
 
 def _ssd_kernel(xh, dt, a, bh, ch, d_skip, *, chunk):
-    kernel = _lowering("ssd_scan")
-
-    def diag(x_bh, cum_bh, b_bh, c_bh):
-        # The kernel takes one dtype; the log-decays are fp32 in the kernel
-        # whatever they arrive in, as in the reference's Pallas kernel.
-        return kernel(x_bh.contiguous(), cum_bh.float().contiguous(),
-                      b_bh.contiguous(), c_bh.contiguous())
-
-    return _ssd_scan_math(xh, dt, a, bh, ch, d_skip, chunk, diag)
+    return _lowering("ssd_scan")(xh, dt, a, bh, ch, d_skip, chunk=chunk)
 
 
 def _ssd_plan(xh, dt, a, bh, ch, d_skip, *, chunk):
@@ -1159,6 +1112,18 @@ def _ssd_plan_lower(plan, xh, dt, a, bh, ch, d_skip, *, chunk):
 
     mesh, dp = plan
     kernels = _plan_kernels()
+    h, g = xh.shape[2], bh.shape[2]
+    n_model = mesh.shape["model"]
+    # B and C once a group: groups shard with their heads where the model
+    # axis splits them; one group serves every shard whole; any other count
+    # is repeated per head first, so that each shard's heads find theirs.
+    if g % n_model == 0:
+        bc = P(dp, None, "model", None)
+    elif g == 1:
+        bc = P(dp, None, None, None)
+    else:
+        bh, ch = (t.repeat_interleave(h // g, dim=2) for t in (bh, ch))
+        bc = P(dp, None, "model", None)
 
     def local(xl, dtl, al, bl, cl, dl):
         if kernels and _ssd_eligible(xl, dtl, al, bl, cl, dl, chunk=chunk):
@@ -1170,8 +1135,7 @@ def _ssd_plan_lower(plan, xh, dt, a, bh, ch, d_skip, *, chunk):
         mesh=mesh,
         in_specs=(
             P(dp, None, "model", None), P(dp, None, "model"), P("model"),
-            P(dp, None, "model", None), P(dp, None, "model", None),
-            P("model"),
+            bc, bc, P("model"),
         ),
         out_specs=P(dp, None, "model", None),
     )
@@ -1491,10 +1455,11 @@ def ssd_scan(
     """Whole Mamba-2 SSD core through the offload seam.
 
     xh: (B, S, H, P); dt: (B, S, H) fp32; a, d_skip: (H,); bh, ch:
-    (B, S, H, N).  Returns the fp32 (B, S, H, P) mixer output (within-chunk
-    quadratic term + inter-chunk state recurrence + D skip).  The kernel
-    path runs the within-chunk term on the hand-written SSD chunk kernel
-    (``ssd_chunk_diag``)."""
+    (B, S, H, N) per head, or (B, S, G, N) once a group of H / G heads
+    (head h reads group h // (H / G)).  Returns the fp32 (B, S, H, P) mixer
+    output (within-chunk quadratic term + inter-chunk state recurrence + D
+    skip).  The kernel path runs the whole core on the hand-written kernels
+    (``kernels/ssd_scan.py::ssd_scan``)."""
     return dispatch(
         "ssd_scan", xh, dt, a, bh, ch, d_skip, chunk=chunk, handle=handle
     )

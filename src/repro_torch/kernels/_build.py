@@ -50,16 +50,20 @@ NVCC_FLAGS: Tuple[str, ...] = (
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, route: str, grouped: bool = False) -> None:
+def count_launch(wrapper, route: str, grouped: bool = False,
+                 kernels: Iterable[str] = ()) -> None:
     """One launch of ``wrapper``'s kernel on ``route``: adds one to
-    ``wrapper.launches`` and ``wrapper.route_launches[route]``, and to
+    ``wrapper.launches`` and ``wrapper.route_launches[route]``, to
     ``wrapper.grouped_launches`` when ``grouped`` (a GEMM tile order other
-    than the plain one)."""
+    than the plain one), and to ``wrapper.kernel_launches[k]`` for each of
+    ``kernels`` (a call that launches several kernels)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.route_launches[route] += 1
         if grouped:
             wrapper.grouped_launches += 1
+        for k in kernels:
+            wrapper.kernel_launches[k] += 1
 
 
 # Loaded libraries by kernel name (a process-wide cache of dlopen handles:

@@ -23,10 +23,13 @@ kernel's plain version, so the CPU tests exercise each backward:
   ``tiled``).  The launches count in the kernel's counters; they go
   through no dispatch, so they write no trace record, as the reference's
   autodiff writes none;
-* ``attention`` and the SSD rows (``ssd_scan``, ``ssd_chunk_diag``): no
+* ``attention`` and the SSD rows (``ssd_chunk_diag``; ``ssd_scan``, the
+  whole SSD core, :func:`repro_torch.kernels.ssd_scan.ssd_scan`): no
   backward kernel is owed (the reference has none); the kernel stays the
   forward, and the backward recomputes the plain version
-  (:mod:`repro_torch.kernels.ref`) under autograd from the saved inputs;
+  (:mod:`repro_torch.kernels.ref`; the whole core's
+  :func:`~repro_torch.kernels.ref.ssd_scan_ref`) under autograd from the
+  saved inputs;
 * ``decode_attention`` is on no train path: under grad it raises.
 
 The Mamba-2 mixer's causal conv + SiLU is no row of the table (the BLAS
@@ -139,6 +142,20 @@ class _CausalConv(torch.autograd.Function):
         return (None, *grads)
 
 
+class _SsdScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, xh, dt, a, bh, ch, d_skip, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(xh, dt, a, bh, ch, d_skip)
+        return fn(xh, dt, a, bh, ch, d_skip, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = _recompute(ref.ssd_scan_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad[1:7], dy, ctx.chunk)
+        return (None, *grads, None)
+
+
 def _gemm_call(fn):
     def call(a, b, *, out_dtype=None):
         if not _needs_grad((a, b)):
@@ -164,6 +181,14 @@ def _ssd_call(fn):
     return call
 
 
+def _ssd_scan_call(fn):
+    def call(xh, dt, a, bh, ch, d_skip, *, chunk):
+        if not _needs_grad((xh, dt, a, bh, ch, d_skip)):
+            return fn(xh, dt, a, bh, ch, d_skip, chunk=chunk)
+        return _SsdScan.apply(fn, xh, dt, a, bh, ch, d_skip, chunk)
+    return call
+
+
 def _no_grad_call(name):
     def wrap(fn):
         def call(*args, **kwargs):
@@ -185,7 +210,7 @@ _RULES = {
     "moe_expert_ffn": _gemm_call,
     "attention": _attention_call,
     "ssd_chunk_diag": _ssd_call,
-    "ssd_scan": _ssd_call,
+    "ssd_scan": _ssd_scan_call,
     "decode_attention": _no_grad_call("decode_attention"),
 }
 

@@ -268,16 +268,17 @@ template <> struct XGeo<__nv_bfloat16> {
 
 // The score of the pair (i, i) for row `rl` of the m-tile: fp32 FMAs over
 // the state dimension in order, from the swizzled rows of C (in a 64-row
-// tile) and B (in a 32-key tile); `nch` 16-byte chunks hold data.
+// tile) and B (in a tile of `b_grp` bytes a 128-byte column group: 32 keys
+// by default); `nch` 16-byte chunks hold data.
 template <typename T>
 __device__ __forceinline__ float diag_dot(const unsigned char* c_row, const unsigned char* b_row,
-                                          int nch, int sw) {
+                                          int nch, int sw, int b_grp = BK * GROUP) {
   float acc = 0.f;
 #pragma unroll 4
   for (int ch = 0; ch < nch; ++ch) {
     const int o = ((ch & 7) ^ sw) << 4;
     const uint4 cv = *reinterpret_cast<const uint4*>(c_row + (ch >> 3) * (BQ * GROUP) + o);
-    const uint4 bv = *reinterpret_cast<const uint4*>(b_row + (ch >> 3) * (BK * GROUP) + o);
+    const uint4 bv = *reinterpret_cast<const uint4*>(b_row + (ch >> 3) * b_grp + o);
     const uint32_t cw[4] = {cv.x, cv.y, cv.z, cv.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -677,7 +678,8 @@ int launch(const void* x, const void* dta, const void* b, const void* c, void* o
       !encode(&mx, x, E, P, Q, cells, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(N, P, E);
-  auto kern = ssd_mma_kernel<T, NP>;
+  void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, const T*, T*, int, int, int, int, int) =
+      ssd_mma_kernel<T, NP>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e == cudaSuccess)
@@ -705,6 +707,706 @@ int dispatch(const void* x, const void* dta, const void* b, const void* c, void*
     case 4: return launch<T, 4>(x, dta, b, c, out, cells, Q, P, N, tiles, pairs, s);
     case 8: return launch<T, 8>(x, dta, b, c, out, cells, Q, P, N, tiles, pairs, s);
     default: return launch<T, 16>(x, dta, b, c, out, cells, Q, P, N, tiles, pairs, s);
+  }
+}
+
+
+// ---- The whole chunked core, B and C read once a group ---------------------
+//
+// Route "chunked" of kernels/ssd_scan.py::ssd_scan: the Mamba-2 SSD core
+//
+//     y = (L ∘ C Bᵀ)(dt·x) + exp(cum) · (C · h_entering) + D·x   per chunk,
+//     h_c = exp(cum_last,c−1) · h_c−1 + Bᵀ (exp(cum_last − cum) · dt · x)_c−1
+//
+// as three launches, f32 only, every operand read where it lies: x (B, S,
+// H, P) and B, C (B, S, G, N) through 4-D tensor maps with their own
+// strides (the conv's (B, S, F) output, sliced, is read in place); dt as
+// (B, H, S) and the within-chunk cumulative log-decays cum as (B, H, C, Q),
+// contiguous; the states (B, C, H, N, P) f32 in a buffer of the caller's.
+// Head h reads group h / (H / G), so no per-head copy of B or C is made.
+//
+//  1. ssd_state_kernel: for each (cell = batch·chunk, block of a group's
+//     heads) the chunk's states Bᵀ · (w ∘ x), w = exp(cum_last − cum)·dt.
+//     The chunk's B (Q x N) is loaded once into shared memory and serves
+//     every head of the block; X streams through a ring of 32-row slabs,
+//     as deep as shared memory allows (up to 8).
+//     Eight warps, warp w the state rows 16w.. (N <= 128); 3xTF32 mma.sync,
+//     both operands in the permuted k order (slot t <-> row 2t, t + 4 <->
+//     2t + 1) that makes the swizzled column loads free of bank conflicts.
+//  2. ssd_pass_kernel: h_c in place of states_c, walked over the chunks in
+//     order, one thread a float4 of a (batch, head)'s N x P state.
+//  3. ssd_mma_kernel (ChunkArgs instances): per (query tile, cell, block of
+//     a group's heads).  S = C·Bᵀ for the tile's rows and the keys up to
+//     them is computed once, with the diagonal pairs' plain fp32 dot
+//     products as the diagonal route does, and kept in shared memory in
+//     the accumulators' own lane order (64 KB at Q 256).  Each head of the
+//     block then takes y = exp(cum_q)·(C · h) (the C tile stays resident;
+//     h in 32-row slabs through the ring), and y += P·X over the key steps
+//     with P = S·exp(dq − dk)·dt_k decayed per pair in registers, masked
+//     pairs selected to 0 (never multiplied by a 0/1 mask), then the D skip,
+//     and writes y once as (B, S, H, P).  Blocks of the last query tile,
+//     which carry the most keys, come first.
+//
+// Precision as the diagonal route's (the note at the top): 3xTF32 products
+// with fp32 sums, the decay applied per pair, never factored; besides, each
+// 32-deep k product (a slab of rows, of state rows or of keys) is summed in
+// a fresh mma accumulator and added to the running fp32 sum, since the
+// tensor core truncates as it accumulates (gemm_tf32x3.cuh restarts alike).
+// The rows past a chunk's end that a slab reads (the next chunk's, or TMA's
+// zeros past the sequence) weigh 0 in the states and are masked keys in S.
+//
+// No atomics on device memory and no split sums: a repeated launch gives
+// the same bits.
+
+constexpr int BKS = 16;            // keys a slab of the score pass
+constexpr int MAX_SSTAGES = 8;     // ring stages of the state kernel, at most
+constexpr int MAX_SMEM = 232448;   // what one block may use on an H100
+constexpr int STATE_WARPS = 8;     // warp w: state rows 16w .. 16w + 15
+
+__host__ __device__ inline int round_q(int q) { return (q + BQ - 1) / BQ * BQ; }
+
+struct ChunkArgs {
+  CUtensorMap c64;                 // C (N, G, S, B), boxes of 64 rows
+  CUtensorMap b16;                 // B (N, G, S, B), boxes of 16 rows
+  CUtensorMap x32;                 // x (P, H, S, B), boxes of 32 rows
+  CUtensorMap h32;                 // entering states (P, N, H, B·C), 32 rows
+  const float* x;                  // for the D skip
+  const float* dt;                 // (B, H, S)
+  const float* cum;                // (B, H, C, Q)
+  const float* d;                  // (H,)
+  float* out;                      // (B, S, H, P)
+  long long xs_b, xs_s, xs_h;      // x's strides in elements (unit along P)
+  int S, H, G, P, N, Q, C, tiles, hg, hblocks, cells;
+};
+
+struct StateArgs {
+  CUtensorMap b64;                 // B (N, G, S, B), boxes of 64 rows
+  CUtensorMap x32;                 // x (P, H, S, B), boxes of 32 rows
+  const float* dt;
+  const float* cum;
+  float* states;                   // (B, C, H, N, P)
+  int S, H, G, P, N, Q, C, hg, hblocks, stages;
+};
+
+// The C tile (64 rows), S of four warps for every 8-key n-tile up to Q
+// (one float4 a lane), two ring stages holding a 16-key B slab or a 32-row
+// X / h slab, and the mbarriers.
+__host__ __device__ inline int chunk_stage_bytes(int N, int P) {
+  const int gn = groups(N, 4), gp = groups(8 * np_of(P), 4);
+  return (BKS * gn > BK * gp ? BKS * gn : BK * gp) * GROUP;
+}
+__host__ __device__ inline size_t chunk_smem_bytes(int Q, int N, int P) {
+  return size_t(BQ) * groups(N, 4) * GROUP + size_t(round_q(Q)) * 256 +
+         2 * size_t(chunk_stage_bytes(N, P)) + 64;
+}
+// The state kernel's block: the chunk's B (rows up to Q rounded to 64),
+// the block's per-row weights a head and the mbarriers, then as many X-slab
+// ring stages as fit, up to MAX_SSTAGES (0 when fewer than 2 fit): X comes
+// from memory once, so the deeper the ring, the more of its latency hides.
+__host__ __device__ inline int state_stages(int Q, int N, int P, int hg) {
+  const long long fixed = (long long)round_q(Q) * groups(N, 4) * GROUP +
+                          (long long)hg * round_q(Q) * 4 + 16 * (MAX_SSTAGES + 1);
+  const long long stage = (long long)BK * groups(8 * np_of(P), 4) * GROUP;
+  const long long n = (MAX_SMEM - fixed) / stage;
+  return n < 2 ? 0 : n > MAX_SSTAGES ? MAX_SSTAGES : static_cast<int>(n);
+}
+__host__ __device__ inline size_t state_smem_bytes(int Q, int N, int P, int hg) {
+  return size_t(round_q(Q)) * groups(N, 4) * GROUP + size_t(hg) * round_q(Q) * 4 +
+         16 * (MAX_SSTAGES + 1) +
+         size_t(state_stages(Q, N, P, hg)) * BK * groups(8 * np_of(P), 4) * GROUP;
+}
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// X-fragment offsets inside a 128-byte group for rows 2t / 2t + 1 (XGeo).
+__device__ __forceinline__ void x_offsets(int g, int t, int (&o0)[4], int (&o1)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int ch = XGeo<float>::chunk(j, g);
+    o0[j] = ((ch ^ (2 * t)) << 4) + XGeo<float>::byte(g);
+    o1[j] = ((ch ^ (2 * t + 1)) << 4) + XGeo<float>::byte(g);
+  }
+}
+
+// acc[n] += A · (w ∘ X) for one 8-row k step of a 32-row slab: A's slots t
+// and t + 4 hold rows 2t and 2t + 1 (a0 / a2 row g, a1 / a3 row g + 8), X's
+// rows 2t and 2t + 1 of the step scaled by w0 / w1; 3xTF32.
+// acc += part in fp32 adds: the tensor core's accumulator truncates as it
+// sums, so every k product of 32 rows starts a fresh one (as gemm_tf32x3.cuh
+// restarts every 32-deep k tile) and is added here, rounded to nearest.
+template <int NP>
+__device__ __forceinline__ void add_to(float (&acc)[NP][4], const float (&part)[NP][4]) {
+#pragma unroll
+  for (int n = 0; n < NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+template <int NP>
+__device__ __forceinline__ void mma_x(const float (&af)[4], const unsigned char* x_step,
+                                      const int (&o0)[4], const int (&o1)[4], float w0, float w1,
+                                      int t, float (&acc)[NP][4]) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split<false>(af[e], ah[e], al[e]);
+  const unsigned char* x0 = x_step + 2 * t * GROUP;
+  const unsigned char* x1 = x0 + GROUP;
+  uint32_t xh[NP][2], xl[NP][2];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    const int grp = (n / 4) * (BK * GROUP), j = n % 4;
+    split<false>(w0 * lds<float>(x0 + grp + o0[j]), xh[n][0], xl[n][0]);
+    split<false>(w1 * lds<float>(x1 + grp + o1[j]), xh[n][1], xl[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < NP; ++n) mma(acc[n], al, xh[n][0], xh[n][1]);
+#pragma unroll
+  for (int n = 0; n < NP; ++n) mma(acc[n], ah, xl[n][0], xl[n][1]);
+#pragma unroll
+  for (int n = 0; n < NP; ++n) mma(acc[n], ah, xh[n][0], xh[n][1]);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(32 * STATE_WARPS, 1)
+ssd_state_kernel(const __grid_constant__ StateArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) & 1023u) __trap();
+  const int gn = groups(a.N, 4), gp = groups(8 * NP, 4), qp = round_q(a.Q);
+  const int stages = a.stages;
+  unsigned char* const btile = smem;                       // gn boxes of [qp][128 B]
+  unsigned char* const ring = smem + qp * gn * GROUP;
+  const int stage_bytes = BK * gp * GROUP;
+  float* const w = reinterpret_cast<float*>(ring + stages * stage_bytes);   // [hg][qp]
+  uint64_t* const full = reinterpret_cast<uint64_t*>(w + a.hg * qp);
+  uint64_t* const bbar = full + MAX_SSTAGES;
+
+  const int cell = blockIdx.x / a.hblocks, hblk = blockIdx.x - cell * a.hblocks;
+  const int bi = cell / a.C, ci = cell - bi * a.C;
+  const int grp = hblk * a.hg / (a.H / a.G), row0 = ci * a.Q;
+  const int nq = (a.Q + BK - 1) / BK, total = a.hg * nq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  auto issue = [&](int f) {
+    const int st = f % stages, head = hblk * a.hg + f / nq, q0 = (f % nq) * BK;
+    unsigned char* dst = ring + st * stage_bytes;
+    wg::mbar_expect_tx(&full[st], stage_bytes);
+    for (int q = 0; q < gp; ++q)
+      wg::tma_load_4d(dst + q * BK * GROUP, &a.x32, &full[st], q * 32, head, row0 + q0, bi);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) wg::mbar_init(&full[st], 1);
+    wg::mbar_init(bbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    wg::mbar_expect_tx(bbar, qp * gn * GROUP);
+    for (int r = 0; r < qp; r += BQ)
+      for (int q = 0; q < gn; ++q)
+        wg::tma_load_4d(btile + q * qp * GROUP + r * GROUP, &a.b64, bbar, q * 32, grp, row0 + r, bi);
+    for (int f = 0; f < stages && f < total; ++f) issue(f);
+  }
+  // The rows' weights exp(cum_last − cum_q)·dt_q, 0 past Q.
+  for (int i = tid; i < a.hg * qp; i += 32 * STATE_WARPS) {
+    const int hh = i / qp, q = i - hh * qp;
+    const long long bh = (long long)bi * a.H + hblk * a.hg + hh;
+    const float* cr = a.cum + (bh * a.C + ci) * a.Q;
+    w[i] = q < a.Q ? ex2((cr[a.Q - 1] - cr[q]) * LOG2E) * a.dt[bh * a.S + row0 + q] : 0.f;
+  }
+  __syncthreads();
+  wg::mbar_wait(bbar, 0);
+
+  // A = Bᵀ: this warp's state rows m0 + g and m0 + g + 8 are columns of the
+  // B tile (chunk cA / cA + 2 of their 128-byte group, word g & 3).
+  const int m0 = 16 * warp;
+  const bool live = m0 < a.N;
+  const unsigned char* bcol = btile + (m0 / 32) * qp * GROUP + 4 * (g & 3);
+  const int cA = 4 * ((m0 / 16) & 1) + (g >> 2);
+  int o0[4], o1[4];
+  x_offsets(g, t, o0, o1);
+  float acc[NP][4];
+#pragma unroll
+  for (int n = 0; n < NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int f = 0; f < total; ++f) {
+    const int st = f % stages, hh = f / nq, qs = f - hh * nq;
+    wg::mbar_wait(&full[st], (f / stages) & 1);
+    if (live) {
+      const unsigned char* xs = ring + st * stage_bytes;
+      const float* wr = w + hh * qp + qs * BK;
+      float part[NP][4];
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned char* p0 = bcol + (qs * BK + 8 * kk + 2 * t) * GROUP;
+        const unsigned char* p1 = p0 + GROUP;
+        const float af[4] = {lds<float>(p0 + ((cA ^ (2 * t)) << 4)),
+                             lds<float>(p0 + (((cA + 2) ^ (2 * t)) << 4)),
+                             lds<float>(p1 + ((cA ^ (2 * t + 1)) << 4)),
+                             lds<float>(p1 + (((cA + 2) ^ (2 * t + 1)) << 4))};
+        mma_x<NP>(af, xs + 8 * kk * GROUP, o0, o1, wr[8 * kk + 2 * t], wr[8 * kk + 2 * t + 1], t,
+                  part);
+      }
+      add_to(acc, part);
+    }
+    if (qs == nq - 1) {
+      if (live) {
+        const long long head = hblk * a.hg + hh;
+        float* sp = a.states + ((long long)cell * a.H + head) * a.N * a.P;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = m0 + g + 8 * h;
+          if (n >= a.N) continue;
+#pragma unroll
+          for (int j = 0; j < NP; ++j) {
+            const int col = 8 * j + 2 * t;
+            if (col < a.P) store2(sp + (long long)n * a.P + col, acc[j][2 * h], acc[j][2 * h + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    }
+    __syncthreads();                       // every warp is done with stage st
+    if (tid == 0 && f + stages < total) {
+      fence_async();
+      issue(f + stages);
+    }
+  }
+}
+
+// states (B, C, H, N·P) -> the state entering each chunk, in place:
+// h_0 = 0, h_c = exp(cum[b, h, c − 1, Q − 1]) · h_c−1 + states_c−1 (the
+// product rounded, then the sum, as the plain loop's two ops).
+__global__ void __launch_bounds__(256)
+ssd_pass_kernel(float4* __restrict__ states, const float* __restrict__ cum, int H, int C, int Q,
+                long long per, long long items) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= items) return;
+  const long long bh = i / per, e = i - bh * per;
+  const long long b = bh / H, h = bh - b * H;
+  float4 hs = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* const base = states + (b * C * H + h) * per + e;
+  const long long step = (long long)H * per;        // one chunk
+  // Eight chunks' states are loaded before any is overwritten, so that a
+  // thread keeps eight loads in flight.
+  for (int c0 = 0; c0 < C; c0 += 8) {
+    float4 s[8];
+    float dec[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 + j < C) {
+        s[j] = base[(c0 + j) * step];
+        dec[j] = expf(cum[(bh * C + c0 + j) * Q + Q - 1]);
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 + j < C) {
+        base[(c0 + j) * step] = hs;
+        hs.x = __fadd_rn(__fmul_rn(dec[j], hs.x), s[j].x);
+        hs.y = __fadd_rn(__fmul_rn(dec[j], hs.y), s[j].y);
+        hs.z = __fadd_rn(__fmul_rn(dec[j], hs.z), s[j].z);
+        hs.w = __fadd_rn(__fmul_rn(dec[j], hs.w), s[j].w);
+      }
+  }
+}
+
+// S for one 16-key slab of this warp's m-tile (its first `nlive` 8-key
+// n-tiles), 3xTF32 over the state dimension, the diagonal pairs' plain dot
+// products on the diagonal slab; stored as the lanes' accumulators.
+__device__ __forceinline__ void score_slab(const Frags<float>& fa, const unsigned char* c_mt,
+                                           const unsigned char* slab, int gn, int nch, int nlive,
+                                           int rg0, int k0, int lane, float4* out) {
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+  const uint32_t b_row = static_cast<uint32_t>(__cvta_generic_to_shared(slab)) +
+                         (8 * (mi >> 1) + r) * GROUP;
+  float s[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll 1
+  for (int gi = 0; gi < gn; ++gi) {
+    float sg[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sg[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float af[4];
+      fa.load_a(gi, kk, af);
+      uint32_t rb[4];
+      ldsm_x4(b_row + gi * (BKS * GROUP) + (((2 * kk + (mi & 1)) ^ r) << 4), rb);
+      uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split<false>(af[e], ah[e], al[e]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split<false>(__uint_as_float(rb[e]), bh[e >> 1][e & 1], bl[e >> 1][e & 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (i < nlive) mma(sg[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (i < nlive) mma(sg[i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (i < nlive) mma(sg[i], ah, bh[i][0], bh[i][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] += sg[i][e];
+  }
+  if (k0 == rg0) {
+    const int rl = lane & 15;
+    const float sd = diag_dot<float>(c_mt + rl * GROUP, slab + rl * GROUP, nch, rl & 7,
+                                     BKS * GROUP);
+    const float sdv[2] = {__shfl_sync(0xffffffffu, sd, g), __shfl_sync(0xffffffffu, sd, g + 8)};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * i + 2 * t + (e & 1) == g + 8 * (e >> 1)) s[i][e] = sdv[e >> 1];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (i < nlive) out[i * 32 + lane] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+}
+
+// y += P · X for one 32-key step of a head: P = S · exp(dq − dk) · dt_k from
+// the stored S, masked pairs (DIAG) selected to 0; k permuted as key_step's.
+template <int NP, bool DIAG>
+__device__ __forceinline__ void px_step(const float4* sw, const unsigned char* x_keys,
+                                        const int (&o0)[4], const int (&o1)[4], int nlive,
+                                        const float (&dq)[2], const float (&dk)[4][2],
+                                        const float (&dtk)[4][2], int rg0, int k0, int lane,
+                                        float (&y)[NP][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  float part[NP][4];
+#pragma unroll
+  for (int n = 0; n < NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (DIAG && i >= nlive) continue;
+    const float4 sv = sw[i * 32 + lane];
+    float s[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, j = e & 1;
+      const float p = s[e] * ex2((dq[h] - dk[i][j]) * LOG2E) * dtk[i][j];
+      s[e] = (!DIAG || k0 + 8 * i + 2 * t + j <= rg0 + g + 8 * h) ? p : 0.f;
+    }
+    uint32_t ph[4], pl[4];
+    split<false>(s[0], ph[0], pl[0]);
+    split<false>(s[2], ph[1], pl[1]);
+    split<false>(s[1], ph[2], pl[2]);
+    split<false>(s[3], ph[3], pl[3]);
+    const unsigned char* x0 = x_keys + (8 * i + 2 * t) * GROUP;
+    const unsigned char* x1 = x0 + GROUP;
+    uint32_t xh[NP][2], xl[NP][2];
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int grp = (n / 4) * (BK * GROUP), j = n % 4;
+      split<false>(lds<float>(x0 + grp + o0[j]), xh[n][0], xl[n][0]);
+      split<false>(lds<float>(x1 + grp + o1[j]), xh[n][1], xl[n][1]);
+    }
+#pragma unroll
+    for (int n = 0; n < NP; ++n) mma(part[n], pl, xh[n][0], xh[n][1]);
+#pragma unroll
+    for (int n = 0; n < NP; ++n) mma(part[n], ph, xl[n][0], xl[n][1]);
+#pragma unroll
+    for (int n = 0; n < NP; ++n) mma(part[n], ph, xh[n][0], xh[n][1]);
+  }
+  add_to(y, part);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_mma_kernel(const __grid_constant__ ChunkArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) & 1023u) __trap();
+  const int gn = groups(a.N, 4), qp = round_q(a.Q);
+  const int nch = a.N >> 2;                               // 16-byte chunks of a C / B row
+  unsigned char* const ctile = smem;                      // gn boxes of [64][128 B]
+  float4* const sbuf = reinterpret_cast<float4*>(smem + BQ * gn * GROUP);
+  unsigned char* const ring = smem + BQ * gn * GROUP + qp * 256;
+  const int stage_bytes = chunk_stage_bytes(a.N, a.P);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + 2 * stage_bytes);
+  uint64_t* const cbar = full + 2;
+  const int gp = groups(8 * NP, 4);
+
+  // Block -> (query tile, cell, head block), the last query tile first.
+  const int per_tile = a.cells * a.hblocks;
+  const int tile = a.tiles - 1 - blockIdx.x / per_tile;
+  const int rest = blockIdx.x % per_tile;
+  const int cell = rest / a.hblocks, hblk = rest - (rest / a.hblocks) * a.hblocks;
+  const int bi = cell / a.C, ci = cell - bi * a.C;
+  const int grp = hblk * a.hg / (a.H / a.G), row0 = ci * a.Q;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  const int keys = min((tile + 1) * BQ, a.Q);
+  const int nks = (keys + BKS - 1) / BKS;                 // score slabs
+  const int nkx = (keys + BK - 1) / BK;                   // X steps a head
+  const int hsteps = ci > 0 ? gn : 0;                     // h slabs a head (none in chunk 0)
+  const int per_head = hsteps + nkx, total = nks + a.hg * per_head;
+
+  auto issue = [&](int f) {
+    const int st = f & 1;
+    unsigned char* dst = ring + st * stage_bytes;
+    if (f < nks) {
+      wg::mbar_expect_tx(&full[st], BKS * gn * GROUP);
+      for (int q = 0; q < gn; ++q)
+        wg::tma_load_4d(dst + q * BKS * GROUP, &a.b16, &full[st], q * 32, grp, row0 + f * BKS, bi);
+      return;
+    }
+    const int hh = (f - nks) / per_head, r = (f - nks) - hh * per_head;
+    const int head = hblk * a.hg + hh;
+    wg::mbar_expect_tx(&full[st], BK * gp * GROUP);
+    for (int q = 0; q < gp; ++q) {
+      if (r < hsteps)
+        wg::tma_load_4d(dst + q * BK * GROUP, &a.h32, &full[st], q * 32, r * BK, head, cell);
+      else
+        wg::tma_load_4d(dst + q * BK * GROUP, &a.x32, &full[st], q * 32, head,
+                        row0 + (r - hsteps) * BK, bi);
+    }
+  };
+  if (tid == 0) {
+    wg::mbar_init(&full[0], 1);
+    wg::mbar_init(&full[1], 1);
+    wg::mbar_init(cbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    wg::mbar_expect_tx(cbar, BQ * gn * GROUP);
+    for (int q = 0; q < gn; ++q)
+      wg::tma_load_4d(ctile + q * BQ * GROUP, &a.c64, cbar, q * 32, grp, row0 + tile * BQ, bi);
+    issue(0);
+    if (total > 1) issue(1);
+  }
+
+  const int rg0 = tile * BQ + 16 * warp;                  // this warp's m-tile
+  const int rlast = rg0 < a.Q ? min(rg0 + 15, a.Q - 1) : -1;
+  const unsigned char* c_mt = ctile + 16 * warp * GROUP;
+  float4* const sw = sbuf + warp * (qp / 8) * 32;         // its S, by 8-key n-tile
+  const Frags<float> fa(c_mt, ring, lane);
+  wg::mbar_wait(cbar, 0);
+
+  // 1. S, once for all the block's heads.
+  for (int f = 0; f < nks; ++f) {
+    const int k0 = f * BKS;
+    wg::mbar_wait(&full[f & 1], (f >> 1) & 1);
+    if (k0 <= rlast)
+      score_slab(fa, c_mt, ring + (f & 1) * stage_bytes, gn, nch, min(2, ((rlast - k0) >> 3) + 1),
+                 rg0, k0, lane, sw + (k0 / 8) * 32);
+    __syncthreads();
+    if (tid == 0 && f + 2 < total) {
+      fence_async();
+      issue(f + 2);
+    }
+  }
+
+  // 2. Each head: the entering state's term, the decayed P·X, the D skip.
+  int o0[4], o1[4];
+  x_offsets(g, t, o0, o1);
+  float y[NP][4], dq[2];
+  long long bh = 0;
+  for (int f = nks; f < total; ++f) {
+    const int hh = (f - nks) / per_head, r = (f - nks) - hh * per_head;
+    const int head = hblk * a.hg + hh;
+    const unsigned char* stg = ring + (f & 1) * stage_bytes;
+    if (r == 0) {
+      bh = (long long)bi * a.H + head;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rg0 + g + 8 * h;
+        dq[h] = row < a.Q ? __ldg(a.cum + (bh * a.C + ci) * a.Q + row) : -__int_as_float(0x7f800000);
+      }
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[n][e] = 0.f;
+    }
+    wg::mbar_wait(&full[f & 1], (f >> 1) & 1);
+    if (rlast >= 0) {
+      if (r < hsteps) {
+        // y += C · h over state rows 32r ..: A's slots t / t + 4 <- C columns
+        // 2t / 2t + 1 of each 8-wide k step (one float2), matching X's rows.
+        const unsigned char* cr = c_mt + g * GROUP + r * (BQ * GROUP);
+        float part[NP][4];
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int o = (((2 * kk + (t >> 1)) ^ g) << 4) + 8 * (t & 1);
+          const float2 lo = *reinterpret_cast<const float2*>(cr + o);
+          const float2 hi = *reinterpret_cast<const float2*>(cr + 8 * GROUP + o);
+          const float af[4] = {lo.x, hi.x, lo.y, hi.y};
+          mma_x<NP>(af, stg + 8 * kk * GROUP, o0, o1, 1.f, 1.f, t, part);
+        }
+        add_to(y, part);
+        if (r == hsteps - 1) {
+#pragma unroll
+          for (int n = 0; n < NP; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) y[n][e] *= ex2(dq[e >> 1] * LOG2E);
+        }
+      } else {
+        const int k0 = (r - hsteps) * BK, rem = rlast - k0;
+        if (rem >= 0) {
+          const float* cr = a.cum + (bh * a.C + ci) * a.Q;
+          const float* dr = a.dt + bh * a.S + row0;
+          float dk[4][2], dtk[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int k = k0 + 8 * i + 2 * t + j;
+              dk[i][j] = k < a.Q ? __ldg(cr + k) : 0.f;
+              dtk[i][j] = k < a.Q ? __ldg(dr + k) : 0.f;
+            }
+          if (rem < BK)
+            px_step<NP, true>(sw + (k0 / 8) * 32, stg, o0, o1, min(4, (rem >> 3) + 1), dq, dk, dtk,
+                              rg0, k0, lane, y);
+          else
+            px_step<NP, false>(sw + (k0 / 8) * 32, stg, o0, o1, 4, dq, dk, dtk, rg0, k0, lane, y);
+        }
+      }
+      if (r == per_head - 1) {
+        const float dh = __ldg(a.d + head);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rg0 + g + 8 * h;
+          if (row >= a.Q) continue;
+          const float* xr = a.x + bi * a.xs_b + (long long)(row0 + row) * a.xs_s + head * a.xs_h;
+          float* orow = a.out + (((long long)bi * a.S + row0 + row) * a.H + head) * a.P;
+#pragma unroll
+          for (int n = 0; n < NP; ++n) {
+            const int col = 8 * n + 2 * t;
+            if (col >= a.P) continue;
+            const float2 xv = __ldg(reinterpret_cast<const float2*>(xr + col));
+            store2(orow + col, y[n][2 * h] + dh * xv.x, y[n][2 * h + 1] + dh * xv.y);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (tid == 0 && f + 2 < total) {
+      fence_async();
+      issue(f + 2);
+    }
+  }
+}
+
+// A 4-D f32 map with unit stride along dims[0], the element strides of the
+// other three, a box of (32 floats, box rows along dim `rows_dim`, else 1)
+// and the 128-byte swizzle; reads out of bounds are 0.
+inline bool encode_f32(CUtensorMap* map, const void* base, const long long (&dims)[4],
+                       const long long (&strides)[3], int rows_dim, int rows) {
+  wg::EncodeTiledFn fn = wg::encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t gd[4], gs[3];
+  cuuint32_t box[4] = {32, 1, 1, 1}, estr[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) gd[i] = static_cast<cuuint64_t>(dims[i]);
+  for (int i = 0; i < 3; ++i) gs[i] = static_cast<cuuint64_t>(strides[i]) * 4;
+  box[rows_dim] = static_cast<cuuint32_t>(rows);
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), gd, gs, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NP>
+int launch_chunked(const StateArgs& sa, const ChunkArgs& ca, float* states, const float* cum,
+                   int B, cudaStream_t stream) {
+  const size_t s_smem = state_smem_bytes(ca.Q, ca.N, ca.P, ca.hg);
+  const size_t c_smem = chunk_smem_bytes(ca.Q, ca.N, ca.P);
+  void (*sk)(StateArgs) = ssd_state_kernel<NP>;
+  void (*ck)(ChunkArgs) = ssd_mma_kernel<NP>;
+  cudaError_t e = cudaFuncSetAttribute(sk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(s_smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ck, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(c_smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ck, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sk<<<static_cast<unsigned>(ca.cells * ca.hblocks), 32 * STATE_WARPS, s_smem, stream>>>(sa);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const long long per = (long long)ca.N * ca.P / 4, items = (long long)B * ca.H * per;
+  ssd_pass_kernel<<<static_cast<unsigned>((items + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<float4*>(states), cum, ca.H, ca.C, ca.Q, per, items);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  ck<<<static_cast<unsigned>(ca.tiles * ca.cells * ca.hblocks), THREADS, c_smem, stream>>>(ca);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked route's checks (mirrored by kernels/ssd_scan.py::scan_route),
+// its tensor maps, then the three launches.  x_st / b_st / c_st: the batch,
+// sequence and head (group) strides in elements, unit along P / N.
+inline int chunked(const float* x, const float* b, const float* c, const float* dt,
+                   const float* cum, const float* d, float* states, float* out,
+                   const long long (&x_st)[3], const long long (&b_st)[3],
+                   const long long (&c_st)[3], int B, int S, int H, int G, int P, int N, int Q,
+                   int hg, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  const int C = S / Q;
+  const long long cells = (long long)B * C, tiles = (Q + BQ - 1) / BQ;
+  if (G <= 0 || H % G || Q <= 0 || S % Q || P <= 0 || P > 128 || P % 4 || N <= 0 || N > 128 ||
+      N % 4 || hg <= 0 || (H / G) % hg || chunk_smem_bytes(Q, N, P) > MAX_SMEM ||
+      state_stages(Q, N, P, hg) == 0 || tiles * cells * (H / hg) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StateArgs sa;
+  ChunkArgs ca;
+  const long long xd[4] = {P, H, S, B}, xs[3] = {x_st[2], x_st[1], x_st[0]};
+  const long long bd[4] = {N, G, S, B}, bs[3] = {b_st[2], b_st[1], b_st[0]};
+  const long long cs[3] = {c_st[2], c_st[1], c_st[0]};
+  const long long hd[4] = {P, N, H, cells}, hs[3] = {P, (long long)N * P, (long long)H * N * P};
+  if (!encode_f32(&sa.b64, b, bd, bs, 2, BQ) || !encode_f32(&sa.x32, x, xd, xs, 2, BK) ||
+      !encode_f32(&ca.c64, c, bd, cs, 2, BQ) || !encode_f32(&ca.b16, b, bd, bs, 2, BKS) ||
+      !encode_f32(&ca.h32, states, hd, hs, 1, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ca.x32 = sa.x32;
+  sa.dt = ca.dt = dt;
+  sa.cum = ca.cum = cum;
+  sa.states = states;
+  ca.x = x;
+  ca.d = d;
+  ca.out = out;
+  ca.xs_b = x_st[0];
+  ca.xs_s = x_st[1];
+  ca.xs_h = x_st[2];
+  sa.S = ca.S = S;
+  sa.H = ca.H = H;
+  sa.G = ca.G = G;
+  sa.P = ca.P = P;
+  sa.N = ca.N = N;
+  sa.Q = ca.Q = Q;
+  sa.C = ca.C = C;
+  sa.hg = ca.hg = hg;
+  sa.hblocks = ca.hblocks = H / hg;
+  sa.stages = state_stages(Q, N, P, hg);
+  ca.tiles = static_cast<int>(tiles);
+  ca.cells = static_cast<int>(cells);
+  switch (np_of(P)) {
+    case 2: return launch_chunked<2>(sa, ca, states, cum, B, stream);
+    case 4: return launch_chunked<4>(sa, ca, states, cum, B, stream);
+    case 8: return launch_chunked<8>(sa, ca, states, cum, B, stream);
+    default: return launch_chunked<16>(sa, ca, states, cum, B, stream);
   }
 }
 

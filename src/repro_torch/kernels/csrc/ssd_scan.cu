@@ -38,6 +38,10 @@
 // columns tx + 16 j (j < NJ).  Shared rows are padded by one float so
 // column walks are free of bank conflicts.
 //
+// ssd_mma.cuh also holds the whole chunked SSD core (chunk states, the pass
+// over the chunks, the chunk output with B and C read once a group; entry
+// repro_ssd_scan_chunked below).
+//
 // The same library holds the mixer's depthwise causal conv + SiLU, which
 // makes the kernel's x / B / C operands (mamba_conv.cuh, entry
 // repro_causal_conv_silu below).
@@ -246,6 +250,29 @@ extern "C" int repro_ssd_chunk_diag(const void* x, const void* dta,
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return dispatch_p<float>(x, dta, b, c, out, cells, Q, P, N, s);
   return dispatch_p<__nv_bfloat16>(x, dta, b, c, out, cells, Q, P, N, s);
+}
+
+// The whole SSD core on route "chunked" (ssd_mma.cuh): x (B, S, H, P) and
+// b / c (B, S, G, N) f32 read in place through their strides (9 numbers:
+// batch, sequence and head / group strides of x, b, c in elements; unit
+// along P / N; every address and stride 16-byte aligned), dt (B, H, S)
+// and cum (B, H, C, Q) f32 contiguous, d (H,) f32; states a (B, C, H, N, P)
+// f32 buffer it overwrites; out (B, S, H, P) f32 contiguous.  hg heads a
+// block, a divisor of H / G (kernels/ssd_scan.py::heads_per_block).  Three
+// launches: the chunk states, the pass over the chunks, the chunk output.
+extern "C" int repro_ssd_scan_chunked(const void* x, const void* b, const void* c,
+                                      const void* dt, const void* cum, const void* d,
+                                      void* states, void* out, const long long* strides,
+                                      int B, int S, int H, int G, int P, int N, int Q,
+                                      int hg, void* stream) {
+  const long long xs[3] = {strides[0], strides[1], strides[2]};
+  const long long bs[3] = {strides[3], strides[4], strides[5]};
+  const long long cs[3] = {strides[6], strides[7], strides[8]};
+  return ssd_mma::chunked(static_cast<const float*>(x), static_cast<const float*>(b),
+                          static_cast<const float*>(c), static_cast<const float*>(dt),
+                          static_cast<const float*>(cum), static_cast<const float*>(d),
+                          static_cast<float*>(states), static_cast<float*>(out), xs, bs, cs, B,
+                          S, H, G, P, N, Q, hg, static_cast<cudaStream_t>(stream));
 }
 
 // Depthwise causal conv + SiLU of the x (B, S, di), B and C (B, S, gn)

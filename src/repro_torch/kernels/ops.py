@@ -13,7 +13,11 @@ both to ``pallas_gemm_batched``: their launches count in
 rows sorted by expert, granite-4.0-h) runs the ragged grouped GEMM,
 ``kernels/gemm.py::gemm_grouped``, instead (counted in
 ``gemm_grouped.launches``); the row keeps its lowering, as the reference
-has no such route to mirror.
+has no such route to mirror.  The ``ssd_scan`` row departs from the
+reference's, which lowers the op to its within-chunk kernel and keeps the
+rest of the core around it: here the row is the whole SSD core
+(``kernels/ssd_scan.py::ssd_scan``, B and C once a group), whose composed
+route launches the ``ssd_chunk_diag`` row's kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gemm import gemm, gemm_batched
-from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_scan
 
 __all__ = ["KERNEL_LOWERINGS", "kernel_lowering"]
 
@@ -33,7 +37,7 @@ KERNEL_LOWERINGS = {
     "attention": flash_attention,
     "decode_attention": flash_decode,
     "ssd_chunk_diag": ssd_chunk_diag,
-    "ssd_scan": ssd_chunk_diag,      # within-chunk quadratic term
+    "ssd_scan": ssd_scan,            # the whole SSD core
     "moe_gemm": gemm_batched,        # (E, C, d) @ (E, d, f), experts the batch
     "moe_expert_ffn": gemm_batched,  # gate/up/down grouped expert GEMMs
 }

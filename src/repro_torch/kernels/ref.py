@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 __all__ = ["gemm_ref", "gemm_batched_ref", "gemm_grouped_ref", "moe_gemm_ref",
            "attention_ref", "decode_attention_ref", "ssd_chunk_diag_ref",
-           "causal_conv_silu_ref"]
+           "ssd_scan_ref", "causal_conv_silu_ref"]
 
 _NEG_INF = -1e30
 
@@ -151,6 +151,58 @@ def ssd_chunk_diag_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
                          torch.zeros((), device=x.device))
     y = torch.einsum("zcqk,zckp->zcqp", s * l_mask, xf)
     return y.to(x.dtype)
+
+
+def ssd_scan_ref(xh, dt, a, bh, ch, d_skip, chunk, diag_fn=ssd_chunk_diag_ref):
+    """The chunked Mamba-2 SSD core: (B, S, H, P) -> (B, S, H, P) fp32.
+
+    bh, ch: (B, S, H, N) per head or (B, S, G, N) once a group of H / G
+    heads, which are repeated per head first (the same values, so both give
+    the same bits).  ``diag_fn`` computes the within-chunk quadratic term
+    (this plain version or the chunk kernel); the (N, P)-state inter-chunk
+    recurrence is a loop over chunks.  Reads shapes only, never values, so
+    it also runs on meta tensors."""
+    bsz, s, h, pdim = xh.shape
+    if bh.shape[2] != h:
+        rep = h // bh.shape[2]
+        bh, ch = (t.repeat_interleave(rep, dim=2) for t in (bh, ch))
+    n = bh.shape[-1]
+    q = min(int(chunk), s)
+    nc = s // q
+    da = dt * a                                               # (B, S, H)
+    xdt = xh * dt[..., None]
+
+    def to_bh(t):
+        t = t.reshape(bsz, nc, q, h, -1).permute(0, 3, 1, 2, 4)
+        return t.reshape(bsz * h, nc, q, t.shape[-1])
+
+    cum_c = torch.cumsum(da.reshape(bsz, nc, q, h), dim=2)    # (B, C, Q, H)
+    cum_bh = cum_c.permute(0, 3, 1, 2).reshape(bsz * h, nc, q)
+
+    x_bh = to_bh(xdt).float()
+    b_bh = to_bh(bh).float()
+    c_bh = to_bh(ch).float()
+
+    y_diag = diag_fn(x_bh, cum_bh, b_bh, c_bh)
+
+    decay_to_end = torch.exp(cum_bh[:, :, -1:] - cum_bh)
+    states = torch.einsum("zcq,zcqn,zcqp->zcnp", decay_to_end, b_bh, x_bh)
+    chunk_decay = torch.exp(cum_bh[:, :, -1])                 # (BH, C)
+
+    # State entering each chunk: h_c = decay_{c-1} · h_{c-1} + states_{c-1}.
+    prev = torch.zeros((bsz * h, n, pdim), dtype=torch.float32,
+                       device=xh.device)
+    entering = []
+    for ci in range(nc):
+        entering.append(prev)
+        prev = chunk_decay[:, ci, None, None] * prev + states[:, ci]
+    prev_states = torch.stack(entering, dim=1)                # (BH, C, N, P)
+
+    y_off = torch.einsum("zcqn,zcnp,zcq->zcqp", c_bh, prev_states,
+                         torch.exp(cum_bh))
+    y = y_diag.float() + y_off
+    y = y.reshape(bsz, h, s, pdim).permute(0, 2, 1, 3)
+    return y + xh.float() * d_skip[None, None, :, None]
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor):

@@ -26,6 +26,24 @@ plain version, :func:`repro_torch.kernels.ref.ssd_chunk_diag_ref`, only for
 CPU tensors.  ``ssd_chunk_diag.launches`` counts kernel launches and
 ``ssd_chunk_diag.route_launches[route]`` the launches of each route.
 
+:func:`ssd_scan` runs the ``ssd_scan`` descriptor's whole core (within-chunk
+term, chunk states, the pass over the chunks, the entering states' term and
+the D skip) on the card, on one of two routes that :func:`scan_route`
+names from what it sees in the operands:
+
+* ``"chunked"`` — f32 x, B, C and dt with P ≤ 128 and N ≤ 128 in whole
+  16-byte rows, every address and stride 16-byte aligned, and the blocks'
+  shared memory within the card's: three launches (``csrc/ssd_mma.cuh``:
+  ``ssd_state_kernel``, ``ssd_pass_kernel`` and the ``ssd_mma_kernel``
+  instances of the chunk output) that read x, B and C where they lie (the
+  conv's output, sliced) and B and C once a group of heads;
+* ``"composed"`` — the rest: B and C repeated per head and the plain
+  composition around :func:`ssd_chunk_diag`, as the port ran it before.
+
+``ssd_scan.launches`` / ``.route_launches[route]`` count its calls on the
+card by route, ``ssd_scan.kernel_launches`` the chunked route's launches
+of each kernel (``"state"``, ``"pass"``, ``"output"``).
+
 The same source holds the mixer's depthwise causal conv + SiLU, which makes
 the SSD operands from the x / B / C projections (``csrc/mamba_conv.cuh``):
 :func:`causal_conv_silu`, one pass that reads each projection in place and
@@ -46,12 +64,15 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import causal_conv_silu_ref, ssd_chunk_diag_ref
+from repro_torch.kernels.ref import (causal_conv_silu_ref, ssd_chunk_diag_ref,
+                                     ssd_scan_ref)
 from repro_torch.obs.spans import measured
 
-__all__ = ["CONV_ROUTES", "ROUTES", "SsdPlan", "causal_conv_silu",
-           "causal_conv_silu_ref", "conv_route", "mma_smem_bytes",
-           "ssd_chunk_diag", "ssd_chunk_diag_ref", "ssd_plan", "ssd_route"]
+__all__ = ["CONV_ROUTES", "ROUTES", "SCAN_KERNELS", "SCAN_ROUTES", "SsdPlan",
+           "causal_conv_silu", "causal_conv_silu_ref", "chunk_smem_bytes",
+           "conv_route", "heads_per_block", "mma_smem_bytes", "scan_route",
+           "ssd_chunk_diag", "ssd_chunk_diag_ref", "ssd_plan", "ssd_route",
+           "ssd_scan", "state_stages"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("simt", "mma")         # index = the C side's route code
@@ -212,6 +233,151 @@ def ssd_chunk_diag(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
 
 ssd_chunk_diag.launches = 0
 ssd_chunk_diag.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+# csrc/ssd_mma.cuh's chunked core: score slabs of 16 keys, a ring of up to
+# 8 X slabs in the state kernel's eight warps, at most 16 heads a block.
+SCAN_ROUTES = ("composed", "chunked")
+SCAN_KERNELS = ("state", "pass", "output")
+_BKS, _MAX_SSTAGES, _MAX_HG, _MAX_PN = 16, 8, 16, 128
+
+
+def _round_q(q: int) -> int:
+    return -(-q // _BQ) * _BQ
+
+
+def chunk_smem_bytes(q: int, n: int, p: int) -> int:
+    """Dynamic shared memory of one chunk-output block: the C tile, S of
+    every (row, key) pair up to Q, two ring stages, the mbarriers
+    (``ssd_mma::chunk_smem_bytes``)."""
+    gn, gp = _groups(n, 4), _groups(8 * _np_of(p), 4)
+    stage = max(_BKS * gn, _BK * gp) * _GROUP
+    return _BQ * gn * _GROUP + _round_q(q) * 256 + 2 * stage + 64
+
+
+def state_stages(q: int, n: int, p: int, hg: int) -> int:
+    """X-slab ring stages of one chunk-state block: as many as fit beside
+    the chunk's B, the block's row weights and the mbarriers, up to 8; 0
+    where fewer than 2 fit (``ssd_mma::state_stages``)."""
+    fixed = (_round_q(q) * _groups(n, 4) * _GROUP + hg * _round_q(q) * 4
+             + 16 * (_MAX_SSTAGES + 1))
+    k = (_MAX_SMEM - fixed) // (_BK * _groups(8 * _np_of(p), 4) * _GROUP)
+    return 0 if k < 2 else min(k, _MAX_SSTAGES)
+
+
+def heads_per_block(heads_per_group: int) -> int:
+    """Heads one block of the chunked route walks: the most, up to 16, that
+    divide a group's heads (every head of a block reads one group)."""
+    return max(d for d in range(1, min(_MAX_HG, heads_per_group) + 1)
+               if heads_per_group % d == 0)
+
+
+def _in_place_f32(t: torch.Tensor) -> bool:
+    """A (B, S, heads, width) f32 operand the chunked route reads as it
+    lies: unit stride along the width, the other strides and the address
+    in whole 16-byte chunks, no stride 0."""
+    return t.dtype == torch.float32 and t.stride(3) == 1 \
+        and all(st > 0 and st % 4 == 0 for st in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
+def scan_route(xh, dt, bh, ch, chunk: int) -> str:
+    """The route :func:`ssd_scan` takes on the card (which alone calls it,
+    so the device is not checked here): ``"chunked"`` for f32 x, B, C and
+    dt on one device with 4 ≤ P ≤ 128 and 4 ≤ N ≤ 128 multiples of 4, x, B
+    and C read in place (:func:`_in_place_f32`) and both kernels' shared
+    memory within a block's; else ``"composed"``."""
+    bsz, s, h, p = xh.shape
+    g, n = bh.shape[2], bh.shape[3]
+    q = min(int(chunk), s)
+    ops = (xh, dt, bh, ch)
+    if any(t.device != xh.device for t in ops) \
+            or dt.dtype != torch.float32 \
+            or not all(_in_place_f32(t) for t in (xh, bh, ch)) \
+            or not (0 < p <= _MAX_PN and 0 < n <= _MAX_PN) or p % 4 or n % 4 \
+            or chunk_smem_bytes(q, n, p) > _MAX_SMEM \
+            or not state_stages(q, n, p, heads_per_block(h // g)):
+        return "composed"
+    return "chunked"
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_fn():
+    fn = _build.library("ssd_scan").repro_ssd_scan_chunked
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return fn
+
+
+def _composed(xh, dt, a, bh, ch, d_skip, chunk):
+    """The plain composition around the SSD chunk kernel (B and C repeated
+    per head), the kernel lowering the port ran before the chunked route."""
+    def diag(x_bh, cum_bh, b_bh, c_bh):
+        # The kernel takes one dtype; the log-decays are fp32 in the kernel
+        # whatever they arrive in, as in the reference's Pallas kernel.
+        return ssd_chunk_diag(x_bh.contiguous(), cum_bh.float().contiguous(),
+                              b_bh.contiguous(), c_bh.contiguous())
+
+    return ssd_scan_ref(xh, dt, a, bh, ch, d_skip, chunk, diag)
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bh: torch.Tensor, ch: torch.Tensor, d_skip: torch.Tensor, *,
+             chunk: int) -> torch.Tensor:
+    """The whole Mamba-2 SSD core: xh (B, S, H, P), dt (B, S, H) fp32, a and
+    d_skip (H,), bh and ch (B, S, G, N) with H % G == 0 (G = H: per head).
+    Returns (B, S, H, P) fp32, contiguous.  CPU tensors take the plain core
+    (:func:`~repro_torch.kernels.ref.ssd_scan_ref`); on the card the route
+    :func:`scan_route` names."""
+    bsz, s, h, p = xh.shape
+    g, n = bh.shape[2], bh.shape[3]
+    q = min(int(chunk), s)
+    if xh.device.type == "cpu":
+        return ssd_scan_ref(xh, dt, a, bh, ch, d_skip, chunk)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
+    route = scan_route(xh, dt, bh, ch, chunk)
+    if route == "composed":
+        out = _composed(xh, dt, a, bh, ch, d_skip, chunk)
+        _build.count_launch(ssd_scan, route)
+        return out
+    with measured("kernel", "ssd_scan", route):
+        hg = heads_per_block(h // g)
+        # dt and the within-chunk cumulative log-decays, (B, H, S) and
+        # (B, H, C, Q), so that a head's rows lie together.  The sums run
+        # along the chunk one position after another, as the plain core's
+        # do: a pair's exp(cum_i − cum_j) then keeps the terms the two
+        # sums share exact, where a tree-ordered scan of the contiguous
+        # axis rounds them apart (3 × the error at Q 256).
+        dt_t = dt.transpose(1, 2).contiguous()
+        cum = torch.cumsum((dt * a).view(bsz, s // q, q, h), dim=2) \
+            .permute(0, 3, 1, 2).float().contiguous()
+        d32 = d_skip.float().contiguous()
+        states = torch.empty((bsz, s // q, h, n, p), dtype=torch.float32,
+                             device=xh.device)
+        out = torch.empty((bsz, s, h, p), dtype=torch.float32,
+                          device=xh.device)
+        if out.numel() == 0:
+            return out
+        strides = (ctypes.c_longlong * 9)(
+            *(st for t in (xh, bh, ch) for st in t.stride()[:3]))
+        with torch.cuda.device(xh.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _scan_fn()(
+                xh.data_ptr(), bh.data_ptr(), ch.data_ptr(), dt_t.data_ptr(),
+                cum.data_ptr(), d32.data_ptr(), states.data_ptr(),
+                out.data_ptr(), strides, bsz, s, h, g, p, n, q, hg, stream)
+        if err:
+            raise RuntimeError(f"ssd_scan kernels ({route}) launch failed: "
+                               f"cudaError {err}")
+        _build.count_launch(ssd_scan, route, kernels=SCAN_KERNELS)
+    return out
+
+
+ssd_scan.launches = 0
+ssd_scan.route_launches = dict.fromkeys(SCAN_ROUTES, 0)
+ssd_scan.kernel_launches = dict.fromkeys(SCAN_KERNELS, 0)
 
 
 def _conv_dims(x, b, c, w, bias):

@@ -138,10 +138,10 @@ def _graph_mamba(p, h, shape, cfg, out_dtype):
         return _force(t).reshape(b, s, -1)
 
     z, xin, b_, c_, dt = val3(za), val3(xa), val3(ba), val3(ca), val3(dta)
-    xh, dt_f, a, bh_, ch_ = conv_and_inputs(p, xin, b_, c_, dt, cfg)
+    xh, dt_f, a, bg, cg = conv_and_inputs(p, xin, b_, c_, dt, cfg)
 
     ya = hnp.ssd_scan(
-        hnp.array(xh), dt_f, a, bh_, ch_, p["d_skip"], chunk=cfg.ssm_chunk
+        hnp.array(xh), dt_f, a, bg, cg, p["d_skip"], chunk=cfg.ssm_chunk
     )
     gate = F.silu(z.float())
     hp = (cfg.ssm_num_heads, cfg.ssm_head_dim)

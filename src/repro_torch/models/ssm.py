@@ -2,9 +2,10 @@
 
 SSD recasts the selective-SSM recurrence as chunked matmuls.  The whole
 chunked core (within-chunk quadratic term, inter-chunk state recurrence,
-D skip) is one registered ``ssd_scan`` descriptor: its host lowering is the
-plain torch composition, its kernel lowering runs the hand-written SSD
-chunk kernel (``kernels/csrc/ssd_scan.cu``) for the within-chunk term.
+D skip) is one registered ``ssd_scan`` descriptor, given B and C once a
+group: its host lowering is the plain torch composition, its kernel
+lowering runs the whole core on hand-written kernels
+(``kernels/csrc/ssd_mma.cuh``) that read x, B and C in place.
 Projections go through ``blas.matmul`` and the gate through ``blas.silu``;
 the depthwise causal conv and its SiLU through ``blas.causal_conv_silu``
 (one hand-written kernel on the card, ``csrc/mamba_conv.cuh``); the gating
@@ -80,17 +81,18 @@ def _split_conv(conv_out: torch.Tensor, cfg):
 
 
 def ssd_inputs(p, xin, b_, c_, dt, cfg):
-    """Shape the conv outputs into the per-head ``ssd_scan`` operands."""
+    """Shape the conv outputs into the ``ssd_scan`` operands: x per head
+    (B, S, H, P), B and C once a group (B, S, G, N), all views of the
+    conv's output, which the kernels read in place."""
     bsz, s = xin.shape[0], xin.shape[1]
     h, pdim = cfg.ssm_num_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_num_groups, cfg.ssm_state_dim
     dt_f = _softplus(dt + p["dt_bias"])                      # (B, S, H) fp32
     a = -torch.exp(p["a_log"])                               # (H,)
     xh = xin.reshape(bsz, s, h, pdim)
-    rep = h // g
-    bh_ = b_.reshape(bsz, s, g, n).repeat_interleave(rep, dim=2)
-    ch_ = c_.reshape(bsz, s, g, n).repeat_interleave(rep, dim=2)
-    return xh, dt_f, a, bh_, ch_
+    bg = b_.reshape(bsz, s, g, n)
+    cg = c_.reshape(bsz, s, g, n)
+    return xh, dt_f, a, bg, cg
 
 
 def conv_and_inputs(p, xin, b_, c_, dt, cfg):
@@ -111,8 +113,8 @@ def mamba_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     form)."""
     bsz, s, _ = x.shape
     z, xin, b_, c_, dt = _project(p, x)
-    xh, dt_f, a, bh_, ch_ = conv_and_inputs(p, xin, b_, c_, dt, cfg)
-    y = blas.ssd_scan(xh, dt_f, a, bh_, ch_, p["d_skip"], chunk=cfg.ssm_chunk)
+    xh, dt_f, a, bg, cg = conv_and_inputs(p, xin, b_, c_, dt, cfg)
+    y = blas.ssd_scan(xh, dt_f, a, bg, cg, p["d_skip"], chunk=cfg.ssm_chunk)
     y = y.reshape(bsz, s, cfg.d_inner)
     y = y * blas.silu(z.float())
     y = L.rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)

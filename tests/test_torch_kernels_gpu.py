@@ -24,9 +24,11 @@ from repro_torch.kernels.flash_decode import (cluster_capacity, decode_plan,
 from repro_torch.kernels.gemm import gemm, gemm_batched
 from repro_torch.kernels.ref import (attention_ref, causal_conv_silu_ref,
                                      decode_attention_ref, gemm_batched_ref,
-                                     gemm_ref, ssd_chunk_diag_ref)
+                                     gemm_ref, ssd_chunk_diag_ref,
+                                     ssd_scan_ref)
 from repro_torch.kernels.ssd_scan import (causal_conv_silu, conv_route,
-                                          ssd_chunk_diag, ssd_route)
+                                          scan_route, ssd_chunk_diag,
+                                          ssd_route, ssd_scan)
 
 import flash_decode_pallas_ref
 import gemm_pallas_ref
@@ -1276,6 +1278,99 @@ def test_ssd_chunk_diag_kernel_forward_shape_repeats_bit_for_bit(card, dtype):
     assert torch.equal(got, _ssd_on_route(ins, "mma"))
 
 
+# The whole SSD core on the chunked route (B, S, H, G, P, N, Q): granite's
+# mixer, jamba's eight groups, mamba2-370m's forward, then widths and
+# chunks off the models' (P 48 and 128, Q not a multiple of 64, G 3, Q = S
+# shorter than a query tile).
+SCAN_SHAPES = [(4, 4096, 128, 1, 64, 128, 256), (2, 512, 256, 8, 64, 128, 256),
+               (4, 1024, 32, 1, 64, 128, 256), (1, 200, 6, 3, 48, 32, 100),
+               (2, 256, 4, 2, 128, 64, 128), (2, 96, 8, 8, 16, 16, 32),
+               (1, 40, 2, 1, 8, 8, 40)]
+
+
+def _scan_operands(gen, bsz, s, h, g, p, n):
+    """x (B, S, H, P), B and C (B, S, G, N) as views of one conv-output-
+    shaped (B, S, H·P + 2·G·N) f32 buffer (SiLU'd, as the conv gives them),
+    dt = softplus(·), a < 0, and d_skip 0: the SSD term alone, which the
+    3xTF32 products compute.  (Where D·x cancels a row's SSD term, the row
+    keeps the terms' absolute errors: at granite's shape the plain core in
+    f32 reads up to 1.2e-4 of such a row against float64 with d_skip ones
+    and 4.3e-4 with a random sign, so no bar of 1e-4 between two f32
+    computations can hold there.  The D skip is held alone, by
+    ``test_ssd_scan_chunked_adds_the_d_skip``.)"""
+    f = h * p + 2 * g * n
+    buf = torch.nn.functional.silu(
+        torch.randn(bsz, s, f, generator=gen, device="cuda"))
+    x = buf[..., :h * p].view(bsz, s, h, p)
+    b = buf[..., h * p:h * p + g * n].view(bsz, s, g, n)
+    c = buf[..., h * p + g * n:].view(bsz, s, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, s, h, generator=gen, device="cuda") - 1.0)
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device="cuda"))
+    d = torch.zeros(h, device="cuda")
+    return x, dt, a, b, c, d
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_scan_chunked_kernels_match_the_plain_core(card, shape):
+    """The chunked route's three kernels read x, B and C in place from the
+    conv's (B, S, F) output and B and C once a group; every output row lies
+    within the SSD bar of the plain core's, one launch of each kernel, no
+    chunk-diag launch, and a repeated call gives the same bits."""
+    bsz, s, h, g, p, n, q = shape
+    x, dt, a, b, c, d = _scan_operands(card, bsz, s, h, g, p, n)
+    assert not x.is_contiguous() and not b.is_contiguous()
+    assert scan_route(x, dt, b, c, q) == "chunked"
+    before = (dict(ssd_scan.kernel_launches), ssd_chunk_diag.launches)
+    got = ssd_scan(x, dt, a, b, c, d, chunk=q)
+    torch.cuda.synchronize()
+    assert {k: v - before[0][k] for k, v in ssd_scan.kernel_launches.items()} \
+        == {"state": 1, "pass": 1, "output": 1}
+    assert ssd_chunk_diag.launches == before[1]
+    assert got.shape == (bsz, s, h, p) and got.is_contiguous()
+    assert torch.isfinite(got).all()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ssd_scan_ref(x, dt, a, b, c, d, q)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _row_err(got, want) <= SSD_TOL["float32"]
+    assert torch.equal(got, ssd_scan(x, dt, a, b, c, d, chunk=q))
+
+
+def test_ssd_scan_chunked_adds_the_d_skip(card):
+    """The chunk output adds D·x once to the SSD term, in fp32: with a D of
+    random sign the output less the D = 0 output is D·x within the
+    rounding of the two sums, at granite's shape."""
+    x, dt, a, b, c, zero = _scan_operands(card, 4, 4096, 128, 1, 64, 128)
+    d = torch.randn(128, generator=card, device="cuda")
+    y0 = ssd_scan(x, dt, a, b, c, zero, chunk=256)
+    yd = ssd_scan(x, dt, a, b, c, d, chunk=256)
+    dx = d[None, None, :, None] * x
+    ulp = torch.finfo(torch.float32).eps
+    assert ((yd - y0 - dx).abs() <= 2 * ulp * (y0.abs() + dx.abs() + yd.abs())
+            ).all()
+
+
+def test_ssd_scan_takes_the_composition_for_what_the_chunked_kernels_do_not(
+        card):
+    """bf16 operands and P > 128 take the composed route: B and C repeated
+    per head around the chunk-diag kernel, as before."""
+    for dtype, p in ((torch.bfloat16, 64), (torch.float32, 132)):
+        x, dt, a, b, c, d = _scan_operands(card, 2, 128, 4, 2, p, 16)
+        x, b, c = x.to(dtype), b.to(dtype), c.to(dtype)
+        assert scan_route(x, dt, b, c, 64) == "composed"
+        before = (ssd_scan.route_launches["composed"], ssd_chunk_diag.launches)
+        got = ssd_scan(x, dt, a, b, c, d, chunk=64)
+        torch.cuda.synchronize()
+        assert ssd_scan.route_launches["composed"] == before[0] + 1
+        assert ssd_chunk_diag.launches == before[1] + 1
+        want = ssd_scan_ref(x, dt, a, b, c, d, 64)
+        assert _row_err(got, want) <= SSD_TOL[str(dtype).split(".")[1]]
+
+
 @pytest.mark.parametrize("dtype", ssd_pallas_ref.DTYPES)
 def test_ssd_chunk_diag_matches_pallas_reference(card, dtype):
     """The deep-decay ragged case (Q 200, P 64, N 128, two chunks) against
@@ -1548,15 +1643,20 @@ def test_mamba_forward_reduced_on_kernels(card, mode):
     tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=card,
                            device="cuda")
     gemm.launches = gemm_batched.launches = ssd_chunk_diag.launches = 0
-    ssd_routes = dict(ssd_chunk_diag.route_launches)
+    ssd_routes = dict(ssd_scan.route_launches)
+    ssd_kernels = dict(ssd_scan.kernel_launches)
     with offload_policy(mode="device", use_kernels=True), torch.no_grad():
         got, _ = model.forward(params, tokens)
     torch.cuda.synchronize()
     L = cfg.num_layers
     want_counts = ((6 * L + 1, 0) if mode == "eager" else (2 * L + 1, 2 * L))
     assert (gemm.launches, gemm_batched.launches) == want_counts
-    assert ssd_chunk_diag.launches == L
-    assert ssd_chunk_diag.route_launches["mma"] - ssd_routes["mma"] == L
+    # One SSD core a layer, on the chunked kernels: no chunk-diag launch.
+    assert ssd_chunk_diag.launches == 0
+    assert {r: n - ssd_routes[r] for r, n in ssd_scan.route_launches.items()} \
+        == {"chunked": L, "composed": 0}
+    assert all(n - ssd_kernels[k] == L
+               for k, n in ssd_scan.kernel_launches.items())
     with offload_policy(mode="device", use_kernels=False), torch.no_grad():
         want, _ = model.forward(params, tokens)
     assert _err(got, want) <= 1e-4
@@ -1932,7 +2032,7 @@ def test_ssd_function_backward_on_the_card(card):
     dy = torch.randn(4, 2, 64, 64, generator=g, device="cuda")
     before = ssd_chunk_diag.launches
     ins = [_leaf(t) for t in (x, dt_a, b, c)]
-    y = kgrad.lowering("ssd_scan")(*ins)
+    y = kgrad.lowering("ssd_chunk_diag")(*ins)
     y.backward(dy)
     torch.cuda.synchronize()
     assert ssd_chunk_diag.launches == before + 1
@@ -2082,11 +2182,12 @@ def test_head_sharded_ssd_plan_launches_the_ssd_kernel_per_shard(card):
     ch = torch.randn(b, s, h, n, generator=card, device="cuda")
     dsk = torch.randn(h, generator=card, device="cuda")
     mesh = _mesh(2, 4)
-    before = ssd_chunk_diag.launches
+    before = ssd_scan.route_launches["chunked"]
     with _kernel_policy(), mesh:
         got = blas.ssd_scan(xh, dt, a, bh, ch, dsk, chunk=256)
     torch.cuda.synchronize()
-    assert ssd_chunk_diag.launches == before + mesh.size
+    # Each shard's heads read their B and C in place: the chunked kernels.
+    assert ssd_scan.route_launches["chunked"] == before + mesh.size
     from repro_torch.core.hero import offload_policy
     with offload_policy(mode="device", use_kernels=False):
         want = blas.ssd_scan(xh, dt, a, bh, ch, dsk, chunk=256)

@@ -57,8 +57,8 @@ def test_readings_read_the_trace_through_portbench():
     assert ms["other"] == pytest.approx(0.010)
     assert got["device_launches_by_kernel"] == {
         "gemm": 2, "flash_attention": 0, "flash_decode": 0,
-        "ssd_chunk_diag": 0, "gemm_grouped": 1, "causal_conv_silu": 1,
-        "other": 1}
+        "ssd_chunk_diag": 0, "ssd_scan": 0, "gemm_grouped": 1,
+        "causal_conv_silu": 1, "other": 1}
     # The union of the intervals: 10-25 overlap counts once.
     assert got["device_busy_ms"] == pytest.approx(0.031)
     assert got["device_idle_share"] == pytest.approx(1 - 0.031 / 0.2)

@@ -221,3 +221,174 @@ def test_ssd_pallas_outputs_are_kept(ssd_pallas_kept, dtype):
     assert ssd_chunk_diag.route_launches == before    # CPU: no launch
     tol = SSD_TOL if dtype == "float32" else 2e-2
     assert (np.abs(got - want).max(axis=-1) / scale).max() <= tol
+
+
+# ---------------------------------------------------------------------------
+# The whole SSD core with B and C once a group (``ssd_scan``), on the CPU:
+# the host lowering's bits, the shape check, the chunked route's choice and
+# counters, the autograd rule, the head-sharded plan.  The chunked kernels
+# themselves run only on the card.
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import blas                                  # noqa: E402
+from repro_torch.core.hero import offload_policy                   # noqa: E402
+from repro_torch.kernels import autograd as kgrad                  # noqa: E402
+from repro_torch.kernels.ref import ssd_scan_ref                   # noqa: E402
+from repro_torch.kernels.ssd_scan import (                         # noqa: E402
+    SCAN_KERNELS, SCAN_ROUTES, chunk_smem_bytes, heads_per_block, scan_route,
+    ssd_scan, state_stages)
+
+
+def _group_operands(bsz=2, s=32, h=8, g=2, p=16, n=8, seed=0):
+    """x (B, S, H, P), dt, a, B and C (B, S, G, N) as views of one
+    conv-output-shaped (B, S, H·P + 2·G·N) buffer, d_skip."""
+    gen = torch.Generator().manual_seed(seed)
+    buf = torch.randn(bsz, s, h * p + 2 * g * n, generator=gen)
+    x = buf[..., :h * p].view(bsz, s, h, p)
+    b = buf[..., h * p:h * p + g * n].view(bsz, s, g, n)
+    c = buf[..., h * p + g * n:].view(bsz, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn(bsz, s, h, generator=gen))
+    a = -torch.rand(h, generator=gen) - 0.1
+    d_skip = torch.randn(h, generator=gen)
+    return x, dt, a, b, c, d_skip
+
+
+def _per_head(t, h):
+    return t.repeat_interleave(h // t.shape[2], dim=2)
+
+
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("chunk", [8, 32])
+@pytest.mark.parametrize("mode,use_kernels", [("host", False),
+                                              ("device", True)])
+def test_group_b_and_c_equal_the_per_head_call_bit_for_bit(g, chunk, mode,
+                                                           use_kernels):
+    """B and C once a group give exactly the per-head call's result (chunk
+    < S and chunk = S), through the seam's host lowering and through the
+    kernel lowering's CPU path, and the plain core's too."""
+    x, dt, a, b, c, d = _group_operands(s=32, h=16, g=g)
+    with offload_policy(mode=mode, use_kernels=use_kernels):
+        got = blas.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+        want = blas.ssd_scan(x, dt, a, _per_head(b, 16), _per_head(c, 16), d,
+                             chunk=chunk)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ssd_scan_ref(x, dt, a, b, c, d, chunk))
+
+
+@pytest.mark.parametrize("bc_shape,ok", [
+    ((2, 16, 8, 4), True), ((2, 16, 4, 4), True), ((2, 16, 1, 4), True),
+    ((2, 16, 3, 4), False), ((2, 16, 16, 4), False), ((2, 8, 2, 4), False),
+    ((2, 16, 2), False)])
+def test_ssd_dims_take_groups_that_divide_the_heads(bc_shape, ok):
+    x, dt = torch.zeros(2, 16, 8, 4), torch.zeros(2, 16, 8)
+    a = d = torch.zeros(8)
+    bc = torch.zeros(bc_shape)
+    if ok:
+        assert blas._ssd_dims(x, dt, a, bc, bc, d, chunk=8) \
+            == (2, 16, 8, 4, 4, 8)
+    else:
+        with pytest.raises(ValueError, match="B/C"):
+            blas._ssd_dims(x, dt, a, bc, bc, d, chunk=8)
+    with pytest.raises(ValueError, match="B/C"):
+        blas._ssd_dims(x, dt, a, torch.zeros(2, 16, 8, 4),
+                       torch.zeros(2, 16, 4, 4), d, chunk=8)
+
+
+def _route_of(**kw):
+    x, dt, a, b, c, d = _group_operands(**kw)
+    return scan_route(x, dt, b, c, 256)
+
+
+def test_scan_route_takes_the_models_operands_on_the_chunked_kernels():
+    """The chunked route takes f32 views of the conv's output at the
+    models' widths (granite, jamba: 8 groups, mamba2-370m) and sends what
+    its kernels do not read to the composition."""
+    assert _route_of(h=128, g=1, p=64, n=128, s=256) == "chunked"
+    assert _route_of(h=16, g=8, p=64, n=128, s=256) == "chunked"
+    assert _route_of(h=8, g=2, p=16, n=8) == "chunked"
+    assert _route_of(h=4, g=1, p=132, n=8) == "composed"      # P > 128
+    assert _route_of(h=4, g=1, p=16, n=256) == "composed"     # N > 128
+    assert _route_of(h=4, g=1, p=18, n=8) == "composed"       # P % 4
+    assert _route_of(h=4, g=1, p=16, n=6) == "composed"       # N % 4
+    x, dt, a, b, c, d = _group_operands(h=4, g=1, p=16, n=8)
+    assert scan_route(x.to(torch.bfloat16), dt, b, c, 8) == "composed"
+    assert scan_route(x, dt.double(), b, c, 8) == "composed"
+    buf = torch.zeros(2 * 32 * 200 + 1)[1:].view(2, 32, 200)  # 4-byte offset
+    assert scan_route(buf[..., :64].view(2, 32, 4, 16), dt, b, c, 8) \
+        == "composed"
+    wide = torch.zeros(2, 32, 4, 17)[..., :16]                # rows of 17
+    assert scan_route(wide, dt, b, c, 8) == "composed"
+    assert scan_route(x, dt, b.expand(2, 32, 1, 8), c, 8) == "chunked"
+    assert scan_route(x, dt, torch.zeros(2, 1, 1, 8).expand(2, 32, 1, 8), c,
+                      8) == "composed"                        # stride 0
+
+
+def test_chunked_blocks_fit_the_card_at_the_model_widths():
+    """granite's chunk-output block fits twice an SM (P 64, N 128, Q 256);
+    its state block once, 16 heads of a group a block, with the deepest
+    ring (8 X slabs; 5 at P 128, none at Q 512); jamba's 32 heads a group
+    take 16 a block, mamba2-370m's 32 heads as well."""
+    assert 2 * (chunk_smem_bytes(256, 128, 64) + 1024) <= _SM_SMEM
+    assert state_stages(256, 128, 64, 16) == 8
+    assert state_stages(256, 128, 128, 16) == 5
+    assert state_stages(512, 128, 64, 16) == 0
+    assert chunk_smem_bytes(256, 128, 128) <= _MAX_SMEM
+    assert heads_per_block(128) == 16 and heads_per_block(32) == 16
+    assert heads_per_block(12) == 12 and heads_per_block(18) == 9
+    assert heads_per_block(1) == 1
+
+
+def test_ssd_scan_counts_only_the_cards_calls():
+    """The wrapper's counters name both routes and the chunked route's
+    three kernels; a call on CPU tensors takes the plain core and counts
+    nothing."""
+    assert set(ssd_scan.route_launches) == set(SCAN_ROUTES) \
+        == {"chunked", "composed"}
+    assert tuple(ssd_scan.kernel_launches) == SCAN_KERNELS \
+        == ("state", "pass", "output")
+    before = (ssd_scan.launches, dict(ssd_scan.route_launches),
+              dict(ssd_scan.kernel_launches))
+    x, dt, a, b, c, d = _group_operands()
+    got = ssd_scan(x, dt, a, b, c, d, chunk=8)
+    assert torch.equal(got, ssd_scan_ref(x, dt, a, b, c, d, 8))
+    assert (ssd_scan.launches, ssd_scan.route_launches,
+            ssd_scan.kernel_launches) == before
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ssd_scan(*(t.to("meta") for t in (x, dt, a, b, c, d)), chunk=8)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_ssd_scan_kernel_lowering_backward_recomputes_the_plain_core(g):
+    """Under grad the kernel lowering runs inside the SSD rows' rule: the
+    wrapper is the forward, the backward the plain core's gradients."""
+    ops = _group_operands(h=8, g=g, s=16)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ops]
+    with offload_policy(mode="device", use_kernels=True):
+        y = blas.ssd_scan(*leaves, chunk=8)
+    assert "_SsdScan" in type(y.grad_fn).__name__
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, leaves, dy)
+    plain = [t.detach().clone().requires_grad_(True) for t in ops]
+    want = torch.autograd.grad(ssd_scan_ref(*plain, 8), plain, dy)
+    for gt, wt in zip(got, want):
+        assert torch.equal(gt, wt)
+    y2 = kgrad.lowering("ssd_scan")(*leaves, chunk=8)
+    assert torch.equal(y2.detach(), y.detach())
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_head_sharded_plan_with_group_b_and_c_equals_the_unsharded_call(g):
+    """On the emulated (2, 4) mesh the head-sharded plan takes B and C once
+    a group: replicated for one group, sharded where the model axis splits
+    the groups, repeated per head otherwise (2 groups over 4 shards); each
+    equals the unsharded call."""
+    from repro_torch.core.accounting import offload_trace
+    from repro_torch.sharding.spmd import Mesh
+
+    ops = _group_operands(bsz=2, s=16, h=8, g=g)
+    with offload_policy(mode="device", use_kernels=True):
+        want = blas.ssd_scan(*ops, chunk=8)
+        with offload_trace() as tr, Mesh((2, 4), ("data", "model")):
+            got = blas.ssd_scan(*ops, chunk=8)
+    assert "tp-plan" in tr.records[0].note
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

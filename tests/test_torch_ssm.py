@@ -24,6 +24,7 @@ only on the card (``tests/test_torch_kernels_gpu.py``).
 """
 
 import dataclasses
+import functools
 from collections import defaultdict
 
 import jax
@@ -56,7 +57,7 @@ from repro_torch.core.hero import engine as tengine
 from repro_torch.core.hero import offload_policy as tpolicy
 from repro_torch.kernels.ops import KERNEL_LOWERINGS
 from repro_torch.kernels.ref import ssd_chunk_diag_ref
-from repro_torch.kernels.ssd_scan import ssd_chunk_diag
+from repro_torch.kernels.ssd_scan import ssd_chunk_diag, ssd_scan
 from repro_torch.launch.serve import serve_batch as tserve_batch
 from repro_torch.launch.steps import make_prefill_step as tprefill
 from repro_torch.models import build_model as tbuild
@@ -216,7 +217,7 @@ def test_ssd_chunk_diag_wrapper_rejects_what_the_kernel_does_not_take():
         ssd_chunk_diag(x, dta, b[:1], c[:1])
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ssd_chunk_diag(*(t.to("meta") for t in (x, dta, b, c)))
-    assert KERNEL_LOWERINGS["ssd_scan"] is ssd_chunk_diag
+    assert KERNEL_LOWERINGS["ssd_scan"] is ssd_scan
     assert KERNEL_LOWERINGS["ssd_chunk_diag"] is ssd_chunk_diag
 
 
@@ -434,8 +435,12 @@ def test_forward_eager_and_graph_agree(dtype):
 def test_one_mamba_block_graph_report_matches_reference():
     """One Mamba block captured as an hnp graph on both packages: every
     NodeReport field (node ids relative to the block's first node), the
-    summary and every record equal.  z/x and B/C batch into one launch
-    each, and the SiLU gate rides the ssd_scan launch."""
+    summary and every record equal, except that the port's ssd_scan takes B
+    and C once a group where the reference repeats them over the heads, so
+    it stages exactly those repeats' bytes less, with the resident share
+    and the modeled offload time that the reference's cost model gives
+    those bytes.  z/x and B/C batch into one launch each, and the SiLU gate
+    rides the ssd_scan launch."""
     jp, tp = _params("float32")
     jcfg, tcfg = _cfgs("float32", "graph")
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(1),
@@ -455,10 +460,13 @@ def test_one_mamba_block_graph_report_matches_reference():
             kw = dict(positions=torch.from_numpy(pos.copy()))
             base_leaf = lambda: thnp.array(torch.zeros(1)).node.id  # noqa: E731
         eng().reset()
-        with pol(num_devices=2, scheduler="cost-aware"), trace() as t, \
-                fwd.capture_reports() as reps:
+        with pol(num_devices=2, scheduler="cost-aware") as scoped, \
+                trace() as t, fwd.capture_reports() as reps:
             base = base_leaf() + 1
             y, _ = fwd.graph_block(*args, "mamba", False, **kw)
+            if name == "ref":
+                score = functools.partial(scoped.policy.score,
+                                          platform=scoped.platform)
         (rep,) = reps
         reports[name] = (
             np.asarray(y, np.float32) if name == "ref" else y.numpy(),
@@ -475,7 +483,38 @@ def test_one_mamba_block_graph_report_matches_reference():
     (jy, jrep, jsum, jrec), (ty, trep, tsum, trec) = (reports["ref"],
                                                       reports["port"])
     np.testing.assert_allclose(ty, jy, rtol=2e-4, atol=2e-4)
-    assert trep == jrep and tsum == jsum and trec == jrec
+
+    def split_ssd(launches, records):
+        ssd_l = [r for r in launches if r[1] == "ssd_scan"]
+        ssd_r = [r for r in records if r[0] == "ssd_scan"]
+        return ([r if r[1] != "ssd_scan" else r[:4] + r[6:] for r in launches],
+                [r if r[0] != "ssd_scan" else r[:3] for r in records],
+                ssd_l, ssd_r)
+
+    trep_, trec_, (tl,), (tr,) = split_ssd(trep, trec)
+    jrep_, jrec_, (jl,), (jr,) = split_ssd(jrep, jrec)
+    assert trep_ == jrep_ and tsum == jsum and trec_ == jrec_
+    heads, groups = tcfg.ssm_num_heads, tcfg.ssm_num_groups
+    bsz, s = x.shape[:2]
+    pdim, n = tcfg.ssm_head_dim, tcfg.ssm_state_dim
+    repeats = 2 * bsz * s * (heads - groups) * n * 4
+    assert groups < heads and tl[5] == jl[5] - repeats
+    # The share is (resident + kept output) / (staged + resident + kept
+    # output) bytes; the output is kept (no read-back), so the bytes that do
+    # not move are rf / (1 - rf) of the staged ones, the same on both sides.
+    assert jl[6] == tl[6] == 0.0
+    kept = round(jl[4] * jl[5] / (1.0 - jl[4]))
+    assert jl[4] == kept / (jl[5] + kept)
+    assert tl[4] == kept / (tl[5] + kept) and tr[3] == tl[4]
+    # The op's cost reads only the dims, so the modeled time moves with the
+    # share alone: the reference's cost model at the port's share.
+    z = jnp.zeros
+    cost = jblas._ssd_cost(z((bsz, s, heads, pdim)), z((bsz, s, heads)),
+                           z((heads,)), z((bsz, s, heads, n)),
+                           z((bsz, s, heads, n)), z((heads,)),
+                           chunk=tcfg.ssm_chunk)
+    assert jr[5] == score(cost, resident_fraction=jl[4]).offload_s
+    assert tr[5] == score(cost, resident_fraction=tl[4]).offload_s
     assert sum(1 for r in trep if r[1] == "matmul" and r[8]) == 4
     assert [r[0] for r in trec].count("gemm_batched") == 2
     (ssd,) = [r for r in trep if r[1] == "ssd_scan"]

@@ -519,7 +519,7 @@ def test_ssd_function_backward_is_the_plain_recompute():
     c0 = torch.randn(2, 2, 8, 5, generator=gen)
     dy = torch.randn(2, 2, 8, 4, generator=gen)
     ins = [t.clone().requires_grad_(True) for t in (x0, a0, b0, c0)]
-    y = kgrad.lowering("ssd_scan")(*ins)
+    y = kgrad.lowering("ssd_chunk_diag")(*ins)
     assert type(y.grad_fn).__name__ == "_SsdChunkDiagBackward"
     y.backward(dy)
     ref_ins = [t.clone().requires_grad_(True) for t in (x0, a0, b0, c0)]

@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Time one source tree's SSD chunk kernel on the card.
+"""Time one source tree's SSD kernels on the card.
 
     python3 tools/ssd_times.py [--src DIR] [--label NAME]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
-builds that tree's ``csrc/ssd_scan.cu``, and times the kernel at
-mamba2-370m's 4 x 1024 forward shape (BH 128, C 4, Q 256, P 64, N 128,
-fp32 operands, the model's decay) beside its bounds, its plain version and
-the library yardstick (two fp32 cuBLAS bmm around a masked exp), with
-``smoke/timing.py``'s timing code (CUDA events, inputs rotated past L2).
+builds that tree's ``csrc/ssd_scan.cu``, and times, with
+``smoke/timing.py``'s timing code (CUDA events):
+
+* the SSD chunk kernel (``ssd_chunk_diag``) at mamba2-370m's 4 x 1024
+  forward shape (BH 128, C 4, Q 256, P 64, N 128, fp32 operands, the
+  model's decay, inputs rotated past L2) beside its bounds, its plain
+  version and the library yardstick (two fp32 cuBLAS bmm around a masked
+  exp);
+* the whole SSD core as granite-4.0-h-small's mixer runs it
+  (``time_ssd_core``: 4 x 4096, H 128, G 1, P 64, N 128, Q 256, from the
+  conv's f32 output through ``ssd_inputs`` and ``blas.ssd_scan``) beside
+  its bound, its plain composition and its device time by kernel family.
+
 Prints one JSON line, then the card's name and power limit.  To compare
 two trees on one card, run both in one command, in turns (e.g. parent,
 change, change, parent).  Needs a CUDA card; imports nothing of JAX or of
@@ -49,8 +57,10 @@ def main() -> None:
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     shape = timing.time_ssd(ssd_chunk_diag, cfg, randn)
+    core = timing.time_ssd_core(randn)
     print(json.dumps({"label": args.label, "src": args.src,
-                      "ssd_chunk_diag_shape": shape}), flush=True)
+                      "ssd_chunk_diag_shape": shape,
+                      "ssd_core_granite": core}), flush=True)
     print(timing._card_name_and_power_limit(), flush=True)
 
 
